@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's exact click-to-video sampler on one NVIDIA card.
+"""Drive the PyTorch port's click-to-video sampler on one NVIDIA card.
 
     python3 chip_smoke.py [--steps 4] [--seed 0]
 
@@ -9,15 +9,23 @@ result line:
 1. the card's name and power limit (``nvidia-smi``), then the build of the
    hand-written kernels from ``followyourclick_tpu_torch/csrc``;
 2. each kernel against its plain PyTorch version at every shape the
-   16-frame 512² CFG step gives it, in bf16 and in both GEGLU gate forms,
-   with the error against a stated tolerance and both times;
-3. a tiny-config request on the card (kernels, fp32) against the same
-   request through the port on the CPU (plain versions);
+   16-frame 512² CFG step gives it (the frame-axis attention kernels also at
+   the halved rows of a cond-only step), in bf16 and in both GEGLU gate
+   forms, with the error against a stated tolerance and both times;
+3. tiny-config requests on the card (kernels, fp32) against the same
+   requests through the port on the CPU (plain versions), at 64², where
+   spatial self-attention of ≤ 32 tokens takes the tiny-sequence kernel:
+   one on the exact sampler, one under ``pab244_deep4_cfg4_ex``;
 4. two requests at full width (the default ``InferenceConfig``, 1.28 B
    UNet parameters) in bf16 at 16 frames, 512², CFG 8, with seeded random
-   weights: time, video statistics, and the kernels' launch counts, which
-   must be exactly 20 (motion block) and 16 (LN-GEGLU) per step.
+   weights, on the exact sampler (``--steps``);
+5. two such requests under the serving schedule ``pab488_deep4_cfg4_ex``
+   at 10 steps (one period of 8 and the 2 final exact steps).
 
+Phases 4 and 5 are the main paths: each sets every kernel's launch count to
+0 before its requests and checks each request's counts against those its
+``step_plan`` gives (and, on the serving path, against the counts worked out
+by hand), and prints time, video statistics and peak memory.
 The second-to-last line is the JSON kernel table, the last line
 ``{"ok": true, "device": {...}}``. The script needs torch with CUDA, numpy
 and the CUDA toolkit; it imports no JAX.
@@ -41,7 +49,8 @@ import torch
 # tests/test_torch_cuda.py
 BF16_REL = 1.6e-2
 # tiny fp32 request, card vs CPU, on a video in [0, 1]: the two sides differ
-# only in summation order (TF32 off) through 2 steps of ~60 layers and the VAE
+# only in summation order (TF32 off) through 2-6 steps of ~60 layers and the
+# VAE
 TINY_VIDEO_ATOL = 2e-3
 
 # (rows, C) per LN-GEGLU call and its count per UNet evaluation, and
@@ -50,6 +59,36 @@ GEGLU_SHAPES = [((131072, 320), 5), ((32768, 640), 5), ((8192, 1280), 5),
                 ((2048, 1280), 1)]
 MOTION_SHAPES = [((8192, 16, 320), 5), ((2048, 16, 640), 5),
                  ((512, 16, 1280), 5), ((128, 16, 1280), 5)]
+# the modular path's frame-axis attention, per UNet evaluation that runs
+# the temporal sites on the full CFG batch (10 calls per shape; 0 on the
+# cond-only rows, which a schedule refreshing temporal attention on a
+# cond-only step, e.g. pab222_cfg4, gives): (B, F, C) per
+# fused_temporal_block, (B, F, heads, D) per temporal_attention
+TEMPORAL_BLOCK_SHAPES = [((8192, 16, 320), 10), ((2048, 16, 640), 10),
+                         ((4096, 16, 320), 0), ((1024, 16, 640), 0)]
+TEMPORAL_ATTN_SHAPES = [((512, 16, 8, 160), 10), ((128, 16, 8, 160), 10),
+                        ((256, 16, 8, 160), 0), ((64, 16, 8, 160), 0)]
+KERNELS = {
+    "fused_motion_block": ("followyourclick_tpu_torch/csrc/motion_block.cu",
+                           "followyourclick_tpu/ops/motion_block.py:179"),
+    "fused_ln_geglu": ("followyourclick_tpu_torch/csrc/geglu.cu",
+                       "followyourclick_tpu/ops/geglu.py:224"),
+    "fused_temporal_block": (
+        "followyourclick_tpu_torch/csrc/temporal_attention.cu",
+        "followyourclick_tpu/ops/temporal_attention.py:289"),
+    "temporal_attention": (
+        "followyourclick_tpu_torch/csrc/temporal_attention.cu",
+        "followyourclick_tpu/ops/temporal_attention.py:161"),
+}
+SERVING_SCHEDULE = "pab488_deep4_cfg4_ex"
+SERVING_STEPS = 10
+# launches per serving request, worked out by hand from the schedule: the
+# temporal sites run on the 3 full non-reusing steps (3 × 20 of each frame
+# kernel); LN-GEGLU 36 times on each of the 4 full steps and 10 times on
+# each of the 6 level-0 steps; the temporal sites keep every block off the
+# whole-block kernel
+SERVING_LAUNCHES = {"fused_motion_block": 0, "fused_ln_geglu": 204,
+                    "fused_temporal_block": 60, "temporal_attention": 60}
 
 
 def log(*a):
@@ -107,6 +146,20 @@ def compare(name, got, ref, failures):
     return max_abs
 
 
+def kernel_wrappers():
+    """The wrappers of every kernel, by name; each counts its launches."""
+    from followyourclick_tpu_torch.ops.geglu import fused_ln_geglu
+    from followyourclick_tpu_torch.ops.motion_block import fused_motion_block
+    from followyourclick_tpu_torch.ops.temporal_attention import (
+        fused_temporal_block,
+        temporal_attention,
+    )
+
+    fns = (fused_motion_block, fused_ln_geglu, fused_temporal_block,
+           temporal_attention)
+    return {fn.__name__: fn for fn in fns}
+
+
 def phase_kernels(seed):
     from followyourclick_tpu_torch.ops.geglu import (
         fused_ln_geglu,
@@ -116,11 +169,16 @@ def phase_kernels(seed):
         fused_motion_block,
         motion_block_ref,
     )
+    from followyourclick_tpu_torch.ops.temporal_attention import (
+        fused_temporal_block,
+        temporal_attention,
+        temporal_attention_ref,
+        temporal_block_ref,
+    )
 
     bf = torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    stats = {"fused_ln_geglu": dict(err=0.0, ms=0.0, plain_ms=0.0),
-             "fused_motion_block": dict(err=0.0, ms=0.0, plain_ms=0.0)}
+    stats = {name: dict(err=0.0, ms=0.0, plain_ms=0.0) for name in KERNELS}
     failures = []
 
     def vec(c, s=0.05, base=0.0):
@@ -180,6 +238,34 @@ def phase_kernels(seed):
             if fast == default:
                 st["ms"] += count * ms
                 st["plain_ms"] += count * plain
+
+    heads = 8
+    for (b, f, c), count in TEMPORAL_BLOCK_SHAPES:
+        args = (randn(gen, (b, f, c), 1.0, bf),
+                *[randn(gen, (c, c), c ** -0.5, bf) for _ in range(4)],
+                vec(c, 0.02))
+        name = f"fused_temporal_block B={b} F={f} C={c}"
+        st = stats["fused_temporal_block"]
+        st["err"] = max(st["err"], compare(
+            name, fused_temporal_block(*args, heads=heads),
+            temporal_block_ref(*args, heads=heads), failures))
+        ms = time_ms(lambda: fused_temporal_block(*args, heads=heads))
+        plain = time_ms(lambda: temporal_block_ref(*args, heads=heads))
+        log(f"    kernel {ms:.3f} ms, plain {plain:.3f} ms")
+        st["ms"] += count * ms
+        st["plain_ms"] += count * plain
+    for shape, count in TEMPORAL_ATTN_SHAPES:
+        qkv = [randn(gen, shape, 1.0, bf) for _ in range(3)]
+        name = "temporal_attention B={} S={} H={} D={}".format(*shape)
+        st = stats["temporal_attention"]
+        st["err"] = max(st["err"], compare(
+            name, temporal_attention(*qkv), temporal_attention_ref(*qkv),
+            failures))
+        ms = time_ms(lambda: temporal_attention(*qkv))
+        plain = time_ms(lambda: temporal_attention_ref(*qkv))
+        log(f"    kernel {ms:.3f} ms, plain {plain:.3f} ms")
+        st["ms"] += count * ms
+        st["plain_ms"] += count * plain
     for name, st in stats.items():
         log(f"[kernels] {name}: one UNet evaluation's calls take "
             f"{st['ms']:.1f} ms in the kernel, {st['plain_ms']:.1f} ms plain")
@@ -207,10 +293,9 @@ def unzero_(module, gen, std=0.02):
 
 
 def tiny_config():
-    """The CPU tests' tiny config at 384² instead of 64²: at 64² the spatial
-    self-attention of the inner levels has ≤ 32 tokens, which is the JAX
-    package's tiny-sequence Pallas route, not ported yet (it raises on the
-    card). At 384² the smallest level has 6² = 36 tokens."""
+    """The CPU tests' tiny config (UNet widths 32-64, 4 motion heads; at 64²
+    the inner levels' spatial self-attention has ≤ 32 tokens, the
+    tiny-sequence kernel's route)."""
     from followyourclick_tpu_torch.config import (
         CLIPTextConfig,
         InferenceConfig,
@@ -254,6 +339,9 @@ def phase_tiny(seed):
         AnimationPipeline,
         SampleSpec,
     )
+    from followyourclick_tpu_torch.pipelines.serving_schedules import (
+        apply_schedule,
+    )
 
     torch.manual_seed(seed)
     cfg = tiny_config()
@@ -262,46 +350,112 @@ def phase_tiny(seed):
     card = AnimationPipeline(cfg, copy.deepcopy(cpu.unet),
                              copy.deepcopy(cpu.vae),
                              copy.deepcopy(cpu.text_encoder), device="cuda")
-    spec = SampleSpec(video_length=4, height=384, width=384,
-                      num_inference_steps=2)
-    with torch.inference_mode():
-        req = make_request(cpu, spec, seed + 1, 1000)
-    t0 = time.perf_counter()
-    want = cpu.sample(spec=spec, **req)
-    t_cpu = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    got = card.sample(spec=spec, **req)
-    torch.cuda.synchronize()
-    t_card = time.perf_counter() - t0
-    err = float((got.cpu() - want).abs().max())
-    ok = err <= TINY_VIDEO_ATOL and bool(torch.isfinite(got).all()) \
-        and float(want.std()) > 1e-3
-    log(f"[tiny] video {tuple(got.shape)} card (kernels) vs CPU (plain): "
-        f"max_abs_err {err:.3e} (tol {TINY_VIDEO_ATOL}); card {t_card:.2f} s, "
-        f"CPU {t_cpu:.2f} s {'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise SystemExit("tiny request: the card disagrees with the CPU")
+    exact = SampleSpec(video_length=4, height=64, width=64,
+                       num_inference_steps=2)
+    # one period of 4 and the 2 final exact steps
+    serving = apply_schedule(SampleSpec(video_length=4, height=64, width=64,
+                                        num_inference_steps=6),
+                             "pab244_deep4_cfg4_ex")
+    wrappers = kernel_wrappers()
+    for label, spec in (("exact", exact), ("pab244_deep4_cfg4_ex", serving)):
+        with torch.inference_mode():
+            req = make_request(cpu, spec, seed + 1, 1000)
+        t0 = time.perf_counter()
+        want = cpu.sample(spec=spec, **req)
+        t_cpu = time.perf_counter() - t0
+        before = {n: fn.launches for n, fn in wrappers.items()}
+        t0 = time.perf_counter()
+        got = card.sample(spec=spec, **req)
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t0
+        launched = {n: fn.launches - before[n] for n, fn in wrappers.items()}
+        err = float((got.cpu() - want).abs().max())
+        ok = err <= TINY_VIDEO_ATOL and bool(torch.isfinite(got).all()) \
+            and float(want.std()) > 1e-3
+        log(f"[tiny] {label}: video {tuple(got.shape)} card (kernels) vs "
+            f"CPU (plain): max_abs_err {err:.3e} (tol {TINY_VIDEO_ATOL}); "
+            f"card {t_card:.2f} s, CPU {t_cpu:.2f} s; launches {launched} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"tiny {label} request: the card disagrees "
+                             "with the CPU")
+        if not launched["temporal_attention"]:
+            raise SystemExit("tiny request: spatial self-attention of <= 32 "
+                             "tokens did not take the temporal_attention "
+                             "kernel")
 
 
-def phase_full(seed, steps):
+def whole_block_fits(c, dtype):
+    """The whole-block motion kernel's route rule at 16 frames, written out
+    from its shared-memory size rather than asked of the model: bf16 at
+    every width to 1280, fp32 only below 640."""
+    return c <= 1280 and (dtype == torch.bfloat16
+                          or (dtype == torch.float32 and c < 640))
+
+
+def expected_launches(unet, plan, dtype):
+    """Each kernel's launches in one request that follows ``plan`` (a
+    ``step_plan``), from the plan and the UNet's module structure alone. A
+    trunk-reuse step runs only level 0 (down block 0 and the last up block).
+    A motion block (all standard, two ``Temporal_Self`` attentions) takes
+    the modular path when the step's mode records or reuses temporal sites
+    or :func:`whole_block_fits` says no, else the whole-block kernel. On the
+    modular path the FF is one LN-GEGLU launch and each attention that is
+    not reused one launch of fused_temporal_block (C < 1280) or
+    temporal_attention (C = 1280); every spatial transformer block runs one
+    LN-GEGLU. Spatial self-attention is assumed above 32 tokens (no
+    tiny-sequence launches), as at 512²."""
+    from followyourclick_tpu_torch.models.attention import (
+        BasicTransformerBlock,
+    )
+    from followyourclick_tpu_torch.models.motion_module import (
+        TemporalTransformerBlock,
+    )
+
+    last_up = f"up_blocks.{len(unet.up_blocks) - 1}."
+
+    def level0(name):
+        return name.startswith("down_blocks.0.") or name.startswith(last_up)
+
+    counts = dict.fromkeys(KERNELS, 0)
+    for step in plan:
+        mode = step.mode
+        trunk = (mode is None or not mode.reuse_deep
+                 or len(unet.down_blocks) < 2)
+        temporal_sites = mode is not None and (mode.record_temporal
+                                               or mode.reuse_temporal)
+        for name, m in unet.named_modules():
+            if not (trunk or level0(name)):
+                continue
+            if isinstance(m, BasicTransformerBlock):
+                counts["fused_ln_geglu"] += 1
+            elif isinstance(m, TemporalTransformerBlock):
+                if not temporal_sites and whole_block_fits(m.dim, dtype):
+                    counts["fused_motion_block"] += 1
+                    continue
+                counts["fused_ln_geglu"] += 1
+                if mode is None or not mode.reuse_temporal:
+                    kernel = ("fused_temporal_block" if m.dim < 1280
+                              else "temporal_attention")
+                    counts[kernel] += len(m.attention_blocks)
+    return counts
+
+
+def full_pipeline(seed):
+    """The default InferenceConfig's models with seeded random weights, in
+    bf16 on the card."""
     from followyourclick_tpu_torch.config import InferenceConfig
-    from followyourclick_tpu_torch.ops.geglu import fused_ln_geglu
-    from followyourclick_tpu_torch.ops.motion_block import fused_motion_block
+    from followyourclick_tpu_torch.models.clip_text import CLIPTextModel
+    from followyourclick_tpu_torch.models.unet3d import UNet3DConditionModel
+    from followyourclick_tpu_torch.models.vae import AutoencoderKL
     from followyourclick_tpu_torch.pipelines.animation import (
         AnimationPipeline,
-        SampleSpec,
     )
 
     cfg = InferenceConfig()
     t0 = time.perf_counter()
     torch.manual_seed(seed)
     with torch.device("cuda"):
-        from followyourclick_tpu_torch.models.clip_text import CLIPTextModel
-        from followyourclick_tpu_torch.models.unet3d import (
-            UNet3DConditionModel,
-        )
-        from followyourclick_tpu_torch.models.vae import AutoencoderKL
-
         unet = UNet3DConditionModel(cfg.unet)
         vae = AutoencoderKL(cfg.vae)
         text = CLIPTextModel(cfg.clip_text)
@@ -312,50 +466,67 @@ def phase_full(seed, steps):
     torch.cuda.synchronize()
     log(f"[full] built in {time.perf_counter() - t0:.1f} s; UNet "
         f"{n_params / 1e9:.3f} B parameters, bf16")
-    spec = SampleSpec(num_inference_steps=steps)
+    return pipe
 
-    counters = (fused_motion_block, fused_ln_geglu)
-    for fn in counters:
-        fn.launches = 0
+
+def phase_requests(pipe, spec, label, seed, by_hand=None):
+    """Two full-width requests on one path: the counts are set to 0 before
+    and read after each; each must equal what ``step_plan`` gives, and that
+    must equal ``by_hand`` where it is given. Returns the path's launches by
+    kernel and the seconds per request."""
+    from followyourclick_tpu_torch.pipelines.animation import step_plan
+
+    wrappers = kernel_wrappers()
+    want = expected_launches(pipe.unet, step_plan(spec), pipe.dtype)
+    if by_hand is not None and want != by_hand:
+        raise SystemExit(f"{label}: step_plan gives {want} launches, the "
+                         f"hand count {by_hand}")
+    total = dict.fromkeys(KERNELS, 0)
     videos, seconds = [], []
+    torch.cuda.reset_peak_memory_stats()
     for r in range(2):
-        before = [fn.launches for fn in counters]
+        for fn in wrappers.values():
+            fn.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with torch.inference_mode():
             req = make_request(pipe, spec, seed + 100 + r,
-                               cfg.clip_text.vocab_size)
+                               pipe.config.clip_text.vocab_size)
             video = pipe.sample(spec=spec, **req)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        got = [fn.launches - b for fn, b in zip(counters, before)]
+        got = {name: fn.launches for name, fn in wrappers.items()}
+        for name, n in got.items():
+            total[name] += n
         v = video.float()
-        log(f"[full] request {r}: {dt:.2f} s, video {tuple(v.shape)} min "
+        log(f"[{label}] request {r}: {dt:.2f} s, video {tuple(v.shape)} min "
             f"{float(v.min()):.4f} max {float(v.max()):.4f} mean "
             f"{float(v.mean()):.4f} std {float(v.std()):.4f}; launches "
-            f"fused_motion_block {got[0]} (want {20 * steps}), "
-            f"fused_ln_geglu {got[1]} (want {16 * steps})")
-        if got != [20 * steps, 16 * steps]:
-            raise SystemExit("the main path did not launch every kernel "
-                             "the expected number of times")
-        if v.shape != (1, 16, 512, 512, 3) or not bool(
-                torch.isfinite(v).all()) or float(v.std()) <= 0.0:
-            raise SystemExit("the video is not finite and non-constant")
+            f"{got} (want {want})")
+        if got != want:
+            raise SystemExit(f"{label}: the kernels were not launched the "
+                             "number of times the step plan gives")
+        shape = (1, spec.video_length, spec.height, spec.width, 3)
+        if v.shape != shape or not bool(torch.isfinite(v).all()) \
+                or float(v.std()) <= 0.0:
+            raise SystemExit(f"{label}: the video is not finite and "
+                             "non-constant")
         videos.append(v)
         seconds.append(dt)
     diff = float((videos[0] - videos[1]).abs().mean())
-    log(f"[full] mean |video 0 - video 1| = {diff:.4f}")
+    log(f"[{label}] mean |video 0 - video 1| = {diff:.4f}")
     if diff <= 0.0:
-        raise SystemExit("two different requests gave the same video")
-    log(f"[full] peak device memory "
+        raise SystemExit(f"{label}: two different requests gave the same "
+                         "video")
+    log(f"[{label}] peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
-    return {fn.__name__: fn.launches for fn in counters}, seconds
+    return total, seconds
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=4,
-                    help="DDIM steps per full-width request (default 4)")
+                    help="DDIM steps per exact full-width request (4)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -366,24 +537,45 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
+    from followyourclick_tpu_torch.pipelines.animation import SampleSpec
+    from followyourclick_tpu_torch.pipelines.serving_schedules import (
+        apply_schedule,
+    )
+
     phase_build()
     stats = phase_kernels(args.seed)
     phase_tiny(args.seed)
-    launches, _ = phase_full(args.seed, args.steps)
+    pipe = full_pipeline(args.seed)
+    paths = {
+        "exact": phase_requests(
+            pipe, SampleSpec(num_inference_steps=args.steps), "full",
+            args.seed)[0],
+        SERVING_SCHEDULE: phase_requests(
+            pipe, apply_schedule(SampleSpec(
+                num_inference_steps=SERVING_STEPS), SERVING_SCHEDULE),
+            "serving", args.seed, SERVING_LAUNCHES)[0],
+    }
+    for name in KERNELS:
+        if not sum(launches[name] for launches in paths.values()):
+            raise SystemExit(f"{name} was never launched on a main path")
 
-    sources = {
-        "fused_motion_block": ("followyourclick_tpu_torch/csrc/motion_block.cu",
-                               "followyourclick_tpu/ops/motion_block.py:179"),
-        "fused_ln_geglu": ("followyourclick_tpu_torch/csrc/geglu.cu",
-                           "followyourclick_tpu/ops/geglu.py:224"),
+    covers = {
+        "fused_motion_block": "the calls of one exact UNet evaluation",
+        "fused_ln_geglu": "the calls of one exact UNet evaluation",
+        "fused_temporal_block": "the calls of one full-batch UNet "
+                                "evaluation on the modular path",
+        "temporal_attention": "the calls of one full-batch UNet evaluation "
+                              "on the modular path",
     }
     kernels = [{"name": name, "route": "cuda", "source": src,
-                "replaces": rep, "launches": launches[name],
+                "replaces": rep,
+                "launches": sum(p[name] for p in paths.values()),
+                "launches_by_path": {path: p[name]
+                                     for path, p in paths.items()},
                 "max_abs_err": stats[name]["err"],
                 "ms": stats[name]["ms"], "plain_ms": stats[name]["plain_ms"],
-                "ms_covers": "one UNet evaluation's calls at 16 f / 512^2 "
-                             "CFG, bf16, default gating"}
-               for name, (src, rep) in sources.items()]
+                "ms_covers": covers[name] + " at 16 f / 512^2 CFG, bf16"}
+               for name, (src, rep) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
 // Shared device helpers of the port's Hopper kernels (geglu.cu,
-// motion_block.cu): the fp32-statistics LayerNorm of a row tile, a tiled
-// product with fp32 accumulation, the two GEGLU gate forms (`_gate_mul` of
-// followyourclick_tpu/ops/geglu.py), the per-head frame softmax, and the
-// LN -> GEGLU feed-forward over a row tile that both kernels run.
+// motion_block.cu, temporal_attention.cu): the fp32-statistics LayerNorm of
+// a row tile, a tiled product with fp32 accumulation, the two GEGLU gate
+// forms (`_gate_mul` of followyourclick_tpu/ops/geglu.py), the per-head
+// frame softmax, the frame-axis attention of a row tile, and the LN -> GEGLU
+// feed-forward over a row tile.
 //
 // Storage types: float and __nv_bfloat16. All arithmetic is fp32; values
 // are rounded to the storage type exactly where the Pallas kernels cast
@@ -349,6 +350,56 @@ __device__ void block_gemm_nt_acc(const T* A, int lda, int M, const T* B,
   }
   block_gemm_nt<T, MC>(A, lda, M, B, ldb, N, K, work,
                        [&](int m, int n, float v) { Cm[m * ldc + n] += v; });
+}
+
+// Frame-axis self-attention of a row tile of M / F whole positions, F frame
+// rows each (the attention of fused_motion_block and fused_temporal_block):
+// q, k, v = xn . Wq^T, Wk^T, Wv^T for all heads at once (three full-width
+// products, each output cast to T after fp32 accumulation), then head by
+// head the F x F scores in fp32 times `scale`, the softmax (softmax_rows)
+// and o = p . v accumulated in fp32 and cast to T. o overwrites xn (row
+// stride lx), which is dead once q, k, v exist. q, k, v: row stride C;
+// s: M * F floats. The TPU kernels' head-block mask and segmented softmax
+// are lane-layout devices; here each (position, head, query frame) row
+// computes its own softmax directly.
+template <typename T, int MC>
+__device__ void frame_attention(T* xn, int lx, T* q, T* k, T* v, float* s,
+                                void* work, int M, int F, int C, int heads,
+                                float scale, const T* __restrict__ wq,
+                                const T* __restrict__ wk,
+                                const T* __restrict__ wv) {
+  const int d = C / heads;
+  block_gemm_nt<T, MC>(xn, lx, M, wq, C, C, C, work,
+                       [&](int m, int n, float x) { q[m * C + n] = from_f<T>(x); });
+  block_gemm_nt<T, MC>(xn, lx, M, wk, C, C, C, work,
+                       [&](int m, int n, float x) { k[m * C + n] = from_f<T>(x); });
+  block_gemm_nt<T, MC>(xn, lx, M, wv, C, C, C, work,
+                       [&](int m, int n, float x) { v[m * C + n] = from_f<T>(x); });
+  T* o = xn;
+  for (int hd = 0; hd < heads; ++hd) {
+    const int c0 = hd * d;
+    // scores of row m = (position g, query frame) against the F key frames
+    for (int i = threadIdx.x; i < M * F; i += kThreads) {
+      const int m = i / F, key = (m / F) * F + i % F;
+      const T* qr = q + (size_t)m * C + c0;
+      const T* kr = k + (size_t)key * C + c0;
+      float dot = 0.f;
+      for (int j = 0; j < d; ++j) dot = fmaf(to_f(qr[j]), to_f(kr[j]), dot);
+      s[i] = dot * scale;
+    }
+    __syncthreads();
+    softmax_rows<T>(s, M, F);
+    __syncthreads();
+    // o[:, head columns] = p . v, rounded to T
+    for (int i = threadIdx.x; i < M * d; i += kThreads) {
+      const int m = i / d, n = c0 + i % d, g0 = (m / F) * F;
+      float acc = 0.f;
+      for (int j = 0; j < F; ++j)
+        acc = fmaf(s[m * F + j], to_f(v[(size_t)(g0 + j) * C + n]), acc);
+      o[(size_t)m * lx + n] = from_f<T>(acc);
+    }
+    __syncthreads();
+  }
 }
 
 // acc[m, :] += GEGLU(xn[m, :]) for the M rows of a tile, without the b2

@@ -18,14 +18,14 @@
 // three sublayers, so h is read once and written once. Each attention
 // sublayer projects q, k, v for all heads at once (three full-width
 // products), then runs head by head: the F x F scores in fp32, the softmax,
-// and o = p . v written over the LN output, which is dead by then; one
+// and o = p . v written over the LN output, which is dead by then
+// (frame_attention in common.cuh, shared with fused_temporal_block); one
 // out-projection product adds into h. The FF reuses the q/k/v space for its
 // fp32 accumulator and chunks, so at C = 1280 in bf16 one position (16
-// rows) fits the 227 KB. The TPU kernel's head-block mask and segmented
-// softmax are lane-layout devices; here each (position, head, query frame)
-// row computes its own softmax directly. The FF is the same device code as
-// the LN-GEGLU kernel. bf16 products run on the tensor cores (WMMA), fp32
-// ones on FMA tiles (common.cuh).
+// rows) fits the 227 KB; fp32 at C >= 640 does not fit, and the model
+// routes such blocks to the modular kernels instead. The FF is the same
+// device code as the LN-GEGLU kernel. bf16 products run on the tensor cores
+// (WMMA), fp32 ones on FMA tiles (common.cuh).
 #include "common.cuh"
 
 namespace fyc {
@@ -74,42 +74,14 @@ __device__ void attention_sublayer(T* h, T* xn, T* q, T* k, T* v, float* s,
   const T* wv = (const T*)prm.p[base + 4];
   const T* wo = (const T*)prm.p[base + 5];
   const T* bo = (const T*)prm.p[base + 6];
-  const int d = C / heads, lx = padded(C, sizeof(T));
+  const int lx = padded(C, sizeof(T));
 
   ln_rows<T>(h, M, C, ls, lb, eps, pe, F, xn, lx);
-  block_gemm_nt<T, MC>(xn, lx, M, wq, C, C, C, work,
-                       [&](int m, int n, float x) { q[m * C + n] = from_f<T>(x); });
-  block_gemm_nt<T, MC>(xn, lx, M, wk, C, C, C, work,
-                       [&](int m, int n, float x) { k[m * C + n] = from_f<T>(x); });
-  block_gemm_nt<T, MC>(xn, lx, M, wv, C, C, C, work,
-                       [&](int m, int n, float x) { v[m * C + n] = from_f<T>(x); });
-  T* o = xn;  // the LN output is dead once q, k, v exist (row stride lx)
-  for (int hd = 0; hd < heads; ++hd) {
-    const int c0 = hd * d;
-    // scores of row m = (position g, query frame) against the F key frames
-    for (int i = threadIdx.x; i < M * F; i += kThreads) {
-      const int m = i / F, key = (m / F) * F + i % F;
-      const T* qr = q + (size_t)m * C + c0;
-      const T* kr = k + (size_t)key * C + c0;
-      float dot = 0.f;
-      for (int j = 0; j < d; ++j) dot = fmaf(to_f(qr[j]), to_f(kr[j]), dot);
-      s[i] = dot * scale;
-    }
-    __syncthreads();
-    softmax_rows<T>(s, M, F);
-    __syncthreads();
-    // o[:, head columns] = p . v, rounded to T
-    for (int i = threadIdx.x; i < M * d; i += kThreads) {
-      const int m = i / d, n = c0 + i % d, g0 = (m / F) * F;
-      float acc = 0.f;
-      for (int j = 0; j < F; ++j)
-        acc = fmaf(s[m * F + j], to_f(v[(size_t)(g0 + j) * C + n]), acc);
-      o[(size_t)m * lx + n] = from_f<T>(acc);
-    }
-    __syncthreads();
-  }
+  // o (over the LN output in xn) = the heads' attention
+  frame_attention<T, MC>(xn, lx, q, k, v, s, work, M, F, C, heads, scale, wq,
+                         wk, wv);
   // h += T(o . Wo^T + bo), each output written once
-  block_gemm_nt<T, MC>(o, lx, M, wo, C, C, C, work, [&](int m, int n, float x) {
+  block_gemm_nt<T, MC>(xn, lx, M, wo, C, C, C, work, [&](int m, int n, float x) {
     h[m * C + n] = from_f<T>(
         rnd<T>(to_f(h[m * C + n]) + rnd<T>(x + to_f(bo[n]))));
   });

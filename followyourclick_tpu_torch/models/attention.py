@@ -1,8 +1,10 @@
 """Spatial transformer blocks (self-attention → text cross-attention → FF).
 
-Port of ``followyourclick_tpu/models/attention.py`` on the exact path: the
-IP-Adapter keys, the T5 cross-attention, cross-frame and in-block temporal
-attention and the PAB sites are not ported yet.
+Port of ``followyourclick_tpu/models/attention.py`` with the PAB sites of
+the self-attention (``attn1_out``, kind ``spatial``) and the text
+cross-attention (``attn2_out``, kind ``cross``): the IP-Adapter keys, the T5
+cross-attention and cross-frame and in-block temporal attention are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from followyourclick_tpu_torch.models.layers import GroupNorm, LayerNorm
+from followyourclick_tpu_torch.models.pab import PabMode, pab_site
 from followyourclick_tpu_torch.ops.attention import dot_product_attention
 from followyourclick_tpu_torch.ops.geglu import fused_ln_geglu
 
@@ -95,9 +98,12 @@ class BasicTransformerBlock(nn.Module):
         self.norm3 = LayerNorm(dim)
         self.ff = GEGLUFeedForward(dim)
 
-    def forward(self, hidden_states: torch.Tensor,
-                context: torch.Tensor) -> torch.Tensor:
-        h = self.attn1(self.norm1(hidden_states)) + hidden_states
+    def forward(self, hidden_states: torch.Tensor, context: torch.Tensor,
+                pab: Optional[PabMode] = None,
+                cache: Optional[dict] = None) -> torch.Tensor:
+        h = hidden_states
+        h = pab_site(self, "spatial", "attn1_out", pab, cache,
+                     lambda: self.attn1(self.norm1(h))) + h
         # CFG prefix sharing (exact): hidden states at the pre-CFG batch meet
         # context at the doubled [uncond; cond] batch. The halves were equal
         # up to here; duplicate where text conditioning first enters.
@@ -106,7 +112,8 @@ class BasicTransformerBlock(nn.Module):
             assert tile * h.shape[0] == context.shape[0], \
                 (h.shape, context.shape)
             h = torch.cat([h] * tile, dim=0)
-        h = self.attn2(self.norm2(h), context) + h
+        h = pab_site(self, "cross", "attn2_out", pab, cache,
+                     lambda: self.attn2(self.norm2(h), context)) + h
         return _ln_ff_residual(self.norm3, self.ff, h)
 
 
@@ -127,15 +134,16 @@ class SpatialTransformer3D(nn.Module):
             for _ in range(num_layers))
         self.proj_out = nn.Linear(inner, in_channels)
 
-    def forward(self, hidden_states: torch.Tensor,
-                context: torch.Tensor) -> torch.Tensor:
+    def forward(self, hidden_states: torch.Tensor, context: torch.Tensor,
+                pab: Optional[PabMode] = None,
+                cache: Optional[dict] = None) -> torch.Tensor:
         b, f, hh, ww, c = hidden_states.shape
         residual = hidden_states.reshape(b * f, hh, ww, c)
         x = self.norm(residual).reshape(b * f, hh * ww, c)
         x = self.proj_in(x)
         ctx = context.repeat_interleave(f, dim=0)
         for block in self.transformer_blocks:
-            x = block(x, ctx)
+            x = block(x, ctx, pab, cache)
         bf_out = x.shape[0]  # CFG-doubled inside the first block when shared
         x = self.proj_out(x).reshape(bf_out, hh, ww, c)
         if bf_out != residual.shape[0]:

@@ -1,17 +1,31 @@
 """Temporal-attention motion modules.
 
-Port of ``followyourclick_tpu/models/motion_module.py`` with sinusoidal PE.
-On a CUDA tensor the standard block (two ``Temporal_Self`` attentions, no
-RoPE or LoRA, full width ≤ 1280) runs as one launch of the hand-written
-kernel (``ops/motion_block.fused_motion_block``); elsewhere the modular
-``TemporalAttention`` path runs, as in the JAX package off the TPU. RoPE,
-temporal LoRA, cross-attention blocks and the PAB sites are not ported yet
-and raise.
+Port of ``followyourclick_tpu/models/motion_module.py`` with sinusoidal PE
+and the temporal PAB sites (``attn_0_out``, ``attn_1_out``). RoPE, temporal
+LoRA and cross-attention blocks are not ported yet and raise.
+
+Routes on a CUDA tensor, decided before any launch:
+
+- the whole-block kernel ``ops/motion_block.fused_motion_block`` takes a
+  standard block (two ``Temporal_Self`` attentions, full width ≤ 1280) when
+  no PAB mode records or reuses temporal sites and one position's block fits
+  a thread block's shared memory at this width, frame count and dtype
+  (``ops/motion_block.fits``, the test its tile sizing applies; fp32 at
+  C ≥ 640 does not fit);
+- every other block takes the modular path, each attention through a PAB
+  site: at C < 1280 one launch of ``ops/temporal_attention.
+  fused_temporal_block`` (the JAX package's condition), at C = 1280 the
+  q/k/v products and ``dot_product_attention``'s tiny-sequence kernel
+  ``temporal_attention``; its FF is ``ops/geglu.fused_ln_geglu``.
+
+The fit test is a deliberate route, not a recovery from a failed build or
+launch. On a CPU tensor the modular path runs with plain PyTorch, as the JAX
+package runs off the TPU.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
@@ -26,8 +40,13 @@ from followyourclick_tpu_torch.models.layers import (
     LayerNorm,
     temporal_positional_encoding,
 )
+from followyourclick_tpu_torch.models.pab import PabMode, pab_site
+from followyourclick_tpu_torch.ops import motion_block
 from followyourclick_tpu_torch.ops.attention import dot_product_attention
 from followyourclick_tpu_torch.ops.motion_block import fused_motion_block
+from followyourclick_tpu_torch.ops.temporal_attention import (
+    fused_temporal_block,
+)
 
 _STANDARD = ("Temporal_Self", "Temporal_Self")
 
@@ -62,6 +81,12 @@ class TemporalAttention(nn.Module):
         bd, f, c = x.shape
         if self.pe:
             x = x + _pe_table(True, self.pe_max_len, f, c, x)
+        if x.device.type == "cuda" and c < 1280 \
+                and self.heads * self.dim_head == c:
+            return fused_temporal_block(
+                x.contiguous(), self.to_q.weight, self.to_k.weight,
+                self.to_v.weight, self.to_out.weight, self.to_out.bias,
+                scale=self.dim_head ** -0.5, heads=self.heads)
 
         def split(t):
             return t.reshape(bd, f, self.heads, self.dim_head)
@@ -111,18 +136,29 @@ class TemporalTransformerBlock(nn.Module):
                              self.ff.proj.weight, self.ff.proj.bias,
                              self.ff.out.weight, self.ff.out.bias)
 
-    def forward(self, h: torch.Tensor) -> torch.Tensor:
-        use_fused = (h.device.type == "cuda"
-                     and self.block_types == _STANDARD
-                     and self.heads * self.head_dim == self.dim
-                     and self.dim <= 1280)
-        if use_fused:
+    def whole_block_kernel(self, h: torch.Tensor,
+                           pab: Optional[PabMode]) -> bool:
+        """The route: the whole-block kernel, or the modular path."""
+        pab_temporal = pab is not None and (pab.record("temporal")
+                                            or pab.reuse("temporal"))
+        return (h.device.type == "cuda" and not pab_temporal
+                and self.block_types == _STANDARD
+                and self.heads * self.head_dim == self.dim
+                and self.dim <= 1280
+                and motion_block.fits(h.shape[1], self.dim, self.heads,
+                                      h.dtype))
+
+    def forward(self, h: torch.Tensor, pab: Optional[PabMode] = None,
+                cache: Optional[dict] = None) -> torch.Tensor:
+        if self.whole_block_kernel(h, pab):
             pe = _pe_table(self.pe, self.pe_max_len, h.shape[1], self.dim, h)
             return fused_motion_block(h.contiguous(), pe, self.fused_params(),
                                       scale=self.head_dim ** -0.5,
                                       heads=self.heads)
-        for norm, attn in zip(self.norms, self.attention_blocks):
-            h = attn(norm(h)) + h
+        for i, (norm, attn) in enumerate(zip(self.norms,
+                                             self.attention_blocks)):
+            h = pab_site(self, "temporal", f"attn_{i}_out", pab, cache,
+                         lambda h=h, norm=norm, attn=attn: attn(norm(h))) + h
         return _ln_ff_residual(self.ff_norm, self.ff, h)
 
 
@@ -153,14 +189,16 @@ class MotionModule(nn.Module):
             nn.init.zeros_(self.proj_out.weight)
             nn.init.zeros_(self.proj_out.bias)
 
-    def forward(self, hidden_states: torch.Tensor) -> torch.Tensor:
+    def forward(self, hidden_states: torch.Tensor,
+                pab: Optional[PabMode] = None,
+                cache: Optional[dict] = None) -> torch.Tensor:
         b, f, hh, ww, c = hidden_states.shape
         residual = hidden_states.reshape(b * f, hh, ww, c)
         x = self.proj_in(self.norm(residual).reshape(b * f, hh * ww, c))
         x = x.reshape(b, f, hh * ww, c).permute(0, 2, 1, 3).reshape(
             b * hh * ww, f, c)
         for block in self.transformer_blocks:
-            x = block(x)
+            x = block(x, pab, cache)
         x = self.proj_out(x)
         x = x.reshape(b, hh * ww, f, c).permute(0, 2, 1, 3).reshape(
             b * f, hh, ww, c) + residual

@@ -1,11 +1,12 @@
 """UNet3DConditionModel: the SD-1.5 UNet inflated to video with motion modules.
 
-Port of ``followyourclick_tpu/models/unet3d.py`` on the exact path: time,
-fps and motion-score embeddings, the 9-channel ``conv_in`` (noisy latent,
-click mask, first-frame latent), the down / mid / up topology,
-``conv_norm_out`` with SiLU over the whole clip, and ``conv_out``. Camera
-motion, T5, IP-Adapter, class embeddings, PseudoConv3d, temporal convs and
-the DeepCache trunk site are not ported yet and raise.
+Port of ``followyourclick_tpu/models/unet3d.py``: time, fps and
+motion-score embeddings, the 9-channel ``conv_in`` (noisy latent, click
+mask, first-frame latent), the down / mid / up topology, ``conv_norm_out``
+with SiLU over the whole clip, ``conv_out``, and the PAB sites of the serving
+schedules (``models/pab.py``), the DeepCache trunk site among them. Camera
+motion, T5, IP-Adapter, class embeddings, PseudoConv3d and temporal convs
+are not ported yet and raise.
 
 Tensors are ``(B, F, H, W, C)``. CFG prefix sharing (exact): when
 ``cond.context`` has twice the sample's batch, the stem runs once and the
@@ -26,6 +27,7 @@ from followyourclick_tpu_torch.models.layers import (
     TimestepEmbedding,
     sinusoidal_timestep_embedding,
 )
+from followyourclick_tpu_torch.models.pab import PabMode, name_sites, pab_site
 from followyourclick_tpu_torch.models.resnet import InflatedConv, tile_to_batch
 from followyourclick_tpu_torch.models.unet_blocks import (
     CrossAttnDownBlock3D,
@@ -119,9 +121,13 @@ class UNet3DConditionModel(nn.Module):
         self.conv_norm_out = GroupNorm(c0, cfg.norm_num_groups, cfg.norm_eps,
                                        act="silu")
         self.conv_out = InflatedConv(c0, cfg.out_channels, 3)
+        name_sites(self)
 
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
-                cond: UNetConditioning) -> torch.Tensor:
+                cond: UNetConditioning, pab: Optional[PabMode] = None,
+                cache: Optional[dict] = None) -> torch.Tensor:
+        """``pab``: the step's reuse / record flags (None: exact); ``cache``:
+        the sampler's PAB cache, updated in place."""
         cfg = self.config
         b, f = sample.shape[:2]
         dtype = self.conv_in.conv.weight.dtype
@@ -149,15 +155,35 @@ class UNet3DConditionModel(nn.Module):
 
         context = cond.context.to(dtype)
         sample = self.conv_in(sample.to(dtype))
+        # level 0 (the outermost) always runs
         res_samples = [sample]
-        for block in self.down_blocks:
-            sample, res = block(sample, emb, context)
-            res_samples += res
-        sample = self.mid_block(sample, emb, context)
-        for block in self.up_blocks:
-            res = res_samples[-self.n_skip:]
-            res_samples = res_samples[:-self.n_skip]
-            sample = block(sample, res, emb, context)
+        sample, res = self.down_blocks[0](sample, emb, context, pab, cache)
+        res_samples += res
+
+        def trunk(s):
+            """Down levels 1.., mid and every up block but the last: the
+            DeepCache-cacheable interior."""
+            skips = list(res_samples)
+            for block in self.down_blocks[1:]:
+                s, res = block(s, emb, context, pab, cache)
+                skips += res
+            s = self.mid_block(s, emb, context, pab, cache)
+            for block in self.up_blocks[:-1]:
+                res = skips[-self.n_skip:]
+                skips = skips[:-self.n_skip]
+                s = block(s, res, emb, context, pab, cache)
+            return s
+
+        deep_site = (pab is not None and (pab.reuse_deep or pab.record_deep)
+                     and len(self.down_blocks) >= 2)
+        if deep_site:
+            sample = pab_site(self, "deep", "deep_trunk", pab, cache,
+                              lambda: trunk(sample))
+        else:
+            sample = trunk(sample)
+        # the last up block takes the level-0 skips, computed in either mode
+        sample = self.up_blocks[-1](sample, res_samples[:self.n_skip], emb,
+                                    context, pab, cache)
         if cfg.use_inflated_groupnorm:
             bo = sample.shape[0]
             sample = self.conv_norm_out(

@@ -1,7 +1,8 @@
 """UNet3D down / mid / up blocks: per layer ResnetBlock3D → SpatialTransformer3D
 → MotionModule, with down- and upsampling.
 
-Port of ``followyourclick_tpu/models/unet_blocks.py``.
+Port of ``followyourclick_tpu/models/unet_blocks.py``. ``pab`` and
+``cache`` (``models/pab.py``) pass through to every attention site.
 """
 
 from __future__ import annotations
@@ -53,14 +54,17 @@ class _DownBlock(nn.Module):
             out_channels, out_channels, cfg.downsample_padding)])
             if add_downsample else None)
 
-    def forward(self, hidden_states, temb, context=None):
+    def forward(self, hidden_states, temb, context=None, pab=None,
+                cache=None):
         output_states = []
         for i, resnet in enumerate(self.resnets):
             hidden_states = resnet(hidden_states, temb)
             if self.attentions is not None:
-                hidden_states = self.attentions[i](hidden_states, context)
+                hidden_states = self.attentions[i](hidden_states, context,
+                                                   pab, cache)
             if self.motion_modules is not None:
-                hidden_states = self.motion_modules[i](hidden_states)
+                hidden_states = self.motion_modules[i](hidden_states, pab,
+                                                       cache)
             output_states.append(hidden_states)
         if self.downsamplers is not None:
             hidden_states = self.downsamplers[0](hidden_states)
@@ -81,8 +85,9 @@ class DownBlock3D(_DownBlock):
         super().__init__(cfg, in_channels, out_channels, num_layers,
                          add_downsample, use_motion, cross_attention=False)
 
-    def forward(self, hidden_states, temb, context=None):
-        return super().forward(hidden_states, temb)
+    def forward(self, hidden_states, temb, context=None, pab=None,
+                cache=None):
+        return super().forward(hidden_states, temb, None, pab, cache)
 
 
 class UNetMidBlock3DCrossAttn(nn.Module):
@@ -98,12 +103,13 @@ class UNetMidBlock3DCrossAttn(nn.Module):
             MotionModule(in_channels, cfg.motion_module)
             for _ in range(num_layers)) if use_motion else None)
 
-    def forward(self, hidden_states, temb, context):
+    def forward(self, hidden_states, temb, context, pab=None, cache=None):
         hidden_states = self.resnets[0](hidden_states, temb)
         for i, attn in enumerate(self.attentions):
-            hidden_states = attn(hidden_states, context)
+            hidden_states = attn(hidden_states, context, pab, cache)
             if self.motion_modules is not None:
-                hidden_states = self.motion_modules[i](hidden_states)
+                hidden_states = self.motion_modules[i](hidden_states, pab,
+                                                       cache)
             hidden_states = self.resnets[i + 1](hidden_states, temb)
         return hidden_states
 
@@ -128,7 +134,8 @@ class _UpBlock(nn.Module):
                                                      out_channels)])
                            if add_upsample else None)
 
-    def forward(self, hidden_states, res_hidden_states, temb, context=None):
+    def forward(self, hidden_states, res_hidden_states, temb, context=None,
+                pab=None, cache=None):
         res_list = list(res_hidden_states)
         for i, resnet in enumerate(self.resnets):
             # skips saved before the CFG duplication point (conv_in output)
@@ -137,9 +144,11 @@ class _UpBlock(nn.Module):
             hidden_states = torch.cat([hidden_states, res], dim=-1)
             hidden_states = resnet(hidden_states, temb)
             if self.attentions is not None:
-                hidden_states = self.attentions[i](hidden_states, context)
+                hidden_states = self.attentions[i](hidden_states, context,
+                                                   pab, cache)
             if self.motion_modules is not None:
-                hidden_states = self.motion_modules[i](hidden_states)
+                hidden_states = self.motion_modules[i](hidden_states, pab,
+                                                       cache)
         if self.upsamplers is not None:
             hidden_states = self.upsamplers[0](hidden_states)
         return hidden_states
@@ -163,5 +172,7 @@ class UpBlock3D(_UpBlock):
                          out_channels, add_upsample, use_motion,
                          cross_attention=False)
 
-    def forward(self, hidden_states, res_hidden_states, temb, context=None):
-        return super().forward(hidden_states, res_hidden_states, temb)
+    def forward(self, hidden_states, res_hidden_states, temb, context=None,
+                pab=None, cache=None):
+        return super().forward(hidden_states, res_hidden_states, temb, None,
+                               pab, cache)

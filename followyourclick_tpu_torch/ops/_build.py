@@ -43,7 +43,23 @@ _SIGNATURES = {
     "fyc_motion_block": (_I, [_P, _P, ctypes.POINTER(_P), _P]
                          + [_I, _I, _I, _I, _I, _F, _F, _I, _I, _P]),
     "fyc_motion_block_smem_bytes": (ctypes.c_longlong, [_I] * 5),
+    "fyc_temporal_attention": (_I, [_P] * 4 + [_I] * 4 + [_F, _I, _P]),
+    "fyc_temporal_attention_smem_bytes": (ctypes.c_longlong, [_I, _I]),
+    "fyc_temporal_block": (_I, [_P, ctypes.POINTER(_P), _P] + [_I] * 5
+                           + [_F, _I, _P]),
+    "fyc_temporal_block_smem_bytes": (ctypes.c_longlong, [_I] * 4),
 }
+
+
+def tile_positions(f: int, smem_bytes) -> int:
+    """Whole positions of ``f`` frame rows per block for the motion-module
+    kernels: the most (of 4, 2, 1, with at most 64 rows) whose tile takes no
+    more than the budget by ``smem_bytes(g)``, else 1 if that fits the shared
+    memory at all, else 0."""
+    for g in (4, 2, 1):
+        if g * f <= 64 and smem_bytes(g) <= SMEM_BUDGET:
+            return g
+    return 1 if f <= 64 and smem_bytes(1) <= MAX_SMEM else 0
 
 
 def _nvcc() -> str:

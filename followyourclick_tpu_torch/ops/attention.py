@@ -11,12 +11,13 @@ to three places:
 
 The port's plain route takes the XLA role: PyTorch's
 ``scaled_dot_product_attention`` (the softmax runs in fp32 in its kernels).
-The two Pallas routes are not ported yet (ROADMAP.md, Queue 2), so a CUDA
-tensor that would take one of them raises ``NotImplementedError`` rather than
-quietly taking the plain route. A CPU tensor always takes the plain route, as
-the JAX package does off the TPU. Neither route is reached by the exact
-click-to-video sampler at 16 frames and 512²: its temporal attention runs
-inside the fused motion block, and its largest score set is 8.6 GB.
+On a CUDA tensor the tiny-sequence route launches the hand-written kernel
+``ops/temporal_attention.temporal_attention``. The flash route is not ported
+yet (ROADMAP.md, Queue 2), so a CUDA tensor that would take it raises
+``NotImplementedError`` rather than quietly taking the plain route; the
+click-to-video sampler at 16 frames and 512² never reaches it (its largest
+score set is 8.6 GB). A CPU tensor always takes the plain route, as the JAX
+package does off the TPU.
 """
 
 from __future__ import annotations
@@ -25,6 +26,10 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from followyourclick_tpu_torch.ops.temporal_attention import (
+    temporal_attention,
+)
 
 FLASH_SCORE_BYTES = 12 * 1024 ** 3
 
@@ -49,10 +54,7 @@ def dot_product_attention(query: torch.Tensor, key: torch.Tensor,
     sk = key.shape[1]
     if query.device.type == "cuda" and bias is None:
         if sq == sk and sq <= 32 and sq * h <= 256:
-            raise NotImplementedError(
-                "tiny-sequence attention (the JAX package's "
-                "ops/temporal_attention.py::temporal_attention route) has no "
-                "Hopper kernel yet: ROADMAP.md, Queue 2, temporal_attention")
+            return temporal_attention(query, key, value, scale)
         if sk >= 1024 and b * h * sq * sk * 2 > FLASH_SCORE_BYTES:
             raise NotImplementedError(
                 "attention above 12 GiB of scores (the JAX package's "

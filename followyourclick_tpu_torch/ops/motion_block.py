@@ -63,18 +63,20 @@ def motion_block_ref(x: torch.Tensor, pe: torch.Tensor, params, scale: float,
 def positions_per_block(f: int, c: int, heads: int,
                         dtype: torch.dtype) -> int:
     """Positions per block: the most (of 4, 2, 1, with G·F ≤ 64 rows) whose
-    tile fits the budget, else 1 if that fits the shared memory at all."""
+    tile fits the budget, else 1 if that fits the shared memory at all, else
+    0 (the block does not fit on chip; :func:`fits` is the route's test)."""
+    if dtype not in _build.DTYPE_CODES:
+        return 0
     lib = _build.load_library()
     code = _build.DTYPE_CODES[dtype]
-    for g in (4, 2, 1):
-        if g * f <= 64 and lib.fyc_motion_block_smem_bytes(
-                g, f, c, heads, code) <= _build.SMEM_BUDGET:
-            return g
-    if f <= 64 and lib.fyc_motion_block_smem_bytes(
-            1, f, c, heads, code) <= _build.MAX_SMEM:
-        return 1
-    raise ValueError(f"fused_motion_block: F={f}, C={c}, {dtype} does not "
-                     "fit one block's shared memory")
+    return _build.tile_positions(
+        f, lambda g: lib.fyc_motion_block_smem_bytes(g, f, c, heads, code))
+
+
+def fits(f: int, c: int, heads: int, dtype: torch.dtype) -> bool:
+    """Whether one block of the kernel holds a position of ``f`` frames at
+    width ``c`` in ``dtype``: fp32 at C ≥ 640 does not."""
+    return positions_per_block(f, c, heads, dtype) > 0
 
 
 def _check(x, pe, params, heads) -> None:
@@ -122,13 +124,17 @@ def fused_motion_block(x: torch.Tensor, pe: torch.Tensor, params,
     pe = pe.to(x.dtype).contiguous()
     _check(x, pe, params, heads)
     p, f, c = x.shape
+    g = positions_per_block(f, c, heads, x.dtype)
+    if g == 0:
+        raise ValueError(f"fused_motion_block: F={f}, C={c}, {x.dtype} does "
+                         "not fit one block's shared memory")
     lib = _build.load_library()
     out = torch.empty_like(x)
     ptrs = (ctypes.c_void_p * 20)(*[t.data_ptr() for t in params])
     with torch.cuda.device(x.device):
         err = lib.fyc_motion_block(
             x.data_ptr(), pe.data_ptr(), ptrs, out.data_ptr(), p, f, c, heads,
-            positions_per_block(f, c, heads, x.dtype), float(scale),
+            g, float(scale),
             float(eps), int(fast_gating), _build.DTYPE_CODES[x.dtype],
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "fused_motion_block")

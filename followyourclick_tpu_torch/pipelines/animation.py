@@ -1,4 +1,4 @@
-"""The Follow-Your-Click sampler on the exact path.
+"""The Follow-Your-Click sampler: the exact path and the serving schedules.
 
 Port of ``followyourclick_tpu/pipelines/animation.py``: CLIP text encode
 ([uncond; cond]), the DDIM v-prediction CFG denoise over the UNet3D with the
@@ -6,23 +6,28 @@ click mask and the first-frame latent concatenated on the channel axis, and
 one batched VAE decode. PyTorch runs the loop eagerly; the parameters live in
 the modules. ``sample`` is the counterpart of ``_sample_jit``.
 
-Only the exact default ``SampleSpec`` is ported: any field off its default
-raises ``NotImplementedError``, except ``video_length``, ``height``,
-``width``, ``num_inference_steps`` and ``guidance_scale`` (> 1). The
-tokenizer needs vocabulary files the repository does not ship, so requests
-carry token ids.
+The serving schedules (``pipelines/serving_schedules.py``) are ported: the
+CFG-uncond cache with its first-order forecast, PAB attention reuse and the
+DeepCache trunk reuse with its forecast (``models/pab.py``), warm-up steps
+and final exact steps. :func:`step_plan` is their static schedule. Every
+other field off its default raises ``NotImplementedError``, except
+``video_length``, ``height``, ``width``, ``num_inference_steps`` and
+``guidance_scale`` (> 1). The tokenizer needs vocabulary files the
+repository does not ship, so requests carry token ids.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from followyourclick_tpu_torch.config import InferenceConfig
 from followyourclick_tpu_torch.models.clip_text import CLIPTextModel
+from followyourclick_tpu_torch.models.pab import PabMode
 from followyourclick_tpu_torch.models.unet3d import (
     UNet3DConditionModel,
     UNetConditioning,
@@ -34,6 +39,11 @@ VAE_SCALE = 0.18215
 
 _FREE_FIELDS = ("video_length", "height", "width", "num_inference_steps",
                 "guidance_scale")
+SERVING_FIELDS = ("cfg_cache_interval", "pab_spatial_interval",
+                  "pab_cross_interval", "pab_temporal_interval",
+                  "deep_cache_interval", "pab_warmup_steps",
+                  "cfg_final_exact_steps", "cfg_cache_extrapolate",
+                  "deep_cache_extrapolate")
 
 
 @dataclass(frozen=True)
@@ -64,17 +74,79 @@ class SampleSpec:
     cfg_cache_extrapolate: bool = False
     deep_cache_extrapolate: bool = False
 
-    def check_exact_path(self) -> None:
+    def check_ported(self) -> None:
+        """Raise ``NotImplementedError`` on a field the port does not run:
+        anything off its default but the clip shape, the steps, the
+        guidance scale (> 1) and the serving fields."""
         default = SampleSpec()
         for f in dataclasses.fields(self):
-            if f.name in _FREE_FIELDS:
+            if f.name in _FREE_FIELDS or f.name in SERVING_FIELDS:
                 continue
             if getattr(self, f.name) != getattr(default, f.name):
                 raise NotImplementedError(
-                    f"SampleSpec.{f.name}={getattr(self, f.name)!r}: only the "
-                    "exact default sampler is ported")
+                    f"SampleSpec.{f.name}={getattr(self, f.name)!r}: not "
+                    "ported (only the exact sampler and the serving "
+                    "schedules are)")
         if self.guidance_scale <= 1.0:
             raise NotImplementedError("guidance_scale <= 1 (no CFG)")
+
+
+class PlanStep(NamedTuple):
+    """One denoise step: DDIM index ``i``, period position ``j``, whether
+    the UNet runs on the full CFG batch (else on the cond half, against the
+    cached uncond prediction), and the PAB mode (None: no PAB sites)."""
+
+    i: int
+    j: int
+    full: bool
+    mode: Optional[PabMode]
+
+
+def step_plan(spec: SampleSpec) -> list[PlanStep]:
+    """The static schedule of a request (``_denoise_pab`` and the CFG-cache
+    branch of the JAX sampler's step).
+
+    Without PAB or trunk reuse, each step is full except, under
+    ``cfg_cache_interval`` k > 1, those with ``i % k != 0`` before the last
+    ``cfg_final_exact_steps``. With them: ``pab_warmup_steps`` exact steps
+    (recording every kind), whole periods of lcm(k, intervals) positions,
+    the leftover steps as a prefix of the period, then the final exact steps
+    (under k > 1). Position ``j`` reuses a kind whose interval does not divide
+    it, and runs on the cond half when k does not divide it."""
+    n = spec.num_inference_steps
+    cfg_k = max(1, spec.cfg_cache_interval)
+    iv = dict(spatial=max(1, spec.pab_spatial_interval),
+              cross=max(1, spec.pab_cross_interval),
+              temporal=max(1, spec.pab_temporal_interval),
+              deep=max(1, spec.deep_cache_interval))
+    if all(v == 1 for v in iv.values()):
+        fe = spec.cfg_final_exact_steps
+        return [PlanStep(i, i % cfg_k, i % cfg_k == 0 or i >= n - fe, None)
+                for i in range(n)]
+    deep_ex = spec.deep_cache_extrapolate and iv["deep"] > 1
+    rec = PabMode(record_spatial=iv["spatial"] > 1,
+                  record_cross=iv["cross"] > 1,
+                  record_temporal=iv["temporal"] > 1,
+                  record_deep=iv["deep"] > 1, deep_extrapolate=deep_ex)
+
+    def at(i: int, j: int) -> PlanStep:
+        return PlanStep(i, j, j % cfg_k == 0, dataclasses.replace(
+            rec, half=j % cfg_k != 0,
+            reuse_spatial=iv["spatial"] > 1 and j % iv["spatial"] != 0,
+            reuse_cross=iv["cross"] > 1 and j % iv["cross"] != 0,
+            reuse_temporal=iv["temporal"] > 1 and j % iv["temporal"] != 0,
+            reuse_deep=iv["deep"] > 1 and j % iv["deep"] != 0,
+            deep_ex_coeff=(j % iv["deep"]) / iv["deep"] if deep_ex else 0.0))
+
+    period = math.lcm(cfg_k, *iv.values())
+    final_exact = min(max(0, spec.cfg_final_exact_steps), n) \
+        if cfg_k > 1 else 0
+    warmup = min(max(0, spec.pab_warmup_steps), n - final_exact)
+    body = n - warmup - final_exact
+    plan = [at(i, 0) for i in range(warmup)]
+    plan += [at(warmup + k, k % period) for k in range(body)]
+    plan += [at(i, 0) for i in range(warmup + body, n)]
+    return plan
 
 
 class AnimationPipeline:
@@ -159,9 +231,17 @@ class AnimationPipeline:
                 spec: SampleSpec, first_image_latents: torch.Tensor,
                 mask: Optional[torch.Tensor], fps: torch.Tensor,
                 motion_score: torch.Tensor) -> torch.Tensor:
-        """The CFG DDIM loop with CFG prefix sharing: the UNet gets the
-        un-duplicated latents with the doubled context and duplicates at its
-        first cross-attention."""
+        """The CFG DDIM loop over :func:`step_plan`.
+
+        Without PAB sites the UNet gets the un-duplicated latents with the
+        doubled context and duplicates at its first cross-attention (CFG
+        prefix sharing). With them, full steps feed it the pre-duplicated
+        input, as the JAX sampler's ``build_x``, and the PAB cache (a dict
+        this loop owns) passes down to every site. A step on the cond half
+        runs the UNet on the cond rows with the cond context and takes the
+        uncond prediction from the last full step, or under
+        ``cfg_cache_extrapolate`` its first-order forecast
+        ``u1 + (i − i1)·(u1 − u0)/(i1 − i0)`` from the last two."""
         b, f, h, w, _ = latents.shape
         dt = latents.dtype
         sched = DDIMSchedule.create(self.config.noise_scheduler,
@@ -178,14 +258,33 @@ class AnimationPipeline:
                                      dtype=dt)
             mask_block[:, 0] = 1.0
         cond_channels = torch.cat([mask_block, first_block], dim=-1)
-        cond = UNetConditioning(context=context,
-                                fps=self._on(fps, torch.float32),
-                                motion_score=self._on(motion_score,
-                                                      torch.float32))
-        for i in range(spec.num_inference_steps):
-            t = sched.timesteps[i].to(self.device).expand(b)
+        fps = self._on(fps, torch.float32)
+        motion_score = self._on(motion_score, torch.float32)
+        cond = UNetConditioning(context=context, fps=fps,
+                                motion_score=motion_score)
+        cond_half = UNetConditioning(context=context[b:], fps=fps,
+                                     motion_score=motion_score)
+        extrap = spec.cfg_cache_extrapolate and spec.cfg_cache_interval > 1
+        cache: dict = {}
+        u1 = u0 = None
+        i1 = i0 = -1
+        for i, _, full, mode in step_plan(spec):
+            t = sched.timesteps[i].to(self.device)
             x = torch.cat([latents, cond_channels], dim=-1)
-            uncond, text = self.unet(x, t, cond).chunk(2, dim=0)
+            if full and mode is not None:
+                x = torch.cat([x, x], dim=0)
+            out = self.unet(x, t.expand(x.shape[0]),
+                            cond if full else cond_half, mode, cache)
+            if full:
+                uncond, text = out.chunk(2, dim=0)
+                u0, i0 = (uncond, i) if i1 < 0 else (u1, i1)
+                u1, i1 = uncond, i
+            else:
+                text, uncond = out, u1
+                if extrap:
+                    slope = (i - i1) / max(i1 - i0, 1)
+                    uncond = (u1.float() + (u1.float() - u0.float()) * slope
+                              ).to(u1.dtype)
             noise_pred = uncond + spec.guidance_scale * (text - uncond)
             latents, _ = ddim_step(sched, noise_pred, i, latents)
         return latents
@@ -209,7 +308,7 @@ class AnimationPipeline:
         """Token ids (B, 77) + first-frame latent (B, h, w, 4) + click mask
         (B, h, w, 1) + fps and motion score (B,) → video (B, F, H, W, 3).
         ``noise`` (B, F, h, w, 4) replaces the draw from ``generator``."""
-        spec.check_exact_path()
+        spec.check_ported()
         context = self.encode_prompt(input_ids, neg_input_ids)
         latents = self.prepare_latents(int(input_ids.shape[0]), spec,
                                        generator=generator, noise=noise)

@@ -20,6 +20,7 @@ convert.convert_*_state_dict`` (numpy, no JAX) → :func:`load_jax_params`.
 
 from __future__ import annotations
 
+import re
 from typing import Any, Mapping
 
 import numpy as np
@@ -70,6 +71,21 @@ def _torch_layout(module: nn.Module, pname: str,
     if isinstance(module, nn.Conv2d):
         return value.transpose(3, 2, 0, 1)  # HWIO -> OIHW
     return value
+
+
+def pab_cache_from_jax(tree: Mapping[str, Any]) -> dict:
+    """A JAX ``"pab"`` collection (nested dicts of numpy arrays) → the
+    port's PAB cache (``models/pab.py``): the path ``(down_blocks_0,
+    attentions_0, ..., attn1_out)`` becomes the key
+    ``down_blocks.0.attentions.0....attn1_out``. Every module segment of a
+    site path is a ``ModuleList`` entry or a plain name; the last segment is
+    the site's name and stays as it is."""
+    out = {}
+    for path, value in _flatten(tree).items():
+        mods = [re.sub(r"_(\d+)$", r".\1", seg) for seg in path[:-1]]
+        out[".".join(mods + [path[-1]])] = torch.from_numpy(
+            np.array(value, dtype=np.float32))
+    return out
 
 
 def load_jax_params(module: nn.Module, tree: Mapping[str, Any]) -> nn.Module:

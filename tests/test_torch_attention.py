@@ -61,9 +61,11 @@ def test_dot_product_attention(sq, sk, masked):
     close(got, want, 1e-5)
 
 
-def test_unported_routes_raise_only_on_the_card():
-    """A CPU tensor takes the plain route at every shape; the routing test
-    itself is on the shapes, so it is checked with a stand-in device."""
+def test_unported_routes_raise_only_on_the_card(monkeypatch):
+    """A CPU tensor takes the plain route at every shape; on the card the
+    tiny-sequence route launches the temporal_attention kernel and the flash
+    route raises. The routing test itself is on the shapes, so it is checked
+    with a stand-in device."""
     q = torch.zeros(2, 16, 8, 4)
     assert tops.dot_product_attention(q, q, q).shape == q.shape
 
@@ -72,9 +74,15 @@ def test_unported_routes_raise_only_on_the_card():
         def device(self):
             return torch.device("cuda")
 
+    calls = []
+    monkeypatch.setattr(tops, "temporal_attention",
+                        lambda *a: calls.append(a) or a[0])
     tiny = torch.zeros(2, 16, 8, 4).as_subclass(CudaLike)
-    with pytest.raises(NotImplementedError, match="temporal_attention"):
-        tops.dot_product_attention(tiny, tiny, tiny)
+    tops.dot_product_attention(tiny, tiny, tiny, scale=0.25)
+    assert len(calls) == 1 and calls[0][3] == 0.25
+    wide = torch.zeros(2, 16, 32, 4).as_subclass(CudaLike)  # sq·h > 256
+    tops.dot_product_attention(wide, wide, wide)  # the plain route
+    assert len(calls) == 1
     huge = torch.zeros(1, 1, 1, 4).expand(4096, 4096, 8, 4).as_subclass(
         CudaLike)  # 4096·8·4096²·2 B of bf16 scores > 12 GiB
     with pytest.raises(NotImplementedError, match="flash_attention"):

@@ -16,14 +16,25 @@ order, so single values land an ulp or two apart; measured relative to each
 value instead, a residual add that cancels (8 - 6) would magnify that ulp.
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
 
+from followyourclick_tpu_torch.config import MotionModuleConfig
+from followyourclick_tpu_torch.models.motion_module import MotionModule
+from followyourclick_tpu_torch.models.pab import PabMode
 from followyourclick_tpu_torch.ops.geglu import fused_ln_geglu, ln_geglu_ref
 from followyourclick_tpu_torch.ops.motion_block import (
     fused_motion_block,
     motion_block_ref,
+)
+from followyourclick_tpu_torch.ops.temporal_attention import (
+    fused_temporal_block,
+    temporal_attention,
+    temporal_attention_ref,
+    temporal_block_ref,
 )
 
 pytestmark = pytest.mark.cuda
@@ -136,3 +147,94 @@ def test_wrappers_reject_what_the_kernels_do_not_take(card):
                                       torch.float32)
     with pytest.raises(ValueError):                     # fp32 at 640 does
         fused_motion_block(x, pe, params, 0.1, 8)       # not fit on chip
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("b,s,h,d", [(6, 16, 8, 40), (3, 16, 8, 160),
+                                     (5, 4, 4, 8), (7, 1, 8, 8),
+                                     (4, 32, 2, 64)])
+def test_temporal_attention_kernel_matches_plain(card, dtype, b, s, h, d):
+    rs = np.random.RandomState(b * s + d)
+    q, k, v = (_randn(rs, (b, s, h, d), 1.0, dtype) for _ in range(3))
+    before = temporal_attention.launches
+    got = temporal_attention(q, k, v)
+    assert temporal_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    assert_close(got, temporal_attention_ref(q, k, v),
+                 FP32_REL if dtype == F32 else BF16_REL)
+
+
+def temporal_block_args(rs, b, f, c, dtype, device="cuda"):
+    return [_randn(rs, (b, f, c), 1.0, dtype, device)] + [
+        _randn(rs, (c, c), c ** -0.5, dtype, device) for _ in range(4)] + [
+        _randn(rs, (c,), 0.02, dtype, device)]
+
+
+# fp32 at C = 640 is the shape the fp32 motion modules route here
+@pytest.mark.parametrize("dtype,b,f,c,heads", [
+    (F32, 6, 16, 320, 8), (F32, 3, 16, 640, 8), (F32, 5, 5, 64, 4),
+    (F32, 3, 32, 64, 4), (BF16, 6, 16, 320, 8), (BF16, 3, 16, 640, 8),
+    (BF16, 5, 5, 64, 4), (BF16, 9, 32, 320, 8)])
+def test_temporal_block_kernel_matches_plain(card, dtype, b, f, c, heads):
+    args = temporal_block_args(np.random.RandomState(b + c), b, f, c, dtype)
+    before = fused_temporal_block.launches
+    got = fused_temporal_block(*args, heads=heads)
+    assert fused_temporal_block.launches == before + 1
+    assert_close(got, temporal_block_ref(*args, heads=heads),
+                 FP32_REL if dtype == F32 else BF16_REL)
+
+
+def test_temporal_wrappers_reject_what_the_kernels_do_not_take(card):
+    rs = np.random.RandomState(0)
+    q = _randn(rs, (2, 16, 4, 8))
+    with pytest.raises(TypeError):
+        temporal_attention(q.half(), q.half(), q.half())   # no fp16 kernel
+    long = _randn(rs, (2, 33, 4, 8))
+    with pytest.raises(ValueError):
+        temporal_attention(long, long, long)                # S > 32
+    with pytest.raises(ValueError):
+        temporal_attention(q, q[:1], q)                     # shapes differ
+    with pytest.raises(ValueError):
+        temporal_attention(q.transpose(1, 2), q.transpose(1, 2),
+                           q.transpose(1, 2))               # not contiguous
+    args = temporal_block_args(rs, 2, 16, 64, torch.float32)
+    with pytest.raises(TypeError):
+        fused_temporal_block(*[a.half() for a in args], heads=4)
+    with pytest.raises(ValueError):
+        fused_temporal_block(args[0], args[1][:32], *args[2:], heads=4)
+    with pytest.raises(ValueError):
+        fused_temporal_block(_randn(rs, (2, 33, 64)), *args[1:], heads=4)
+    big = temporal_block_args(rs, 2, 16, 1280, torch.float32)
+    with pytest.raises(ValueError):                     # fp32 at 1280 does
+        fused_temporal_block(*big, heads=8)             # not fit on chip
+
+
+def _counts():
+    return [fn.launches for fn in (fused_motion_block, fused_temporal_block,
+                                   temporal_attention, fused_ln_geglu)]
+
+
+@pytest.mark.parametrize("c,dtype,pab,want", [
+    # fp32 at C >= 640 does not fit the whole-block kernel: the modular path
+    (640, F32, None, [0, 2, 0, 1]),
+    (1280, F32, None, [0, 0, 2, 1]),
+    # blocks that fit take the whole-block kernel, unless the temporal
+    # sites record or reuse
+    (640, BF16, None, [1, 0, 0, 0]),
+    (320, F32, PabMode(record_temporal=True), [0, 2, 0, 1]),
+    (1280, BF16, PabMode(record_temporal=True), [0, 0, 2, 1])])
+def test_motion_module_routes_on_the_card(card, c, dtype, pab, want):
+    """One motion module (64 positions, 16 frames) on the card against its
+    plain run on the CPU, with the kernels each route launches."""
+    torch.manual_seed(c)
+    cpu = MotionModule(c, MotionModuleConfig(zero_initialize=False)).to(
+        dtype)
+    gpu = copy.deepcopy(cpu).to("cuda")
+    x = _randn(np.random.RandomState(c), (1, 16, 8, 8, c), 1.0, dtype, "cpu")
+    with torch.no_grad():
+        want_out = cpu(x, pab, {})
+        before = _counts()
+        got = gpu(x.cuda(), pab, {})
+        torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_counts(), before)] == want
+    assert_close(got.cpu(), want_out, FP32_REL if dtype == F32 else BF16_REL)

@@ -30,6 +30,7 @@ from followyourclick_tpu_torch.models.clip_text import CLIPTextModel
 from followyourclick_tpu_torch.models.unet3d import UNet3DConditionModel
 from followyourclick_tpu_torch.models.vae import AutoencoderKL
 from followyourclick_tpu_torch.pipelines.animation import (
+    SERVING_FIELDS,
     AnimationPipeline,
     SampleSpec,
 )
@@ -95,12 +96,25 @@ def test_tiny_sample_matches_jax():
 
 @pytest.mark.parametrize("field,value", [("video_scale", 1.0),
                                          ("share_cfg_prefix", False),
-                                         ("pab_spatial_interval", 2),
+                                         ("scheduler", "euler"),
                                          ("eta", 0.5),
                                          ("guidance_scale", 1.0)])
 def test_sample_rejects_specs_off_the_exact_path(field, value):
+    """Fields the port does not run raise; the serving fields do not."""
     with pytest.raises(NotImplementedError):
-        SampleSpec(**{field: value}).check_exact_path()
+        SampleSpec(**{field: value}).check_ported()
+
+
+def test_sample_accepts_every_serving_field():
+    off_default = dict(cfg_cache_interval=3, pab_spatial_interval=2,
+                       pab_cross_interval=4, pab_temporal_interval=4,
+                       deep_cache_interval=2, pab_warmup_steps=2,
+                       cfg_final_exact_steps=1, cfg_cache_extrapolate=True,
+                       deep_cache_extrapolate=True)
+    assert sorted(off_default) == sorted(SERVING_FIELDS)
+    for field, value in off_default.items():
+        SampleSpec(**{field: value}).check_ported()
+    SampleSpec(**off_default).check_ported()
 
 
 def test_prepare_latents_interpolates_first_frame_noise():
@@ -115,8 +129,8 @@ def test_prepare_latents_interpolates_first_frame_noise():
 
 
 def test_port_runs_without_jax():
-    """The port's tiny sampler in a fresh interpreter loads neither jax nor
-    flax."""
+    """The port's tiny sampler, exact and under a serving schedule, in a
+    fresh interpreter loads neither jax nor flax."""
     code = textwrap.dedent("""
         import sys
         import torch
@@ -124,6 +138,8 @@ def test_port_runs_without_jax():
             InferenceConfig, MotionModuleConfig, UNet3DConfig, VAEConfig)
         from followyourclick_tpu_torch.pipelines.animation import (
             AnimationPipeline, SampleSpec)
+        from followyourclick_tpu_torch.pipelines.serving_schedules import (
+            apply_schedule)
         torch.manual_seed(0)
         cfg = InferenceConfig(
             unet=UNet3DConfig(block_out_channels=(32, 64, 64, 64),
@@ -137,14 +153,18 @@ def test_port_runs_without_jax():
                                      num_attention_heads=4))
         pipe = AnimationPipeline(cfg)
         ids = torch.randint(0, 1000, (1, 77))
-        video = pipe.sample(ids, ids, torch.randn(1, 8, 8, 4),
-                            torch.ones(1, 8, 8, 1), torch.tensor([8.0]),
-                            torch.tensor([20.0]),
-                            SampleSpec(video_length=2, height=64, width=64,
-                                       num_inference_steps=1),
-                            generator=torch.Generator().manual_seed(0))
-        assert video.shape == (1, 2, 64, 64, 3), video.shape
-        assert bool(torch.isfinite(video).all())
+        exact = SampleSpec(video_length=2, height=64, width=64,
+                           num_inference_steps=1)
+        serving = apply_schedule(SampleSpec(
+            video_length=2, height=64, width=64, num_inference_steps=4),
+            "pab244_deep4_cfg4_ex")
+        for spec in (exact, serving):
+            video = pipe.sample(ids, ids, torch.randn(1, 8, 8, 4),
+                                torch.ones(1, 8, 8, 1), torch.tensor([8.0]),
+                                torch.tensor([20.0]), spec,
+                                generator=torch.Generator().manual_seed(0))
+            assert video.shape == (1, 2, 64, 64, 3), video.shape
+            assert bool(torch.isfinite(video).all())
         print("LOADED", sorted(m for m in sys.modules
                                if m.split(".")[0] in ("jax", "flax")))
     """)
