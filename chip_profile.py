@@ -5,12 +5,16 @@
 
 Builds the kernels and the default ``InferenceConfig`` pipeline as
 ``chip_smoke.py`` does (bf16, seeded random weights, 16 frames, 512², CFG 8)
-and, for ``pab488_deep4_cfg4_ex`` at 10 steps and the exact sampler at 4
-steps, runs one request to warm up and then one under ``torch.profiler``
-(CPU and CUDA activities, no schedule). For each path it prints the wall
-time (host clock, ending in ``torch.cuda.synchronize()``), the device's busy
-time (the union of the kernel, memcpy and memset intervals of the trace),
-the device span, the idle share of the wall time, and the 30 kernels that
+and, for ``pab488_deep4_cfg4_ex`` at 10 steps, the exact sampler at 4 steps
+and the exact sampler at 4 steps with two clips per request (batched
+serving, whose level-0 self-attention takes the flash-attention kernel),
+runs one request to warm up and then one under ``torch.profiler`` (CPU and
+CUDA activities, no schedule). For each path it prints the wall time (host
+clock, ending in ``torch.cuda.synchronize()``), the peak device memory of
+the profiled request, the device's busy time (the union of the kernel,
+memcpy and memset intervals of the trace), the device span, the idle share
+of the wall time, each hand-written kernel's device time, launches and
+share of the wall, and the 30 kernels that
 take the most device time; the whole table goes to
 ``chiprun_out/profile_<path>.txt``. Needs torch with CUDA and the CUDA
 toolkit; imports no JAX.
@@ -56,10 +60,18 @@ def busy_us(intervals):
     return total
 
 
-def request(pipe, spec, seed):
+# device-kernel names of the hand-written kernels (csrc/*.cu), by wrapper
+KERNEL_NAMES = {"fused_motion_block": "motion_block_kernel",
+                "fused_ln_geglu": "ln_geglu_kernel",
+                "fused_temporal_block": "temporal_block_kernel",
+                "temporal_attention": "temporal_attention_kernel",
+                "flash_attention": "flash_bf16_kernel"}
+
+
+def request(pipe, spec, seed, batch=1):
     with torch.inference_mode():
         req = chip_smoke.make_request(pipe, spec, seed,
-                                      pipe.config.clip_text.vocab_size)
+                                      pipe.config.clip_text.vocab_size, batch)
         video = pipe.sample(spec=spec, **req)
     torch.cuda.synchronize()
     return video
@@ -81,22 +93,26 @@ def main() -> int:
 
     chip_smoke.phase_build()
     pipe = chip_smoke.full_pipeline(0)
+    exact = SampleSpec(num_inference_steps=EXACT_STEPS)
     paths = {
-        "serving": apply_schedule(
+        "serving": (apply_schedule(
             SampleSpec(num_inference_steps=chip_smoke.SERVING_STEPS),
-            chip_smoke.SERVING_SCHEDULE),
-        "exact": SampleSpec(num_inference_steps=EXACT_STEPS),
+            chip_smoke.SERVING_SCHEDULE), 1),
+        "exact": (exact, 1),
+        f"exact_{chip_smoke.BATCH}clips": (exact, chip_smoke.BATCH),
     }
     out_dir = Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    for label, spec in paths.items():
-        request(pipe, spec, 100)
+    for label, (spec, batch) in paths.items():
+        request(pipe, spec, 100, batch)
+        torch.cuda.reset_peak_memory_stats()
         with torch.profiler.profile(activities=acts) as prof:
             t0 = time.perf_counter()
-            request(pipe, spec, 101)
+            request(pipe, spec, 101, batch)
             wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
         iv = device_intervals(prof)
         if not iv:
             raise SystemExit(f"{label}: the trace holds no device activity")
@@ -107,9 +123,16 @@ def main() -> int:
         for s, e, name in iv:
             by_name[name] += e - s
             calls[name] += 1
-        chip_smoke.log(f"[{label}] wall {wall:.3f} s, device busy {busy:.3f} "
-                       f"s over a device span of {span:.3f} s; idle share of "
-                       f"wall {1 - busy / wall:.3f}")
+        chip_smoke.log(f"[{label}] {batch} clip(s): wall {wall:.3f} s, peak "
+                       f"device memory {peak:.2f} GiB, device busy "
+                       f"{busy:.3f} s over a device span of {span:.3f} s; "
+                       f"idle share of wall {1 - busy / wall:.3f}")
+        for wrapper, kname in KERNEL_NAMES.items():
+            us = sum(t for n, t in by_name.items() if kname in n)
+            n = sum(c for n_, c in calls.items() if kname in n_)
+            chip_smoke.log(f"[{label}] {wrapper}: {us / 1e3:.2f} ms over "
+                           f"{n} launches, {us / 1e6 / wall:.3f} of the "
+                           "wall")
         rows = [f"{us / 1e3:12.2f} ms {calls[name]:6d}  {name}"
                 for name, us in by_name.most_common()]
         (out_dir / f"profile_{label}.txt").write_text("\n".join(rows) + "\n")

@@ -10,23 +10,32 @@ result line:
    hand-written kernels from ``followyourclick_tpu_torch/csrc``;
 2. each kernel against its plain PyTorch version at every shape the
    16-frame 512² CFG step gives it (the frame-axis attention kernels also at
-   the halved rows of a cond-only step), in bf16 and in both GEGLU gate
-   forms, with the error against a stated tolerance and both times;
+   the halved rows of a cond-only step; flash attention at the 2-clip
+   level-0 shape and at small ragged, cross-attention, wide-head and fp32
+   shapes), in bf16 and in both GEGLU gate forms, with the error against a
+   stated tolerance, both times, the least time the card could take
+   (bound) and, where one PyTorch call computes the same function, that
+   call's time;
 3. tiny-config requests on the card (kernels, fp32) against the same
    requests through the port on the CPU (plain versions), at 64², where
    spatial self-attention of ≤ 32 tokens takes the tiny-sequence kernel:
    one on the exact sampler, one under ``pab244_deep4_cfg4_ex``;
-4. two requests at full width (the default ``InferenceConfig``, 1.28 B
-   UNet parameters) in bf16 at 16 frames, 512², CFG 8, with seeded random
-   weights, on the exact sampler (``--steps``);
+4. two requests of one clip at full width (the default ``InferenceConfig``,
+   1.28 B UNet parameters) in bf16 at 16 frames, 512², CFG 8, with seeded
+   random weights, on the exact sampler (``--steps``);
 5. two such requests under the serving schedule ``pab488_deep4_cfg4_ex``
-   at 10 steps (one period of 8 and the 2 final exact steps).
+   at 10 steps (one period of 8 and the 2 final exact steps);
+6. batched serving: two requests of two clips each (different prompts,
+   first frames, clicks, fps and motion scores per clip), on the exact
+   sampler and under ``pab488_deep4_cfg4_ex``; level-0 spatial
+   self-attention of the doubled CFG batch (16 GiB of bf16 scores) takes the
+   flash-attention kernel.
 
-Phases 4 and 5 are the main paths: each sets every kernel's launch count to
-0 before its requests and checks each request's counts against those its
-``step_plan`` gives (and, on the serving path, against the counts worked out
-by hand), and prints time, video statistics and peak memory.
-The second-to-last line is the JSON kernel table, the last line
+Phases 4 to 6 are the main paths: each sets every kernel's launch count to
+0 before each request and checks the request's counts against those its
+``step_plan`` gives at its batch and against the counts worked out by hand,
+and prints time, video statistics per clip and peak memory. The
+second-to-last line is the JSON kernel table, the last line
 ``{"ok": true, "device": {...}}``. The script needs torch with CUDA, numpy
 and the CUDA toolkit; it imports no JAX.
 """
@@ -45,13 +54,20 @@ import torch
 
 # bf16 kernel vs plain: max |kernel - plain| / max |plain| <= 1.6e-2, two
 # bf16 ulps of the largest output (the plain version rounds each product to
-# bf16 before its fp32 bias, and sums run in another order), as
+# bf16 before its fp32 bias, and sums run in another order; flash attention
+# rounds p at a running max, the plain version at the row's max), as
 # tests/test_torch_cuda.py
 BF16_REL = 1.6e-2
+# fp32 kernel vs plain: only the order of the sums differs
+FP32_REL = 1e-4
 # tiny fp32 request, card vs CPU, on a video in [0, 1]: the two sides differ
 # only in summation order (TF32 off) through 2-6 steps of ~60 layers and the
 # VAE
 TINY_VIDEO_ATOL = 2e-3
+# the card's published peaks (NVIDIA H100 SXM data sheet, dense): bf16
+# tensor-core operations per second and device-memory bytes per second
+PEAK_BF16_OPS = 989e12
+PEAK_BYTES = 3.35e12
 
 # (rows, C) per LN-GEGLU call and its count per UNet evaluation, and
 # (positions, F, C) per motion block and its count, at 16 f / 512² with CFG
@@ -68,6 +84,16 @@ TEMPORAL_BLOCK_SHAPES = [((8192, 16, 320), 10), ((2048, 16, 640), 10),
                          ((4096, 16, 320), 0), ((1024, 16, 640), 0)]
 TEMPORAL_ATTN_SHAPES = [((512, 16, 8, 160), 10), ((128, 16, 8, 160), 10),
                         ((256, 16, 8, 160), 0), ((64, 16, 8, 160), 0)]
+# flash attention: (B, Sq, Sk, H, D), dtype and count per UNet evaluation.
+# The path shape is level-0 spatial self-attention of a 2-clip CFG batch
+# (2 clips x 2 x 16 frames, 64² tokens, 8 heads of 40), 4 calls in an exact
+# evaluation; the others check a ragged key count, cross-attention over 77
+# keys, the widest head and fp32
+FLASH_SHAPES = [((64, 4096, 4096, 8, 40), torch.bfloat16, 4),
+                ((2, 300, 300, 4, 64), torch.bfloat16, 0),
+                ((2, 256, 77, 4, 40), torch.bfloat16, 0),
+                ((1, 512, 512, 2, 160), torch.bfloat16, 0),
+                ((2, 1024, 1024, 8, 40), torch.float32, 0)]
 KERNELS = {
     "fused_motion_block": ("followyourclick_tpu_torch/csrc/motion_block.cu",
                            "followyourclick_tpu/ops/motion_block.py:179"),
@@ -79,6 +105,8 @@ KERNELS = {
     "temporal_attention": (
         "followyourclick_tpu_torch/csrc/temporal_attention.cu",
         "followyourclick_tpu/ops/temporal_attention.py:161"),
+    "flash_attention": ("followyourclick_tpu_torch/csrc/flash_attention.cu",
+                        "followyourclick_tpu/ops/flash_attention.py:154"),
 }
 SERVING_SCHEDULE = "pab488_deep4_cfg4_ex"
 SERVING_STEPS = 10
@@ -86,9 +114,20 @@ SERVING_STEPS = 10
 # temporal sites run on the 3 full non-reusing steps (3 × 20 of each frame
 # kernel); LN-GEGLU 36 times on each of the 4 full steps and 10 times on
 # each of the 6 level-0 steps; the temporal sites keep every block off the
-# whole-block kernel
+# whole-block kernel; one clip never crosses the flash line
 SERVING_LAUNCHES = {"fused_motion_block": 0, "fused_ln_geglu": 204,
-                    "fused_temporal_block": 60, "temporal_attention": 60}
+                    "fused_temporal_block": 60, "temporal_attention": 60,
+                    "flash_attention": 0}
+# clips per batched request, and its flash launches worked out by hand:
+# on the exact sampler 4 per step (of the five level-0 self-attentions, the
+# first runs before the CFG duplication at 32 rows, 8 GiB of scores, and
+# takes the plain route; the other four run at 64 rows, 16 GiB); under the
+# serving schedule 20 (its 4 full steps feed the pre-duplicated 64 rows to
+# all 5 sites, and positions 0 and 4 never reuse spatial attention; the 6
+# cond-only steps run 32 rows). The other kernels launch as at one clip.
+BATCH = 2
+BATCHED_FLASH_PER_EXACT_STEP = 4
+BATCHED_SERVING_LAUNCHES = {**SERVING_LAUNCHES, "flash_attention": 20}
 
 
 def log(*a):
@@ -133,21 +172,30 @@ def phase_build():
             log("[build]", line.strip())
 
 
-def compare(name, got, ref, failures):
+def compare(name, got, ref, failures, tol=BF16_REL):
     """Log the error of ``got`` against ``ref``; note a failure."""
     diff = (got.float() - ref.float()).abs()
     max_abs, scale = float(diff.max()), float(ref.float().abs().max())
-    ok = max_abs <= BF16_REL * scale
+    ok = max_abs <= tol * scale
     log(f"  {name}: max_abs_err {max_abs:.3e}, max |plain| {scale:.3e}, "
-        f"normalised {max_abs / scale:.3e} (tol {BF16_REL}) "
+        f"normalised {max_abs / scale:.3e} (tol {tol}) "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         failures.append(name)
     return max_abs
 
 
+def bound_times(ops, tensors):
+    """(ms by operations, ms by bytes) of the least time the card could take:
+    ``ops`` bf16 tensor-core operations over the peak rate, and each of
+    ``tensors`` (inputs and the output) moved once over the memory rate."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    return ops / PEAK_BF16_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+
+
 def kernel_wrappers():
     """The wrappers of every kernel, by name; each counts its launches."""
+    from followyourclick_tpu_torch.ops.flash_attention import flash_attention
     from followyourclick_tpu_torch.ops.geglu import fused_ln_geglu
     from followyourclick_tpu_torch.ops.motion_block import fused_motion_block
     from followyourclick_tpu_torch.ops.temporal_attention import (
@@ -156,11 +204,24 @@ def kernel_wrappers():
     )
 
     fns = (fused_motion_block, fused_ln_geglu, fused_temporal_block,
-           temporal_attention)
+           temporal_attention, flash_attention)
     return {fn.__name__: fn for fn in fns}
 
 
+def sdpa(q, k, v):
+    """The one PyTorch call that computes attention over (B, S, H, D): the
+    library yardstick, timed here and used nowhere in the port."""
+    import torch.nn.functional as F
+
+    return F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+
+
 def phase_kernels(seed):
+    from followyourclick_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_ref,
+    )
     from followyourclick_tpu_torch.ops.geglu import (
         fused_ln_geglu,
         ln_geglu_ref,
@@ -178,11 +239,39 @@ def phase_kernels(seed):
 
     bf = torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    stats = {name: dict(err=0.0, ms=0.0, plain_ms=0.0) for name in KERNELS}
+    stats = {name: dict(err=0.0, ms=0.0, plain_ms=0.0, ops_ms=0.0,
+                        bytes_ms=0.0, bound_ms=0.0, library_ms=None)
+             for name in KERNELS}
     failures = []
 
     def vec(c, s=0.05, base=0.0):
         return base + randn(gen, (c,), s, bf)
+
+    def check(kernel, name, run_kernel, run_plain, count, ops, inputs,
+              run_library=None, tol=BF16_REL, timed=True):
+        """Compare, time and bound one call; add ``count`` calls of it to
+        the kernel's per-evaluation sums."""
+        got = run_kernel()
+        st = stats[kernel]
+        st["err"] = max(st["err"], compare(name, got, run_plain(), failures,
+                                           tol))
+        if not timed:
+            return
+        ms, plain = time_ms(run_kernel), time_ms(run_plain)
+        ops_ms, bytes_ms = bound_times(ops, [*inputs, got])
+        line = (f"    kernel {ms:.3f} ms, plain {plain:.3f} ms, bound "
+                f"{max(ops_ms, bytes_ms):.3f} ms (operations {ops_ms:.3f}, "
+                f"bytes {bytes_ms:.3f})")
+        if run_library is not None:
+            lib = time_ms(run_library)
+            line += f", library {lib:.3f} ms"
+            st["library_ms"] = (st["library_ms"] or 0.0) + count * lib
+        log(line)
+        st["ms"] += count * ms
+        st["plain_ms"] += count * plain
+        st["ops_ms"] += count * ops_ms
+        st["bytes_ms"] += count * bytes_ms
+        st["bound_ms"] += count * max(ops_ms, bytes_ms)
 
     for (rows, c), count in GEGLU_SHAPES:
         inner = 4 * c
@@ -191,18 +280,12 @@ def phase_kernels(seed):
                 randn(gen, (c, inner), inner ** -0.5, bf), vec(c))
         default = c <= 640
         for fast in (default, not default):
-            name = (f"fused_ln_geglu R={rows} C={c} "
-                    f"{'tanh' if fast else 'erf'}")
-            got = fused_ln_geglu(*args, fast_gating=fast)
-            ref = ln_geglu_ref(*args, fast_gating=fast)
-            st = stats["fused_ln_geglu"]
-            st["err"] = max(st["err"], compare(name, got, ref, failures))
-            ms = time_ms(lambda: fused_ln_geglu(*args, fast_gating=fast))
-            plain = time_ms(lambda: ln_geglu_ref(*args, fast_gating=fast))
-            log(f"    kernel {ms:.3f} ms, plain {plain:.3f} ms")
-            if fast == default:
-                st["ms"] += count * ms
-                st["plain_ms"] += count * plain
+            check("fused_ln_geglu",
+                  f"fused_ln_geglu R={rows} C={c} "
+                  f"{'tanh' if fast else 'erf'}",
+                  lambda: fused_ln_geglu(*args, fast_gating=fast),
+                  lambda: ln_geglu_ref(*args, fast_gating=fast),
+                  count if fast == default else 0, 24 * rows * c * c, args)
 
     for (p, f, c), count in MOTION_SHAPES:
         heads = 8
@@ -218,57 +301,56 @@ def phase_kernels(seed):
         pe = randn(gen, (f, c), 0.5, bf)
         scale = (c // heads) ** -0.5
         default = c <= 640
+        rows = p * f
         for fast in (default, not default):
-            name = (f"fused_motion_block P={p} F={f} C={c} "
-                    f"{'tanh' if fast else 'erf'}")
-
-            def run_kernel():
-                return fused_motion_block(x, pe, params, scale, heads,
-                                          fast_gating=fast)
-
-            def run_plain():
-                return motion_block_ref(x, pe, params, scale, heads,
-                                        fast_gating=fast)
-
-            st = stats["fused_motion_block"]
-            st["err"] = max(st["err"], compare(name, run_kernel(),
-                                               run_plain(), failures))
-            ms, plain = time_ms(run_kernel), time_ms(run_plain)
-            log(f"    kernel {ms:.3f} ms, plain {plain:.3f} ms")
-            if fast == default:
-                st["ms"] += count * ms
-                st["plain_ms"] += count * plain
+            check("fused_motion_block",
+                  f"fused_motion_block P={p} F={f} C={c} "
+                  f"{'tanh' if fast else 'erf'}",
+                  lambda: fused_motion_block(x, pe, params, scale, heads,
+                                             fast_gating=fast),
+                  lambda: motion_block_ref(x, pe, params, scale, heads,
+                                           fast_gating=fast),
+                  count if fast == default else 0,
+                  40 * rows * c * c + 8 * rows * f * c, [x, pe, *params])
 
     heads = 8
     for (b, f, c), count in TEMPORAL_BLOCK_SHAPES:
         args = (randn(gen, (b, f, c), 1.0, bf),
                 *[randn(gen, (c, c), c ** -0.5, bf) for _ in range(4)],
                 vec(c, 0.02))
-        name = f"fused_temporal_block B={b} F={f} C={c}"
-        st = stats["fused_temporal_block"]
-        st["err"] = max(st["err"], compare(
-            name, fused_temporal_block(*args, heads=heads),
-            temporal_block_ref(*args, heads=heads), failures))
-        ms = time_ms(lambda: fused_temporal_block(*args, heads=heads))
-        plain = time_ms(lambda: temporal_block_ref(*args, heads=heads))
-        log(f"    kernel {ms:.3f} ms, plain {plain:.3f} ms")
-        st["ms"] += count * ms
-        st["plain_ms"] += count * plain
-    for shape, count in TEMPORAL_ATTN_SHAPES:
-        qkv = [randn(gen, shape, 1.0, bf) for _ in range(3)]
-        name = "temporal_attention B={} S={} H={} D={}".format(*shape)
-        st = stats["temporal_attention"]
-        st["err"] = max(st["err"], compare(
-            name, temporal_attention(*qkv), temporal_attention_ref(*qkv),
-            failures))
-        ms = time_ms(lambda: temporal_attention(*qkv))
-        plain = time_ms(lambda: temporal_attention_ref(*qkv))
-        log(f"    kernel {ms:.3f} ms, plain {plain:.3f} ms")
-        st["ms"] += count * ms
-        st["plain_ms"] += count * plain
+        rows = b * f
+        check("fused_temporal_block",
+              f"fused_temporal_block B={b} F={f} C={c}",
+              lambda: fused_temporal_block(*args, heads=heads),
+              lambda: temporal_block_ref(*args, heads=heads), count,
+              8 * rows * c * c + 4 * rows * f * c, args)
+    for (b, s, h, d), count in TEMPORAL_ATTN_SHAPES:
+        qkv = [randn(gen, (b, s, h, d), 1.0, bf) for _ in range(3)]
+        check("temporal_attention",
+              f"temporal_attention B={b} S={s} H={h} D={d}",
+              lambda: temporal_attention(*qkv),
+              lambda: temporal_attention_ref(*qkv), count,
+              4 * b * h * s * s * d, qkv, run_library=lambda: sdpa(*qkv))
+    for (b, sq, sk, h, d), dtype, count in FLASH_SHAPES:
+        q = randn(gen, (b, sq, h, d), 1.0, dtype)
+        kv = [randn(gen, (b, sk, h, d), 1.0, dtype) for _ in range(2)]
+        path = count > 0
+        check("flash_attention",
+              f"flash_attention B={b} Sq={sq} Sk={sk} H={h} D={d} "
+              f"{str(dtype).split('.')[-1]}",
+              lambda: flash_attention(q, *kv),
+              lambda: flash_attention_ref(q, *kv), count,
+              4 * b * h * sq * sk * d, [q, *kv],
+              run_library=(lambda: sdpa(q, *kv)) if path else None,
+              tol=BF16_REL if dtype == bf else FP32_REL, timed=path)
     for name, st in stats.items():
+        st["bound_by"] = ("operations" if st["ops_ms"] >= st["bytes_ms"]
+                          else "bytes")
+        lib = st["library_ms"]
         log(f"[kernels] {name}: one UNet evaluation's calls take "
-            f"{st['ms']:.1f} ms in the kernel, {st['plain_ms']:.1f} ms plain")
+            f"{st['ms']:.1f} ms in the kernel, {st['plain_ms']:.1f} ms plain, "
+            f"bound {st['bound_ms']:.2f} ms by {st['bound_by']}"
+            + ("" if lib is None else f", library {lib:.2f} ms"))
     if failures:
         raise SystemExit(f"kernels disagree with their plain versions: "
                          f"{failures}")
@@ -315,22 +397,27 @@ def tiny_config():
                                  num_hidden_layers=2, num_attention_heads=4))
 
 
-def make_request(pipe, spec, seed, vocab):
-    """Token ids, click mask, fps / motion score and a first-frame image
-    (encoded by the pipeline's VAE), all from ``seed``."""
+def make_request(pipe, spec, seed, vocab, batch=1):
+    """``batch`` clips, each with its own token ids, click mask, fps, motion
+    score and first-frame image (encoded by the pipeline's VAE), all from
+    ``seed``."""
     g = torch.Generator().manual_seed(seed)
-    b, h, w = 1, spec.height // 8, spec.width // 8
+    b, h, w = batch, spec.height // 8, spec.width // 8
     image = torch.rand(b, spec.height, spec.width, 3, generator=g) * 2 - 1
-    cy, cx = torch.randint(0, h, (2,), generator=g).tolist()
     yy, xx = torch.meshgrid(torch.arange(h), torch.arange(w), indexing="ij")
-    mask = (((yy - cy) ** 2 + (xx - cx) ** 2) <= (h // 4) ** 2).float()
+    masks = []
+    for _ in range(b):
+        cy, cx = torch.randint(0, h, (2,), generator=g).tolist()
+        masks.append((((yy - cy) ** 2 + (xx - cx) ** 2)
+                      <= (h // 4) ** 2).float())
     return dict(
         input_ids=torch.randint(0, vocab, (b, 77), generator=g),
         neg_input_ids=torch.randint(0, vocab, (b, 77), generator=g),
         first_image_latents=pipe.encode_image(image),
-        mask=mask[None, :, :, None],
-        fps=torch.tensor([8.0]),
-        motion_score=torch.tensor([float(10 + seed % 20)]),
+        mask=torch.stack(masks)[..., None],
+        fps=torch.tensor([8.0 + 4 * i for i in range(b)]),
+        motion_score=torch.tensor([float(10 + (seed + 7 * i) % 20)
+                                   for i in range(b)]),
         noise=torch.randn(b, spec.video_length, h, w, 4, generator=g))
 
 
@@ -345,7 +432,7 @@ def phase_tiny(seed):
 
     torch.manual_seed(seed)
     cfg = tiny_config()
-    cpu = AnimationPipeline(cfg)
+    cpu = AnimationPipeline(cfg, device="cpu")
     unzero_(cpu.unet, torch.Generator().manual_seed(seed))
     card = AnimationPipeline(cfg, copy.deepcopy(cpu.unet),
                              copy.deepcopy(cpu.vae),
@@ -393,17 +480,30 @@ def whole_block_fits(c, dtype):
                           or (dtype == torch.float32 and c < 640))
 
 
-def expected_launches(unet, plan, dtype):
-    """Each kernel's launches in one request that follows ``plan`` (a
-    ``step_plan``), from the plan and the UNet's module structure alone. A
-    trunk-reuse step runs only level 0 (down block 0 and the last up block).
-    A motion block (all standard, two ``Temporal_Self`` attentions) takes
-    the modular path when the step's mode records or reuses temporal sites
-    or :func:`whole_block_fits` says no, else the whole-block kernel. On the
-    modular path the FF is one LN-GEGLU launch and each attention that is
-    not reused one launch of fused_temporal_block (C < 1280) or
-    temporal_attention (C = 1280); every spatial transformer block runs one
-    LN-GEGLU. Spatial self-attention is assumed above 32 tokens (no
+def flash_line(rows, tokens, heads):
+    """The flash route's rule for self-attention, written out from the JAX
+    routing rule rather than asked of the port: at least 1024 keys and more
+    than 12 GiB of bf16 scores."""
+    return tokens >= 1024 and rows * heads * tokens * tokens * 2 > 12 * 2 ** 30
+
+
+def expected_launches(unet, spec, dtype, batch=1):
+    """Each kernel's launches in one request of ``batch`` clips that follows
+    ``step_plan(spec)``, from the plan, the clip shape and the UNet's module
+    structure alone. A trunk-reuse step runs only level 0 (down block 0 and
+    the last up block). A motion block (all standard, two ``Temporal_Self``
+    attentions) takes the modular path when the step's mode records or
+    reuses temporal sites or :func:`whole_block_fits` says no, else the
+    whole-block kernel. On the modular path the FF is one LN-GEGLU launch
+    and each attention that is not reused one launch of
+    fused_temporal_block (C < 1280) or temporal_attention (C = 1280); every
+    spatial transformer block runs one LN-GEGLU. A spatial self-attention
+    that is not reused launches flash attention when :func:`flash_line`
+    holds for its rows (clips × frames, doubled for CFG after the
+    duplication: on an exact step only from the second transformer block
+    on, since the first duplicates at its cross-attention; on a full
+    serving step everywhere, the input being pre-duplicated; never on a
+    cond-only step). Spatial self-attention is assumed above 32 tokens (no
     tiny-sequence launches), as at 512²."""
     from followyourclick_tpu_torch.models.attention import (
         BasicTransformerBlock,
@@ -411,24 +511,40 @@ def expected_launches(unet, plan, dtype):
     from followyourclick_tpu_torch.models.motion_module import (
         TemporalTransformerBlock,
     )
+    from followyourclick_tpu_torch.pipelines.animation import step_plan
 
-    last_up = f"up_blocks.{len(unet.up_blocks) - 1}."
+    levels = len(unet.down_blocks)
+    last_up = f"up_blocks.{levels - 1}."
+
+    def level(name):
+        part, i = name.split(".")[:2]
+        if part == "down_blocks":
+            return int(i)
+        return levels - 1 - int(i) if part == "up_blocks" else levels - 1
 
     def level0(name):
         return name.startswith("down_blocks.0.") or name.startswith(last_up)
 
     counts = dict.fromkeys(KERNELS, 0)
-    for step in plan:
+    for step in step_plan(spec):
         mode = step.mode
         trunk = (mode is None or not mode.reuse_deep
                  or len(unet.down_blocks) < 2)
         temporal_sites = mode is not None and (mode.record_temporal
                                                or mode.reuse_temporal)
+        doubled = step.full and mode is not None  # pre-duplicated input
         for name, m in unet.named_modules():
             if not (trunk or level0(name)):
                 continue
             if isinstance(m, BasicTransformerBlock):
                 counts["fused_ln_geglu"] += 1
+                rows = batch * spec.video_length * (2 if doubled else 1)
+                doubled = doubled or step.full  # the first block duplicates
+                tokens = ((spec.height // 8 >> level(name))
+                          * (spec.width // 8 >> level(name)))
+                if (mode is None or not mode.reuse_spatial) and flash_line(
+                        rows, tokens, m.attn1.heads):
+                    counts["flash_attention"] += 1
             elif isinstance(m, TemporalTransformerBlock):
                 if not temporal_sites and whole_block_fits(m.dim, dtype):
                     counts["fused_motion_block"] += 1
@@ -469,15 +585,15 @@ def full_pipeline(seed):
     return pipe
 
 
-def phase_requests(pipe, spec, label, seed, by_hand=None):
-    """Two full-width requests on one path: the counts are set to 0 before
-    and read after each; each must equal what ``step_plan`` gives, and that
-    must equal ``by_hand`` where it is given. Returns the path's launches by
+def phase_requests(pipe, spec, label, seed, by_hand=None, batch=1):
+    """Two full-width requests of ``batch`` clips on one path: the counts
+    are set to 0 before and read after each; each must equal what
+    ``step_plan`` gives, and that must equal ``by_hand`` where it is given.
+    Every clip must be finite and non-constant, the clips of a request must
+    differ, and so must the two requests. Returns the path's launches by
     kernel and the seconds per request."""
-    from followyourclick_tpu_torch.pipelines.animation import step_plan
-
     wrappers = kernel_wrappers()
-    want = expected_launches(pipe.unet, step_plan(spec), pipe.dtype)
+    want = expected_launches(pipe.unet, spec, pipe.dtype, batch)
     if by_hand is not None and want != by_hand:
         raise SystemExit(f"{label}: step_plan gives {want} launches, the "
                          f"hand count {by_hand}")
@@ -491,7 +607,7 @@ def phase_requests(pipe, spec, label, seed, by_hand=None):
         t0 = time.perf_counter()
         with torch.inference_mode():
             req = make_request(pipe, spec, seed + 100 + r,
-                               pipe.config.clip_text.vocab_size)
+                               pipe.config.clip_text.vocab_size, batch)
             video = pipe.sample(spec=spec, **req)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
@@ -499,22 +615,28 @@ def phase_requests(pipe, spec, label, seed, by_hand=None):
         for name, n in got.items():
             total[name] += n
         v = video.float()
-        log(f"[{label}] request {r}: {dt:.2f} s, video {tuple(v.shape)} min "
-            f"{float(v.min()):.4f} max {float(v.max()):.4f} mean "
-            f"{float(v.mean()):.4f} std {float(v.std()):.4f}; launches "
-            f"{got} (want {want})")
+        log(f"[{label}] request {r}: {dt:.2f} s for {batch} clip(s), video "
+            f"{tuple(v.shape)}; launches {got} (want {want})")
+        for i, clip in enumerate(v):
+            log(f"[{label}]   clip {i}: min {float(clip.min()):.4f} max "
+                f"{float(clip.max()):.4f} mean {float(clip.mean()):.4f} std "
+                f"{float(clip.std()):.4f}")
         if got != want:
             raise SystemExit(f"{label}: the kernels were not launched the "
                              "number of times the step plan gives")
-        shape = (1, spec.video_length, spec.height, spec.width, 3)
+        shape = (batch, spec.video_length, spec.height, spec.width, 3)
         if v.shape != shape or not bool(torch.isfinite(v).all()) \
-                or float(v.std()) <= 0.0:
-            raise SystemExit(f"{label}: the video is not finite and "
+                or min(float(clip.std()) for clip in v) <= 0.0:
+            raise SystemExit(f"{label}: a clip is not finite and "
                              "non-constant")
+        for i in range(1, batch):
+            if float((v[i] - v[0]).abs().mean()) <= 0.0:
+                raise SystemExit(f"{label}: two clips of one request are "
+                                 "the same video")
         videos.append(v)
         seconds.append(dt)
     diff = float((videos[0] - videos[1]).abs().mean())
-    log(f"[{label}] mean |video 0 - video 1| = {diff:.4f}")
+    log(f"[{label}] mean |request 0 - request 1| = {diff:.4f}")
     if diff <= 0.0:
         raise SystemExit(f"{label}: two different requests gave the same "
                          "video")
@@ -546,14 +668,26 @@ def main(argv=None) -> int:
     stats = phase_kernels(args.seed)
     phase_tiny(args.seed)
     pipe = full_pipeline(args.seed)
+    exact = SampleSpec(num_inference_steps=args.steps)
+    serving = apply_schedule(SampleSpec(num_inference_steps=SERVING_STEPS),
+                             SERVING_SCHEDULE)
+    exact_by_hand = {"fused_motion_block": 20 * args.steps,
+                     "fused_ln_geglu": 16 * args.steps,
+                     "fused_temporal_block": 0, "temporal_attention": 0,
+                     "flash_attention": 0}
+    batched_by_hand = {**exact_by_hand, "flash_attention":
+                       BATCHED_FLASH_PER_EXACT_STEP * args.steps}
     paths = {
-        "exact": phase_requests(
-            pipe, SampleSpec(num_inference_steps=args.steps), "full",
-            args.seed)[0],
-        SERVING_SCHEDULE: phase_requests(
-            pipe, apply_schedule(SampleSpec(
-                num_inference_steps=SERVING_STEPS), SERVING_SCHEDULE),
-            "serving", args.seed, SERVING_LAUNCHES)[0],
+        "exact": phase_requests(pipe, exact, "full", args.seed,
+                                exact_by_hand)[0],
+        SERVING_SCHEDULE: phase_requests(pipe, serving, "serving", args.seed,
+                                         SERVING_LAUNCHES)[0],
+        f"exact_{BATCH}clips": phase_requests(
+            pipe, exact, "batched exact", args.seed, batched_by_hand,
+            BATCH)[0],
+        f"{SERVING_SCHEDULE}_{BATCH}clips": phase_requests(
+            pipe, serving, "batched serving", args.seed,
+            BATCHED_SERVING_LAUNCHES, BATCH)[0],
     }
     for name in KERNELS:
         if not sum(launches[name] for launches in paths.values()):
@@ -566,6 +700,8 @@ def main(argv=None) -> int:
                                 "evaluation on the modular path",
         "temporal_attention": "the calls of one full-batch UNet evaluation "
                               "on the modular path",
+        "flash_attention": f"the calls of one exact UNet evaluation of "
+                           f"{BATCH} clips",
     }
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": rep,
@@ -574,6 +710,9 @@ def main(argv=None) -> int:
                                      for path, p in paths.items()},
                 "max_abs_err": stats[name]["err"],
                 "ms": stats[name]["ms"], "plain_ms": stats[name]["plain_ms"],
+                "bound_ms": stats[name]["bound_ms"],
+                "bound_by": stats[name]["bound_by"],
+                "library_ms": stats[name]["library_ms"],
                 "ms_covers": covers[name] + " at 16 f / 512^2 CFG, bf16"}
                for name, (src, rep) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}), flush=True)

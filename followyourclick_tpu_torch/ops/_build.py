@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (``csrc/``) at first use.
 
-``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into one shared library
-with a plain C interface, loaded through ``ctypes``. The library goes to
+``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a``, one process per source,
+all started together, and links the objects into one shared library with a
+plain C interface, loaded through ``ctypes``. The library goes to
 ``followyourclick_tpu_torch/_build/`` (listed in ``.gitignore``) under a name
 keyed by a hash of the sources and flags, so an edit rebuilds and an
 unchanged tree reuses the previous build. Nothing is built on import.
@@ -23,8 +24,9 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                           "-Xptxas", "-v")
 
 # dtype codes of the C entry points, and the shared-memory sizes the
 # wrappers size their tiles against: the H100's 227 KB per block, and the
@@ -38,6 +40,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
+    "fyc_flash_attention": (_I, [_P] * 4 + [_I] * 5 + [_F, _I, _P]),
     "fyc_ln_geglu": (_I, [_P] * 8 + [_I, _I, _I, _F, _I, _I, _I, _I, _P]),
     "fyc_ln_geglu_smem_bytes": (ctypes.c_longlong, [_I, _I, _I]),
     "fyc_motion_block": (_I, [_P, _P, ctypes.POINTER(_P), _P]
@@ -87,26 +90,38 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile the kernels unless the library for these sources exists.
-    The compiler's report (registers, shared memory, spills) is kept beside
-    the library as ``<name>.log``."""
+    The compiler's report (registers, shared memory, spills) of every source
+    is kept beside the library as ``<name>.log``."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in sorted(CSRC.glob("*.cu"))]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        procs = []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = os.path.join(tmp, src.stem + ".o")
+            procs.append((src.name, obj, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        report, failed = [], []
+        for name, _, proc in procs:
+            text = proc.communicate()[0]
+            report.append(f"== {name}\n{text}")
+            if proc.returncode != 0:
+                failed.append(f"{name} ({proc.returncode}):\n{text[-4000:]}")
+        out.with_suffix(".log").write_text("".join(report))
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        lib = os.path.join(tmp, out.name)
+        proc = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", lib,
+                               *[obj for _, obj, _ in procs]],
                               capture_output=True, text=True)
-        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
                                f"{proc.stderr[-8000:]}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+        os.replace(lib, out)
     return out
 
 

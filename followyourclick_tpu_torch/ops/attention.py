@@ -1,23 +1,26 @@
 """Attention dispatch over ``(B, S, H, D)`` tensors.
 
 Port of ``followyourclick_tpu/ops/attention.py::dot_product_attention`` and
-its routing rules (``:141-221``). The JAX package sends three kinds of call
-to three places:
+its routing rules (``:141-221``), written out as :func:`route`, a function of
+the shapes alone:
 
-- tiny sequences (``sq == sk ≤ 32`` and ``sq·h ≤ 256``) to the Pallas kernel
-  ``ops/temporal_attention.py::temporal_attention``;
-- score sets above 12 GiB of bf16 to ``ops/flash_attention.py``;
-- everything else to XLA.
+- "tiny": ``sq == sk ≤ 32`` and ``sq·h ≤ 256``, no bias: the hand-written
+  kernel ``ops/temporal_attention.temporal_attention``;
+- "flash": ``sk ≥ 1024``, no bias, and above 12 GiB of bf16 scores
+  (``b·h·sq·sk·2``): the hand-written kernel
+  ``ops/flash_attention.flash_attention`` (level-0 spatial self-attention of
+  a 2-clip CFG request at 16 frames, 512²);
+- "plain": everything else, PyTorch's ``scaled_dot_product_attention`` in
+  the role the JAX package gives XLA (the softmax runs in fp32 in its
+  kernels).
 
-The port's plain route takes the XLA role: PyTorch's
-``scaled_dot_product_attention`` (the softmax runs in fp32 in its kernels).
-On a CUDA tensor the tiny-sequence route launches the hand-written kernel
-``ops/temporal_attention.temporal_attention``. The flash route is not ported
-yet (ROADMAP.md, Queue 2), so a CUDA tensor that would take it raises
-``NotImplementedError`` rather than quietly taking the plain route; the
-click-to-video sampler at 16 frames and 512² never reaches it (its largest
-score set is 8.6 GB). A CPU tensor always takes the plain route, as the JAX
-package does off the TPU.
+``impl`` is the JAX argument: "auto" routes as above, "flash" takes the
+flash route whenever there is no bias, "xla" the plain route. "packed" (the
+JAX head-packed tiny-sequence formulation) is not ported and raises. Under
+"auto" the kernel routes apply on a CUDA tensor, and a CPU tensor takes the
+plain route, as the JAX package does off the TPU; "flash" asked for by name
+runs ``flash_attention`` on either, which on a CPU tensor is its plain
+version ``flash_attention_ref``.
 """
 
 from __future__ import annotations
@@ -27,11 +30,36 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from followyourclick_tpu_torch.ops.flash_attention import flash_attention
 from followyourclick_tpu_torch.ops.temporal_attention import (
     temporal_attention,
 )
 
 FLASH_SCORE_BYTES = 12 * 1024 ** 3
+IMPLS = ("auto", "flash", "xla")
+
+
+def route(query_shape, key_shape, has_bias: bool,
+          impl: str = "auto") -> str:
+    """"tiny", "flash" or "plain" for ``(B, Sq, H, D)`` q and
+    ``(B, Sk, H, D)`` k on the card."""
+    if impl == "packed":
+        raise NotImplementedError(
+            "impl='packed' (the JAX head-packed tiny-sequence attention) is "
+            "not ported")
+    if impl not in IMPLS:
+        raise ValueError(f"impl={impl!r}; expected one of {IMPLS}")
+    if has_bias or impl == "xla":
+        return "plain"
+    if impl == "flash":
+        return "flash"
+    b, sq, h, _ = query_shape
+    sk = key_shape[1]
+    if sq == sk and sq <= 32 and sq * h <= 256:
+        return "tiny"
+    if sk >= 1024 and b * h * sq * sk * 2 > FLASH_SCORE_BYTES:
+        return "flash"
+    return "plain"
 
 
 def _plain_attention(query, key, value, bias, scale):
@@ -45,19 +73,15 @@ def _plain_attention(query, key, value, bias, scale):
 def dot_product_attention(query: torch.Tensor, key: torch.Tensor,
                           value: torch.Tensor,
                           bias: Optional[torch.Tensor] = None,
-                          scale: Optional[float] = None) -> torch.Tensor:
+                          scale: Optional[float] = None,
+                          impl: str = "auto") -> torch.Tensor:
     """Multi-head attention; ``bias`` is additive and broadcasts to
     ``(B, H, Sq, Sk)``. Returns ``(B, Sq, H, D)``."""
     if scale is None:
         scale = query.shape[-1] ** -0.5
-    b, sq, h, _ = query.shape
-    sk = key.shape[1]
-    if query.device.type == "cuda" and bias is None:
-        if sq == sk and sq <= 32 and sq * h <= 256:
-            return temporal_attention(query, key, value, scale)
-        if sk >= 1024 and b * h * sq * sk * 2 > FLASH_SCORE_BYTES:
-            raise NotImplementedError(
-                "attention above 12 GiB of scores (the JAX package's "
-                "ops/flash_attention.py route) has no Hopper kernel yet: "
-                "ROADMAP.md, Queue 2, flash_attention")
+    kind = route(query.shape, key.shape, bias is not None, impl)
+    if kind == "flash" and (impl == "flash" or query.device.type == "cuda"):
+        return flash_attention(query, key, value, scale)
+    if kind == "tiny" and query.device.type == "cuda":
+        return temporal_attention(query, key, value, scale)
     return _plain_attention(query, key, value, bias, scale)

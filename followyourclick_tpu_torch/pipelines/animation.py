@@ -150,13 +150,14 @@ def step_plan(spec: SampleSpec) -> list[PlanStep]:
 
 
 class AnimationPipeline:
-    """Text encoder, UNet3D and VAE on one device, in one dtype."""
+    """Text encoder, UNet3D and VAE on one device, in one dtype: the card
+    unless the caller passes ``device="cpu"``."""
 
     def __init__(self, config: InferenceConfig,
                  unet: Optional[UNet3DConditionModel] = None,
                  vae: Optional[AutoencoderKL] = None,
                  text_encoder: Optional[CLIPTextModel] = None,
-                 device: torch.device | str = "cpu",
+                 device: torch.device | str = "cuda",
                  dtype: torch.dtype = torch.float32):
         self.config = config
         self.device = torch.device(device)

@@ -64,8 +64,9 @@ def test_dot_product_attention(sq, sk, masked):
 def test_unported_routes_raise_only_on_the_card(monkeypatch):
     """A CPU tensor takes the plain route at every shape; on the card the
     tiny-sequence route launches the temporal_attention kernel and the flash
-    route raises. The routing test itself is on the shapes, so it is checked
-    with a stand-in device."""
+    route the flash_attention kernel, so no route raises.
+    The routing test itself is on the shapes, so it is checked with a
+    stand-in device."""
     q = torch.zeros(2, 16, 8, 4)
     assert tops.dot_product_attention(q, q, q).shape == q.shape
 
@@ -74,19 +75,21 @@ def test_unported_routes_raise_only_on_the_card(monkeypatch):
         def device(self):
             return torch.device("cuda")
 
-    calls = []
+    calls, flash = [], []
     monkeypatch.setattr(tops, "temporal_attention",
                         lambda *a: calls.append(a) or a[0])
+    monkeypatch.setattr(tops, "flash_attention",
+                        lambda *a: flash.append(a) or a[0])
     tiny = torch.zeros(2, 16, 8, 4).as_subclass(CudaLike)
     tops.dot_product_attention(tiny, tiny, tiny, scale=0.25)
     assert len(calls) == 1 and calls[0][3] == 0.25
     wide = torch.zeros(2, 16, 32, 4).as_subclass(CudaLike)  # sq·h > 256
     tops.dot_product_attention(wide, wide, wide)  # the plain route
-    assert len(calls) == 1
+    assert len(calls) == 1 and not flash
     huge = torch.zeros(1, 1, 1, 4).expand(4096, 4096, 8, 4).as_subclass(
         CudaLike)  # 4096·8·4096²·2 B of bf16 scores > 12 GiB
-    with pytest.raises(NotImplementedError, match="flash_attention"):
-        tops.dot_product_attention(huge, huge, huge)
+    tops.dot_product_attention(huge, huge, huge, scale=0.5)
+    assert len(flash) == 1 and flash[0][3] == 0.5 and len(calls) == 1
 
 
 @pytest.mark.parametrize("cfg_batch", [1, 2])

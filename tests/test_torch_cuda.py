@@ -25,6 +25,11 @@ import torch
 from followyourclick_tpu_torch.config import MotionModuleConfig
 from followyourclick_tpu_torch.models.motion_module import MotionModule
 from followyourclick_tpu_torch.models.pab import PabMode
+from followyourclick_tpu_torch.ops.attention import dot_product_attention
+from followyourclick_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_ref,
+)
 from followyourclick_tpu_torch.ops.geglu import fused_ln_geglu, ln_geglu_ref
 from followyourclick_tpu_torch.ops.motion_block import (
     fused_motion_block,
@@ -238,3 +243,94 @@ def test_motion_module_routes_on_the_card(card, c, dtype, pab, want):
         torch.cuda.synchronize()
     assert [a - b for a, b in zip(_counts(), before)] == want
     assert_close(got.cpu(), want_out, FP32_REL if dtype == F32 else BF16_REL)
+
+
+# (B, Sq, Sk, H, D): the JAX tests' shapes (ragged 300, cross-attention 256
+# over 77 keys, the widest head 160), a query tile past Sq (100) and one
+# batch-head count above a few blocks
+FLASH_SHAPES = [(2, 128, 128, 4, 40), (2, 300, 300, 4, 64),
+                (2, 256, 77, 4, 40), (1, 512, 512, 2, 160),
+                (3, 100, 1030, 2, 8), (4, 1024, 1024, 8, 40)]
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("b,sq,sk,h,d", FLASH_SHAPES)
+def test_flash_attention_kernel_matches_plain(card, dtype, b, sq, sk, h, d):
+    rs = np.random.RandomState(sq + sk + d)
+    q = _randn(rs, (b, sq, h, d), 1.0, dtype)
+    k, v = (_randn(rs, (b, sk, h, d), 1.0, dtype) for _ in range(2))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    assert_close(got, flash_attention_ref(q, k, v),
+                 FP32_REL if dtype == F32 else BF16_REL)
+
+
+def test_flash_attention_by_name_launches_the_kernel(card):
+    """dot_product_attention(impl="flash") at a shape "auto" keeps on the
+    plain route; impl="xla" never launches."""
+    rs = np.random.RandomState(1)
+    q, k, v = (_randn(rs, (2, 256, 4, 40), 1.0, BF16) for _ in range(3))
+    before = flash_attention.launches
+    got = dot_product_attention(q, k, v, impl="flash")
+    assert flash_attention.launches == before + 1
+    assert_close(got, flash_attention_ref(q, k, v), BF16_REL)
+    plain = dot_product_attention(q, k, v, impl="xla")
+    assert flash_attention.launches == before + 1
+    assert_close(plain, flash_attention_ref(q, k, v), BF16_REL)
+
+
+def test_flash_wrapper_rejects_what_the_kernel_does_not_take(card):
+    rs = np.random.RandomState(0)
+    q = _randn(rs, (2, 64, 4, 40))
+    with pytest.raises(TypeError):
+        flash_attention(q.half(), q.half(), q.half())       # no fp16 kernel
+    with pytest.raises(ValueError):
+        flash_attention(q, q[:1], q[:1])                    # batch differs
+    with pytest.raises(ValueError):
+        flash_attention(q.transpose(1, 2), q.transpose(1, 2),
+                        q.transpose(1, 2))                  # not contiguous
+    odd = _randn(rs, (2, 64, 4, 36))
+    with pytest.raises(ValueError):
+        flash_attention(odd, odd, odd)                      # D % 8 != 0
+    wide = _randn(rs, (1, 64, 1, 168))
+    with pytest.raises(ValueError):
+        flash_attention(wide, wide, wide)                   # D > 160
+
+
+@pytest.mark.parametrize("schedule", [None, "pab244_deep4_cfg4_ex"])
+def test_two_clip_tiny_request_card_against_cpu(card, schedule):
+    """A tiny fp32 request of two different clips (64², 4 frames) on the
+    card (kernels) against the same request on the CPU (plain versions):
+    2e-3 on the [0, 1] video, as chip_smoke.py's tiny phase."""
+    import chip_smoke
+    from followyourclick_tpu_torch.pipelines.animation import (
+        AnimationPipeline,
+        SampleSpec,
+    )
+    from followyourclick_tpu_torch.pipelines.serving_schedules import (
+        apply_schedule,
+    )
+
+    torch.manual_seed(2)
+    cfg = chip_smoke.tiny_config()
+    cpu = AnimationPipeline(cfg, device="cpu")
+    chip_smoke.unzero_(cpu.unet, torch.Generator().manual_seed(2))
+    gpu = AnimationPipeline(cfg, copy.deepcopy(cpu.unet),
+                            copy.deepcopy(cpu.vae),
+                            copy.deepcopy(cpu.text_encoder))
+    assert gpu.device.type == "cuda"
+    spec = SampleSpec(video_length=4, height=64, width=64,
+                      num_inference_steps=2 if schedule is None else 6)
+    if schedule is not None:
+        spec = apply_schedule(spec, schedule)
+    with torch.inference_mode():
+        req = chip_smoke.make_request(cpu, spec, 3, 1000, batch=2)
+    want = cpu.sample(spec=spec, **req)
+    got = gpu.sample(spec=spec, **req)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (2, 4, 64, 64, 3)
+    assert float((want[0] - want[1]).abs().mean()) > 1e-3
+    assert float((got.cpu() - want).abs().max()) <= chip_smoke.TINY_VIDEO_ATOL

@@ -48,24 +48,26 @@ CFG = InferenceConfig(unet=TINY_UNET, vae=TINY_VAE, clip_text=TINY_CLIP)
 F, H, W, STEPS = 4, 64, 64, 2
 
 
-def _request(seed):
+def _request(seed, b=1):
+    """A request of ``b`` clips, each with its own token ids, first-frame
+    latent, click mask, fps and motion score."""
     rs = np.random.RandomState(seed)
     return dict(
-        input_ids=rs.randint(0, 1000, size=(1, 77)),
-        neg_input_ids=rs.randint(0, 1000, size=(1, 77)),
-        first_image_latents=rs.randn(1, H // 8, W // 8, 4).astype(
+        input_ids=rs.randint(0, 1000, size=(b, 77)),
+        neg_input_ids=rs.randint(0, 1000, size=(b, 77)),
+        first_image_latents=rs.randn(b, H // 8, W // 8, 4).astype(
             np.float32),
-        mask=(rs.rand(1, H // 8, W // 8, 1) > 0.5).astype(np.float32),
-        fps=np.full((1,), 8.0, np.float32),
-        motion_score=np.full((1,), 20.0, np.float32))
+        mask=(rs.rand(b, H // 8, W // 8, 1) > 0.5).astype(np.float32),
+        fps=np.array([8.0, 12.0][:b], np.float32),
+        motion_score=np.array([20.0, 35.0][:b], np.float32))
 
 
-def test_tiny_sample_matches_jax():
+def sample_both(spec_kw, b=1, seed=0):
+    """One tiny request of ``b`` clips through the JAX ``_sample_jit`` and
+    the port's ``sample`` (the JAX initial noise injected), as numpy."""
     trees = dict(unet=tiny_unet_tree(), vae=tiny_vae_tree(),
                  text_encoder=tiny_clip_tree())
-    req = _request(0)
-    spec_kw = dict(video_length=F, height=H, width=W,
-                   num_inference_steps=STEPS, guidance_scale=8.0)
+    req = _request(seed, b)
     key = jax.random.PRNGKey(7)
 
     jpipe = JPipeline(CFG, trees["unet"], trees["vae"],
@@ -77,20 +79,38 @@ def test_tiny_sample_matches_jax():
         mask=jnp.asarray(req["mask"]), fps=jnp.asarray(req["fps"]),
         motion_score=jnp.asarray(req["motion_score"])))
     # _sample_jit draws its initial noise from the key itself (eta == 0)
-    noise = np.asarray(jax.random.normal(key, (1, F, H // 8, W // 8, 4)))
+    noise = np.asarray(jax.random.normal(key, (b, F, H // 8, W // 8, 4)))
 
     pipe = AnimationPipeline(
         CFG,
         unet=load_jax_params(UNet3DConditionModel(CFG.unet), trees["unet"]),
         vae=load_jax_params(AutoencoderKL(CFG.vae), trees["vae"]),
         text_encoder=load_jax_params(CLIPTextModel(CFG.clip_text),
-                                     trees["text_encoder"]))
+                                     trees["text_encoder"]), device="cpu")
     got = pipe.sample(**{k: torch.from_numpy(np.asarray(v))
                          for k, v in req.items()},
                       spec=SampleSpec(**spec_kw),
                       noise=torch.tensor(noise)).numpy()
-    assert got.shape == want.shape == (1, F, H, W, 3)
+    assert got.shape == want.shape == (b, F, H, W, 3)
     assert np.isfinite(got).all() and got.std() > 1e-3
+    return got, want
+
+
+EXACT = dict(video_length=F, height=H, width=W, num_inference_steps=STEPS,
+             guidance_scale=8.0)
+
+
+def test_tiny_sample_matches_jax():
+    got, want = sample_both(EXACT)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-3)
+
+
+def test_tiny_two_clip_sample_matches_jax():
+    """Two different clips in one request: the CFG rows [uncond clips; cond
+    clips] against the frame-folded rows, the per-clip fps and motion score
+    tiled to the doubled batch, and the CFG split, as the JAX sampler."""
+    got, want = sample_both(EXACT, b=2)
+    assert np.abs(got[0] - got[1]).mean() > 1e-3
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-3)
 
 
@@ -129,11 +149,20 @@ def test_prepare_latents_interpolates_first_frame_noise():
 
 
 def test_port_runs_without_jax():
-    """The port's tiny sampler, exact and under a serving schedule, in a
-    fresh interpreter loads neither jax nor flax."""
+    """In a fresh interpreter: import every module of the port, run its tiny
+    sampler on the CPU, exact and under a serving schedule, and find no
+    module of jax, flax or the JAX package loaded."""
     code = textwrap.dedent("""
+        import importlib
+        import pkgutil
         import sys
         import torch
+        import followyourclick_tpu_torch as port
+        names = [info.name for info in pkgutil.walk_packages(
+            port.__path__, port.__name__ + ".")]
+        assert len(names) > 20, names
+        for name in names:
+            importlib.import_module(name)
         from followyourclick_tpu_torch.config import (CLIPTextConfig,
             InferenceConfig, MotionModuleConfig, UNet3DConfig, VAEConfig)
         from followyourclick_tpu_torch.pipelines.animation import (
@@ -151,7 +180,7 @@ def test_port_runs_without_jax():
             clip_text=CLIPTextConfig(vocab_size=1000, intermediate_size=512,
                                      num_hidden_layers=1,
                                      num_attention_heads=4))
-        pipe = AnimationPipeline(cfg)
+        pipe = AnimationPipeline(cfg, device="cpu")
         ids = torch.randint(0, 1000, (1, 77))
         exact = SampleSpec(video_length=2, height=64, width=64,
                            num_inference_steps=1)
@@ -166,7 +195,8 @@ def test_port_runs_without_jax():
             assert video.shape == (1, 2, 64, 64, 3), video.shape
             assert bool(torch.isfinite(video).all())
         print("LOADED", sorted(m for m in sys.modules
-                               if m.split(".")[0] in ("jax", "flax")))
+                               if m.split(".")[0] in ("jax", "flax",
+                                                      "followyourclick_tpu")))
     """)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300)

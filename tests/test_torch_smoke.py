@@ -1,13 +1,15 @@
 """The launch counts that ``chip_smoke.py`` holds its main paths to.
 
 ``chip_smoke.expected_launches`` works each kernel's launches out from a
-request's ``step_plan`` and the UNet's module tree alone, with the
-whole-block motion kernel's fit rule written out. Here it runs on the
-default ``InferenceConfig`` UNet built on the meta device (no weights are
-allocated) and must give the counts worked out by hand: on the serving
-path the smoke's own ``SERVING_LAUNCHES``, on the exact path 20 whole-block
-motion kernels and 16 LN-GEGLU feed-forwards per step, and in fp32 the
-modular route for the blocks at C ≥ 640.
+request's ``step_plan``, its clip shape and batch, and the UNet's module
+tree alone, with the whole-block motion kernel's fit rule and the flash
+route's line written out. Here it runs on the default ``InferenceConfig``
+UNet built on the meta device (no weights are allocated) and must give the
+counts worked out by hand: on the serving path the smoke's own
+``SERVING_LAUNCHES``, on the exact path 20 whole-block motion kernels and
+16 LN-GEGLU feed-forwards per step, in fp32 the modular route for the
+blocks at C ≥ 640, and at two clips per request 4 flash launches per exact
+step and 20 per 10-step ``pab488_deep4_cfg4_ex`` request.
 """
 
 import pytest
@@ -16,13 +18,15 @@ import torch
 import chip_smoke
 from followyourclick_tpu_torch.config import InferenceConfig
 from followyourclick_tpu_torch.models.unet3d import UNet3DConditionModel
-from followyourclick_tpu_torch.pipelines.animation import (
-    SampleSpec,
-    step_plan,
-)
+from followyourclick_tpu_torch.ops.attention import route
+from followyourclick_tpu_torch.pipelines.animation import SampleSpec
 from followyourclick_tpu_torch.pipelines.serving_schedules import (
     apply_schedule,
 )
+
+SERVING = apply_schedule(
+    SampleSpec(num_inference_steps=chip_smoke.SERVING_STEPS),
+    chip_smoke.SERVING_SCHEDULE)
 
 
 @pytest.fixture(scope="module")
@@ -31,20 +35,51 @@ def meta_unet():
         return UNet3DConditionModel(InferenceConfig().unet)
 
 
-def _counts(motion, geglu, block, attn):
+def _counts(motion, geglu, block, attn, flash=0):
     return {"fused_motion_block": motion, "fused_ln_geglu": geglu,
-            "fused_temporal_block": block, "temporal_attention": attn}
+            "fused_temporal_block": block, "temporal_attention": attn,
+            "flash_attention": flash}
 
 
-@pytest.mark.parametrize("spec, dtype, want", [
-    (apply_schedule(SampleSpec(num_inference_steps=chip_smoke.SERVING_STEPS),
-                    chip_smoke.SERVING_SCHEDULE), torch.bfloat16,
-     chip_smoke.SERVING_LAUNCHES),
-    (SampleSpec(num_inference_steps=4), torch.bfloat16, _counts(80, 64, 0, 0)),
+@pytest.mark.parametrize("spec, dtype, batch, want", [
+    (SERVING, torch.bfloat16, 1, chip_smoke.SERVING_LAUNCHES),
+    (SampleSpec(num_inference_steps=4), torch.bfloat16, 1,
+     _counts(80, 64, 0, 0)),
     # fp32: the 5 blocks at C = 320 fit the whole-block kernel; the 15 at
     # 640 and 1280 take the modular path (their FFs join the 16 spatial)
-    (SampleSpec(num_inference_steps=1), torch.float32, _counts(5, 31, 10, 20)),
-], ids=["serving", "exact-bf16", "exact-fp32"])
-def test_expected_launches_match_the_hand_count(meta_unet, spec, dtype, want):
-    assert chip_smoke.expected_launches(meta_unet, step_plan(spec),
-                                        dtype) == want
+    (SampleSpec(num_inference_steps=1), torch.float32, 1,
+     _counts(5, 31, 10, 20)),
+    (SERVING, torch.bfloat16, chip_smoke.BATCH,
+     chip_smoke.BATCHED_SERVING_LAUNCHES),
+    (SampleSpec(num_inference_steps=4), torch.bfloat16, chip_smoke.BATCH,
+     _counts(80, 64, 0, 0, 4 * chip_smoke.BATCHED_FLASH_PER_EXACT_STEP)),
+    # cfg_cache3 at 6 steps: full steps 0, 3 and the 2 final exact ones run
+    # 4 flash attentions each at two clips; the 2 cond-only steps none
+    (apply_schedule(SampleSpec(num_inference_steps=6), "cfg_cache3"),
+     torch.bfloat16, 2, _counts(120, 96, 0, 0, 16)),
+    # three clips: the first level-0 attention (48 rows, exactly 12 GiB)
+    # still stays below the line
+    (SampleSpec(num_inference_steps=1), torch.bfloat16, 3,
+     _counts(20, 16, 0, 0, 4)),
+], ids=["serving", "exact-bf16", "exact-fp32", "serving-2clips",
+        "exact-2clips", "cfg_cache3-2clips", "exact-3clips"])
+def test_expected_launches_match_the_hand_count(meta_unet, spec, dtype,
+                                                batch, want):
+    assert chip_smoke.expected_launches(meta_unet, spec, dtype,
+                                        batch) == want
+
+
+def test_batched_hand_counts():
+    assert chip_smoke.BATCHED_FLASH_PER_EXACT_STEP == 4
+    assert chip_smoke.BATCHED_SERVING_LAUNCHES == {
+        **chip_smoke.SERVING_LAUNCHES, "flash_attention": 20}
+
+
+@pytest.mark.parametrize("rows", [16, 32, 48, 49, 64, 96])
+@pytest.mark.parametrize("tokens", [1024, 4096])
+def test_flash_line_is_the_ports_route(rows, tokens):
+    """The smoke's written-out flash rule agrees with the port's route for
+    level-0 self-attention shapes (8 heads of 40)."""
+    shape = (rows, tokens, 8, 40)
+    assert chip_smoke.flash_line(rows, tokens, 8) == (
+        route(shape, shape, False) == "flash")
