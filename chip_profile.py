@@ -8,8 +8,10 @@ Builds the kernels and the default ``InferenceConfig`` pipeline as
 and, for ``pab488_deep4_cfg4_ex`` at 10 steps, the exact sampler at 4 steps
 and the exact sampler at 4 steps with two clips per request (batched
 serving, whose level-0 self-attention takes the flash-attention kernel),
-runs one request to warm up and then one under ``torch.profiler`` (CPU and
-CUDA activities, no schedule). For each path it prints the wall time (host
+then, with that pipeline freed, for the IP-Adapter Plus configuration
+(``chip_smoke.full_pipeline(ip_plus=True)``: ViT-H/14 tower, Resampler, 16
+ip tokens) on the exact sampler at 4 steps, runs one request to warm up and
+then one under ``torch.profiler`` (CPU and CUDA activities, no schedule). For each path it prints the wall time (host
 clock, ending in ``torch.cuda.synchronize()``), the peak device memory of
 the profiled request, the device's busy time (the union of the kernel,
 memcpy and memset intervals of the trace), the device span, the idle share
@@ -23,6 +25,7 @@ toolkit; imports no JAX.
 from __future__ import annotations
 
 import collections
+import gc
 import json
 import os
 import sys
@@ -92,20 +95,26 @@ def main() -> int:
     )
 
     chip_smoke.phase_build()
-    pipe = chip_smoke.full_pipeline(0)
     exact = SampleSpec(num_inference_steps=EXACT_STEPS)
     paths = {
         "serving": (apply_schedule(
             SampleSpec(num_inference_steps=chip_smoke.SERVING_STEPS),
-            chip_smoke.SERVING_SCHEDULE), 1),
-        "exact": (exact, 1),
-        f"exact_{chip_smoke.BATCH}clips": (exact, chip_smoke.BATCH),
+            chip_smoke.SERVING_SCHEDULE), 1, False),
+        "exact": (exact, 1, False),
+        f"exact_{chip_smoke.BATCH}clips": (exact, chip_smoke.BATCH, False),
+        "exact_ip_plus": (exact, 1, True),
     }
     out_dir = Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    for label, (spec, batch) in paths.items():
+    pipe = None
+    for label, (spec, batch, ip_plus) in paths.items():
+        if pipe is None or (pipe.ip_adapter is not None) != ip_plus:
+            pipe = None  # one full-width pipeline at a time
+            gc.collect()
+            torch.cuda.empty_cache()
+            pipe = chip_smoke.full_pipeline(0, ip_plus=ip_plus)
         request(pipe, spec, 100, batch)
         torch.cuda.reset_peak_memory_stats()
         with torch.profiler.profile(activities=acts) as prof:

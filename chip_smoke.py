@@ -15,11 +15,18 @@ result line:
    shapes), in bf16 and in both GEGLU gate forms, with the error against a
    stated tolerance, both times, the least time the card could take
    (bound) and, where one PyTorch call computes the same function, that
-   call's time;
+   call's time. The three kernels no path routes (as in the JAX package)
+   run at the shapes their sites would give them: ``fused_geglu`` at the
+   LN-GEGLU rows, ``fused_group_norm`` at each of the 81 GroupNorm sites of
+   one exact evaluation (listed from the module tree by hooks on a UNet on
+   the meta device), ``fused_ln_cross_attention`` at the four attn2 shapes
+   over 77 keys, plus a ragged row count and fp32;
 3. tiny-config requests on the card (kernels, fp32) against the same
    requests through the port on the CPU (plain versions), at 64², where
    spatial self-attention of ≤ 32 tokens takes the tiny-sequence kernel:
-   one on the exact sampler, one under ``pab244_deep4_cfg4_ex``;
+   one on the exact sampler, one under ``pab244_deep4_cfg4_ex``, and with
+   an IP-Adapter image prompt (a tiny CLIP vision tower): vanilla and Plus
+   on the exact sampler, vanilla under ``pab244_deep4_cfg4_ex``;
 4. two requests of one clip at full width (the default ``InferenceConfig``,
    1.28 B UNet parameters) in bf16 at 16 frames, 512², CFG 8, with seeded
    random weights, on the exact sampler (``--steps``);
@@ -29,12 +36,19 @@ result line:
    first frames, clicks, fps and motion scores per clip), on the exact
    sampler and under ``pab488_deep4_cfg4_ex``; level-0 spatial
    self-attention of the doubled CFG batch (16 GiB of bf16 scores) takes the
-   flash-attention kernel.
+   flash-attention kernel;
+7. IP-Adapter Plus (BASELINE config 3), built after the earlier pipeline
+   is freed: the default widths with ``use_ip_cross_attention`` and 16 ip
+   tokens, the CLIP ViT-H/14 tower (32 layers, 1280 wide) and the
+   Resampler (depth 4, 12 heads, 16 queries); two one-clip requests with
+   different images on the exact sampler (``--steps``), and the ip encode
+   alone (tower and Resampler, condition and black image) by CUDA events.
 
-Phases 4 to 6 are the main paths: each sets every kernel's launch count to
+Phases 4 to 7 are the main paths: each sets every kernel's launch count to
 0 before each request and checks the request's counts against those its
-``step_plan`` gives at its batch and against the counts worked out by hand,
-and prints time, video statistics per clip and peak memory. The
+``step_plan`` gives at its batch and against the counts worked out by hand
+(the three unrouted kernels: 0), and prints time, video statistics per clip
+and peak memory. The
 second-to-last line is the JSON kernel table, the last line
 ``{"ok": true, "device": {...}}``. The script needs torch with CUDA, numpy
 and the CUDA toolkit; it imports no JAX.
@@ -43,7 +57,10 @@ and the CUDA toolkit; it imports no JAX.
 from __future__ import annotations
 
 import argparse
+import collections
 import copy
+import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -68,6 +85,8 @@ TINY_VIDEO_ATOL = 2e-3
 # tensor-core operations per second and device-memory bytes per second
 PEAK_BF16_OPS = 989e12
 PEAK_BYTES = 3.35e12
+# fp32 operations per second outside the tensor cores (same data sheet)
+PEAK_FP32_OPS = 67e12
 
 # (rows, C) per LN-GEGLU call and its count per UNet evaluation, and
 # (positions, F, C) per motion block and its count, at 16 f / 512² with CFG
@@ -108,6 +127,33 @@ KERNELS = {
     "flash_attention": ("followyourclick_tpu_torch/csrc/flash_attention.cu",
                         "followyourclick_tpu/ops/flash_attention.py:154"),
 }
+# the kernels no path routes, as in the JAX package: each is held against
+# its plain version at the shapes its sites would give it
+UNROUTED = {
+    "fused_geglu": ("followyourclick_tpu_torch/csrc/geglu.cu",
+                    "followyourclick_tpu/ops/geglu.py:295"),
+    "fused_group_norm": ("followyourclick_tpu_torch/csrc/groupnorm.cu",
+                         "followyourclick_tpu/ops/groupnorm.py:149"),
+    "fused_ln_cross_attention": (
+        "followyourclick_tpu_torch/csrc/cross_attention.cu",
+        "followyourclick_tpu/ops/cross_attention.py:194"),
+}
+# the text cross-attention (attn2) of one exact evaluation at 16 f / 512²
+# with CFG: (B, S, C) query rows per site and the sites per shape, 8 heads,
+# 77 keys of 768 channels; then a ragged row count and fp32, untimed
+CROSS_SHAPES = [((32, 4096, 320), torch.bfloat16, 5),
+                ((32, 1024, 640), torch.bfloat16, 5),
+                ((32, 256, 1280), torch.bfloat16, 5),
+                ((32, 64, 1280), torch.bfloat16, 1),
+                ((3, 333, 320), torch.bfloat16, 0),
+                ((2, 1024, 320), torch.float32, 0)]
+TEXT_KEYS, TEXT_DIM = 77, 768
+# the tiny IP requests' CLIP vision tower (tests/test_pipeline_wiring.py
+# TINY_VISION): 2 layers of 32, 32² images in 16² patches
+TINY_VISION = dict(hidden_size=32, intermediate_size=64, num_hidden_layers=2,
+                   num_attention_heads=4, image_size=32, patch_size=16,
+                   projection_dim=1024)
+IP_TOKENS = 16  # the Plus configuration's Resampler queries
 SERVING_SCHEDULE = "pab488_deep4_cfg4_ex"
 SERVING_STEPS = 10
 # launches per serving request, worked out by hand from the schedule: the
@@ -185,16 +231,18 @@ def compare(name, got, ref, failures, tol=BF16_REL):
     return max_abs
 
 
-def bound_times(ops, tensors):
+def bound_times(ops, tensors, peak_ops=PEAK_BF16_OPS):
     """(ms by operations, ms by bytes) of the least time the card could take:
-    ``ops`` bf16 tensor-core operations over the peak rate, and each of
-    ``tensors`` (inputs and the output) moved once over the memory rate."""
+    ``ops`` operations over ``peak_ops`` (bf16 tensor cores unless given),
+    and each of ``tensors`` (inputs and the output) moved once over the
+    memory rate."""
     nbytes = sum(t.numel() * t.element_size() for t in tensors)
-    return ops / PEAK_BF16_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return ops / peak_ops * 1e3, nbytes / PEAK_BYTES * 1e3
 
 
 def kernel_wrappers():
-    """The wrappers of every kernel, by name; each counts its launches."""
+    """The wrappers of every routed kernel, by name; each counts its
+    launches."""
     from followyourclick_tpu_torch.ops.flash_attention import flash_attention
     from followyourclick_tpu_torch.ops.geglu import fused_ln_geglu
     from followyourclick_tpu_torch.ops.motion_block import fused_motion_block
@@ -206,6 +254,54 @@ def kernel_wrappers():
     fns = (fused_motion_block, fused_ln_geglu, fused_temporal_block,
            temporal_attention, flash_attention)
     return {fn.__name__: fn for fn in fns}
+
+
+def unrouted_wrappers():
+    """The wrappers of the kernels no path routes, by name."""
+    from followyourclick_tpu_torch.ops.cross_attention import (
+        fused_ln_cross_attention,
+    )
+    from followyourclick_tpu_torch.ops.geglu import fused_geglu
+    from followyourclick_tpu_torch.ops.groupnorm import fused_group_norm
+
+    fns = (fused_geglu, fused_group_norm, fused_ln_cross_attention)
+    return {fn.__name__: fn for fn in fns}
+
+
+def group_norm_sites(unet_config, spec):
+    """Counter of the ``(B, N, C, groups, eps, act)`` that every GroupNorm
+    of one exact CFG evaluation at ``spec``'s clip shape hands its norm,
+    ``(B, N, C)`` being the module's input with the axes between the first
+    and the channels folded into N: read by forward hooks from a UNet built
+    and run on the meta device (no memory, no arithmetic)."""
+    from followyourclick_tpu_torch.models.layers import GroupNorm
+    from followyourclick_tpu_torch.models.unet3d import (
+        UNet3DConditionModel,
+        UNetConditioning,
+    )
+
+    sites = collections.Counter()
+
+    def hook(module, inputs, _):
+        x = inputs[0]
+        n = 1
+        for d in x.shape[1:-1]:
+            n *= d
+        sites[(x.shape[0], n, x.shape[-1], module.num_groups, module.eps,
+               module.act)] += 1
+
+    with torch.device("meta"), torch.no_grad():
+        unet = UNet3DConditionModel(unet_config)
+        for m in unet.modules():
+            if isinstance(m, GroupNorm):
+                m.register_forward_hook(hook)
+        h, w = spec.height // 8, spec.width // 8
+        unet(torch.empty(1, spec.video_length, h, w,
+                         unet_config.conv_in_channels),
+             torch.zeros(1), UNetConditioning(
+                 torch.empty(2, TEXT_KEYS, unet_config.cross_attention_dim),
+                 torch.empty(1), torch.empty(1)))
+    return sites
 
 
 def sdpa(q, k, v):
@@ -241,14 +337,15 @@ def phase_kernels(seed):
     gen = torch.Generator(device="cuda").manual_seed(seed)
     stats = {name: dict(err=0.0, ms=0.0, plain_ms=0.0, ops_ms=0.0,
                         bytes_ms=0.0, bound_ms=0.0, library_ms=None)
-             for name in KERNELS}
+             for name in {**KERNELS, **UNROUTED}}
     failures = []
 
     def vec(c, s=0.05, base=0.0):
         return base + randn(gen, (c,), s, bf)
 
     def check(kernel, name, run_kernel, run_plain, count, ops, inputs,
-              run_library=None, tol=BF16_REL, timed=True):
+              run_library=None, tol=BF16_REL, timed=True,
+              peak_ops=PEAK_BF16_OPS):
         """Compare, time and bound one call; add ``count`` calls of it to
         the kernel's per-evaluation sums."""
         got = run_kernel()
@@ -258,7 +355,7 @@ def phase_kernels(seed):
         if not timed:
             return
         ms, plain = time_ms(run_kernel), time_ms(run_plain)
-        ops_ms, bytes_ms = bound_times(ops, [*inputs, got])
+        ops_ms, bytes_ms = bound_times(ops, [*inputs, got], peak_ops)
         line = (f"    kernel {ms:.3f} ms, plain {plain:.3f} ms, bound "
                 f"{max(ops_ms, bytes_ms):.3f} ms (operations {ops_ms:.3f}, "
                 f"bytes {bytes_ms:.3f})")
@@ -266,6 +363,8 @@ def phase_kernels(seed):
             lib = time_ms(run_library)
             line += f", library {lib:.3f} ms"
             st["library_ms"] = (st["library_ms"] or 0.0) + count * lib
+            st["ms_library_sites"] = st.get("ms_library_sites", 0.0) \
+                + count * ms
         log(line)
         st["ms"] += count * ms
         st["plain_ms"] += count * plain
@@ -343,6 +442,7 @@ def phase_kernels(seed):
               4 * b * h * sq * sk * d, [q, *kv],
               run_library=(lambda: sdpa(q, *kv)) if path else None,
               tol=BF16_REL if dtype == bf else FP32_REL, timed=path)
+    phase_unrouted_kernels(gen, check, vec)
     for name, st in stats.items():
         st["bound_by"] = ("operations" if st["ops_ms"] >= st["bytes_ms"]
                           else "bytes")
@@ -350,11 +450,82 @@ def phase_kernels(seed):
         log(f"[kernels] {name}: one UNet evaluation's calls take "
             f"{st['ms']:.1f} ms in the kernel, {st['plain_ms']:.1f} ms plain, "
             f"bound {st['bound_ms']:.2f} ms by {st['bound_by']}"
-            + ("" if lib is None else f", library {lib:.2f} ms"))
+            + ("" if lib is None else
+               f", library {lib:.2f} ms (against {st['ms_library_sites']:.2f}"
+               " ms of the kernel at the same calls)"))
     if failures:
         raise SystemExit(f"kernels disagree with their plain versions: "
                          f"{failures}")
     return stats
+
+
+def phase_unrouted_kernels(gen, check, vec):
+    """The three kernels no path routes, at the shapes their sites would
+    give them in one exact evaluation at 16 f / 512² with CFG."""
+    import torch.nn.functional as F
+
+    from followyourclick_tpu_torch.config import InferenceConfig
+    from followyourclick_tpu_torch.ops.cross_attention import (
+        fused_ln_cross_attention,
+        ln_cross_attention_ref,
+    )
+    from followyourclick_tpu_torch.ops.geglu import fused_geglu, geglu_ref
+    from followyourclick_tpu_torch.ops.groupnorm import (
+        fused_group_norm,
+        group_norm_ref,
+    )
+    from followyourclick_tpu_torch.pipelines.animation import SampleSpec
+
+    bf = torch.bfloat16
+    for (rows, c), count in GEGLU_SHAPES:
+        inner = 4 * c
+        args = (randn(gen, (rows, c), 1.0, bf),
+                randn(gen, (2 * inner, c), c ** -0.5, bf), vec(2 * inner),
+                randn(gen, (c, inner), inner ** -0.5, bf), vec(c))
+        default = c <= 640
+        for fast in (default, not default):
+            check("fused_geglu",
+                  f"fused_geglu R={rows} C={c} {'tanh' if fast else 'erf'}",
+                  lambda: fused_geglu(*args, fast_gating=fast),
+                  lambda: geglu_ref(*args, fast_gating=fast),
+                  count if fast == default else 0, 24 * rows * c * c, args)
+
+    sites = group_norm_sites(InferenceConfig().unet, SampleSpec())
+    log(f"[kernels] {sum(sites.values())} GroupNorm sites in one exact "
+        f"evaluation, {len(sites)} shapes")
+    for (b, n, c, groups, eps, act), count in sorted(
+            sites.items(), key=lambda kv: str(kv[0])):
+        x = randn(gen, (b, n, c), 1.0, bf) + 0.5
+        params = (vec(c, base=1.0), vec(c))
+        check("fused_group_norm",
+              f"fused_group_norm B={b} N={n} C={c} G={groups} act={act} "
+              f"x{count}",
+              lambda: fused_group_norm(x, *params, groups, eps, act),
+              lambda: group_norm_ref(x, *params, groups, eps, act), count,
+              10 * x.numel(), [x, *params],
+              run_library=(None if act else lambda: F.group_norm(
+                  x.transpose(1, 2), groups, *params, eps)),
+              peak_ops=PEAK_FP32_OPS)
+
+    heads = 8
+    for (b, sq, c), dtype, count in CROSS_SHAPES:
+        x = randn(gen, (b, sq, c), 1.0, dtype)
+        ctx = randn(gen, (b, TEXT_KEYS, TEXT_DIM), 1.0, dtype)
+        params = (vec(c, base=1.0).to(dtype), vec(c).to(dtype),
+                  randn(gen, (c, c), c ** -0.5, dtype),
+                  randn(gen, (c, TEXT_DIM), TEXT_DIM ** -0.5, dtype),
+                  randn(gen, (c, TEXT_DIM), TEXT_DIM ** -0.5, dtype),
+                  randn(gen, (c, c), c ** -0.5, dtype), vec(c, 0.02).to(dtype))
+        rows = b * sq
+        ops = 4 * rows * c * c + 4 * rows * TEXT_KEYS * c \
+            + 4 * b * TEXT_KEYS * TEXT_DIM * c
+        check("fused_ln_cross_attention",
+              f"fused_ln_cross_attention B={b} S={sq} C={c} Skv={TEXT_KEYS} "
+              f"{str(dtype).split('.')[-1]}",
+              lambda: fused_ln_cross_attention(x, ctx, *params, heads=heads),
+              lambda: ln_cross_attention_ref(x, ctx, *params, heads=heads),
+              count, ops, [x, ctx, *params],
+              tol=BF16_REL if dtype == bf else FP32_REL, timed=count > 0)
 
 
 def unzero_(module, gen, std=0.02):
@@ -399,8 +570,9 @@ def tiny_config():
 
 def make_request(pipe, spec, seed, vocab, batch=1):
     """``batch`` clips, each with its own token ids, click mask, fps, motion
-    score and first-frame image (encoded by the pipeline's VAE), all from
-    ``seed``."""
+    score and first-frame image (encoded by the pipeline's VAE), and, when
+    the pipeline has an IP-Adapter, its own image prompt (unit normal, as
+    CLIP-normalised pixels), all from ``seed``."""
     g = torch.Generator().manual_seed(seed)
     b, h, w = batch, spec.height // 8, spec.width // 8
     image = torch.rand(b, spec.height, spec.width, 3, generator=g) * 2 - 1
@@ -410,7 +582,7 @@ def make_request(pipe, spec, seed, vocab, batch=1):
         cy, cx = torch.randint(0, h, (2,), generator=g).tolist()
         masks.append((((yy - cy) ** 2 + (xx - cx) ** 2)
                       <= (h // 4) ** 2).float())
-    return dict(
+    req = dict(
         input_ids=torch.randint(0, vocab, (b, 77), generator=g),
         neg_input_ids=torch.randint(0, vocab, (b, 77), generator=g),
         first_image_latents=pipe.encode_image(image),
@@ -419,24 +591,47 @@ def make_request(pipe, spec, seed, vocab, batch=1):
         motion_score=torch.tensor([float(10 + (seed + 7 * i) % 20)
                                    for i in range(b)]),
         noise=torch.randn(b, spec.video_length, h, w, 4, generator=g))
+    if pipe.ip_adapter is not None:
+        size = pipe.ip_adapter.image_encoder.config.image_size
+        req["ip_pixel_values"] = torch.randn(b, size, size, 3, generator=g)
+    return req
+
+
+def tiny_pipelines(cfg, seed, ip_plus=None):
+    """The tiny config's pipeline on the CPU (plain versions) and a copy of
+    it on the card; with ``ip_plus`` set, an IP-Adapter over
+    ``TINY_VISION`` (vanilla or Plus) and ip tokens in the UNet."""
+    from followyourclick_tpu_torch.models.ip_adapter import (
+        CLIPVisionConfig,
+        IPAdapter,
+    )
+    from followyourclick_tpu_torch.pipelines.animation import (
+        AnimationPipeline,
+    )
+
+    torch.manual_seed(seed)
+    ip = None
+    if ip_plus is not None:
+        cfg = dataclasses.replace(cfg, unet=dataclasses.replace(
+            cfg.unet, use_ip_cross_attention=True, ip_num_tokens=4))
+        ip = IPAdapter(CLIPVisionConfig(**TINY_VISION),
+                       cfg.unet.cross_attention_dim, 4, ip_plus)
+    cpu = AnimationPipeline(cfg, device="cpu", ip_adapter=ip)
+    unzero_(cpu.unet, torch.Generator().manual_seed(seed))
+    card = AnimationPipeline(cfg, copy.deepcopy(cpu.unet),
+                             copy.deepcopy(cpu.vae),
+                             copy.deepcopy(cpu.text_encoder), device="cuda",
+                             ip_adapter=copy.deepcopy(cpu.ip_adapter))
+    return cpu, card
 
 
 def phase_tiny(seed):
-    from followyourclick_tpu_torch.pipelines.animation import (
-        AnimationPipeline,
-        SampleSpec,
-    )
+    from followyourclick_tpu_torch.pipelines.animation import SampleSpec
     from followyourclick_tpu_torch.pipelines.serving_schedules import (
         apply_schedule,
     )
 
-    torch.manual_seed(seed)
     cfg = tiny_config()
-    cpu = AnimationPipeline(cfg, device="cpu")
-    unzero_(cpu.unet, torch.Generator().manual_seed(seed))
-    card = AnimationPipeline(cfg, copy.deepcopy(cpu.unet),
-                             copy.deepcopy(cpu.vae),
-                             copy.deepcopy(cpu.text_encoder), device="cuda")
     exact = SampleSpec(video_length=4, height=64, width=64,
                        num_inference_steps=2)
     # one period of 4 and the 2 final exact steps
@@ -444,7 +639,14 @@ def phase_tiny(seed):
                                         num_inference_steps=6),
                              "pab244_deep4_cfg4_ex")
     wrappers = kernel_wrappers()
-    for label, spec in (("exact", exact), ("pab244_deep4_cfg4_ex", serving)):
+    plain, vanilla, plus = (tiny_pipelines(cfg, seed, ip)
+                            for ip in (None, False, True))
+    runs = [("exact", plain, exact),
+            ("pab244_deep4_cfg4_ex", plain, serving),
+            ("exact, IP-Adapter", vanilla, exact),
+            ("exact, IP-Adapter Plus", plus, exact),
+            ("pab244_deep4_cfg4_ex, IP-Adapter", vanilla, serving)]
+    for label, (cpu, card), spec in runs:
         with torch.inference_mode():
             req = make_request(cpu, spec, seed + 1, 1000)
         t0 = time.perf_counter()
@@ -557,11 +759,17 @@ def expected_launches(unet, spec, dtype, batch=1):
     return counts
 
 
-def full_pipeline(seed):
+def full_pipeline(seed, ip_plus=False):
     """The default InferenceConfig's models with seeded random weights, in
-    bf16 on the card."""
+    bf16 on the card. ``ip_plus``: the IP-Adapter Plus configuration, ip
+    tokens in the UNet (``IP_TOKENS``), the CLIP ViT-H/14 tower and the
+    Resampler (depth 4, 12 heads)."""
     from followyourclick_tpu_torch.config import InferenceConfig
     from followyourclick_tpu_torch.models.clip_text import CLIPTextModel
+    from followyourclick_tpu_torch.models.ip_adapter import (
+        CLIPVisionConfig,
+        IPAdapter,
+    )
     from followyourclick_tpu_torch.models.unet3d import UNet3DConditionModel
     from followyourclick_tpu_torch.models.vae import AutoencoderKL
     from followyourclick_tpu_torch.pipelines.animation import (
@@ -569,19 +777,29 @@ def full_pipeline(seed):
     )
 
     cfg = InferenceConfig()
+    if ip_plus:
+        cfg = dataclasses.replace(cfg, unet=dataclasses.replace(
+            cfg.unet, use_ip_cross_attention=True, ip_num_tokens=IP_TOKENS))
     t0 = time.perf_counter()
     torch.manual_seed(seed)
+    ip = None
     with torch.device("cuda"):
         unet = UNet3DConditionModel(cfg.unet)
         vae = AutoencoderKL(cfg.vae)
         text = CLIPTextModel(cfg.clip_text)
+        if ip_plus:
+            ip = IPAdapter(CLIPVisionConfig(), cfg.unet.cross_attention_dim,
+                           IP_TOKENS, plus=True)
     unzero_(unet, torch.Generator(device="cuda").manual_seed(seed))
     pipe = AnimationPipeline(cfg, unet, vae, text, device="cuda",
-                             dtype=torch.bfloat16)
+                             dtype=torch.bfloat16, ip_adapter=ip)
     n_params = sum(p.numel() for p in pipe.unet.parameters())
     torch.cuda.synchronize()
     log(f"[full] built in {time.perf_counter() - t0:.1f} s; UNet "
-        f"{n_params / 1e9:.3f} B parameters, bf16")
+        f"{n_params / 1e9:.3f} B parameters, bf16"
+        + ("" if ip is None else
+           f"; IP-Adapter Plus {sum(p.numel() for p in ip.parameters()) / 1e9:.3f}"
+           " B parameters"))
     return pipe
 
 
@@ -593,15 +811,16 @@ def phase_requests(pipe, spec, label, seed, by_hand=None, batch=1):
     differ, and so must the two requests. Returns the path's launches by
     kernel and the seconds per request."""
     wrappers = kernel_wrappers()
+    unrouted = unrouted_wrappers()
     want = expected_launches(pipe.unet, spec, pipe.dtype, batch)
     if by_hand is not None and want != by_hand:
         raise SystemExit(f"{label}: step_plan gives {want} launches, the "
                          f"hand count {by_hand}")
-    total = dict.fromkeys(KERNELS, 0)
+    total = dict.fromkeys({**KERNELS, **UNROUTED}, 0)
     videos, seconds = [], []
     torch.cuda.reset_peak_memory_stats()
     for r in range(2):
-        for fn in wrappers.values():
+        for fn in (*wrappers.values(), *unrouted.values()):
             fn.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -612,7 +831,8 @@ def phase_requests(pipe, spec, label, seed, by_hand=None, batch=1):
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         got = {name: fn.launches for name, fn in wrappers.items()}
-        for name, n in got.items():
+        off_path = {name: fn.launches for name, fn in unrouted.items()}
+        for name, n in {**got, **off_path}.items():
             total[name] += n
         v = video.float()
         log(f"[{label}] request {r}: {dt:.2f} s for {batch} clip(s), video "
@@ -621,9 +841,10 @@ def phase_requests(pipe, spec, label, seed, by_hand=None, batch=1):
             log(f"[{label}]   clip {i}: min {float(clip.min()):.4f} max "
                 f"{float(clip.max()):.4f} mean {float(clip.mean()):.4f} std "
                 f"{float(clip.std()):.4f}")
-        if got != want:
+        if got != want or any(off_path.values()):
             raise SystemExit(f"{label}: the kernels were not launched the "
-                             "number of times the step plan gives")
+                             "number of times the step plan gives (the "
+                             f"unrouted ones: {off_path})")
         shape = (batch, spec.video_length, spec.height, spec.width, 3)
         if v.shape != shape or not bool(torch.isfinite(v).all()) \
                 or min(float(clip.std()) for clip in v) <= 0.0:
@@ -643,6 +864,27 @@ def phase_requests(pipe, spec, label, seed, by_hand=None, batch=1):
     log(f"[{label}] peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     return total, seconds
+
+
+def phase_ip(seed, spec, by_hand):
+    """IP-Adapter Plus at full width: the ip encode alone (tower and
+    Resampler over the condition image and the black one) by CUDA events,
+    then two one-clip requests on ``spec``. Returns the path's launches."""
+    pipe = full_pipeline(seed, ip_plus=True)
+    size = pipe.ip_adapter.image_encoder.config.image_size
+    pixels = torch.randn(1, size, size, 3,
+                         generator=torch.Generator().manual_seed(seed))
+    with torch.inference_mode():
+        tokens = pipe.encode_image_prompt(pixels)
+        encode_ms = time_ms(lambda: pipe.encode_image_prompt(pixels))
+    if tokens.shape != (2, IP_TOKENS, pipe.config.unet.cross_attention_dim) \
+            or not bool(torch.isfinite(tokens).all()):
+        raise SystemExit(f"ip encode: tokens {tuple(tokens.shape)} not "
+                         "finite of the expected shape")
+    log(f"[ip plus] encode (ViT-H/14 tower and Resampler, condition and "
+        f"black image): {encode_ms:.3f} ms; tokens {tuple(tokens.shape)}")
+    launches, _ = phase_requests(pipe, spec, "ip plus", seed, by_hand)
+    return launches
 
 
 def main(argv=None) -> int:
@@ -689,6 +931,11 @@ def main(argv=None) -> int:
             pipe, serving, "batched serving", args.seed,
             BATCHED_SERVING_LAUNCHES, BATCH)[0],
     }
+    # one full-width pipeline at a time
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["exact_ip_plus"] = phase_ip(args.seed, exact, exact_by_hand)
     for name in KERNELS:
         if not sum(launches[name] for launches in paths.values()):
             raise SystemExit(f"{name} was never launched on a main path")
@@ -702,9 +949,19 @@ def main(argv=None) -> int:
                               "on the modular path",
         "flash_attention": f"the calls of one exact UNet evaluation of "
                            f"{BATCH} clips",
+        "fused_geglu": "unrouted, as in the JAX package; the 16 "
+                       "feed-forward sites of one exact UNet evaluation "
+                       "(the LN-GEGLU rows), without LN and residual",
+        "fused_group_norm": "unrouted, as in the JAX package; the 81 "
+                            "GroupNorm sites of one exact UNet evaluation "
+                            "(library_ms: F.group_norm at the 36 sites "
+                            "without SiLU only)",
+        "fused_ln_cross_attention": "unrouted, as in the JAX package; the "
+                                    "16 text cross-attention sites of one "
+                                    "exact UNet evaluation, 77 keys",
     }
     kernels = [{"name": name, "route": "cuda", "source": src,
-                "replaces": rep,
+                "replaces": rep, "routed": name in KERNELS,
                 "launches": sum(p[name] for p in paths.values()),
                 "launches_by_path": {path: p[name]
                                      for path, p in paths.items()},
@@ -714,7 +971,7 @@ def main(argv=None) -> int:
                 "bound_by": stats[name]["bound_by"],
                 "library_ms": stats[name]["library_ms"],
                 "ms_covers": covers[name] + " at 16 f / 512^2 CFG, bf16"}
-               for name, (src, rep) in KERNELS.items()]
+               for name, (src, rep) in {**KERNELS, **UNROUTED}.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,11 @@
 // LayerNorm -> GEGLU feed-forward -> +residual over (R, C) token rows.
 //
-// Replaces the Pallas TPU kernel followyourclick_tpu/ops/geglu.py,
+// Replaces the Pallas TPU kernels of followyourclick_tpu/ops/geglu.py:
 // fused_ln_geglu (_ln_kernel): LN with fp32 statistics, x . W1 + b1 to
-// 2 * inner channels, h * gelu(gate), . W2 + b2, + x.
+// 2 * inner channels, h * gelu(gate), . W2 + b2, + x; and fused_geglu
+// (_kernel), the same feed-forward without the LN and the residual, which
+// is the LN-off mode (ln = 0, residual = 0) of the same kernel: the row
+// tile is copied into the on-chip buffer the LN would have filled.
 //
 // What bounds it on the H100: the two products, 2 * R * C * 3 * inner
 // FLOPs (about 0.32 TFLOP per call at every UNet width of the 16-frame
@@ -44,7 +47,7 @@ ln_geglu_kernel(const T* __restrict__ x, const T* __restrict__ ls,
                 const T* __restrict__ lb, const T* __restrict__ w1,
                 const T* __restrict__ b1, const T* __restrict__ w2,
                 const T* __restrict__ b2, T* __restrict__ out, int R, int C,
-                int inner, float eps, int residual, int fast) {
+                int inner, float eps, int ln, int residual, int fast) {
   extern __shared__ __align__(128) unsigned char smem[];
   const GegluLayout lay(MC, C, sizeof(T));
   T* xn = reinterpret_cast<T*>(smem + lay.xn);
@@ -57,8 +60,13 @@ ln_geglu_kernel(const T* __restrict__ x, const T* __restrict__ ls,
   const int M = min(MC, (int)(R - r0));
   const T* xt = x + r0 * C;
 
-  const int lacc = padded(C, 4);
-  ln_rows<T>(xt, M, C, ls, lb, eps, nullptr, 1, xn, padded(C, sizeof(T)));
+  const int lacc = padded(C, 4), lx = padded(C, sizeof(T));
+  if (ln) {
+    ln_rows<T>(xt, M, C, ls, lb, eps, nullptr, 1, xn, lx);
+  } else {
+    for (int i = threadIdx.x; i < M * C; i += kThreads)
+      xn[i / C * lx + i % C] = xt[i];
+  }
   for (int i = threadIdx.x; i < M * lacc; i += kThreads) acc[i] = 0.f;
   ff_accumulate<T, MC>(xn, M, C, inner, w1, b1, w2, fast, acc, hbuf, ybuf,
                        work);
@@ -74,7 +82,8 @@ template <typename T, int MC>
 cudaError_t geglu_launch(const void* x, const void* ls, const void* lb,
                    const void* w1, const void* b1, const void* w2,
                    const void* b2, void* out, int R, int C, int inner,
-                   float eps, int residual, int fast, cudaStream_t stream) {
+                   float eps, int ln, int residual, int fast,
+                   cudaStream_t stream) {
   const GegluLayout lay(MC, C, sizeof(T));
   auto kern = ln_geglu_kernel<T, MC>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -83,7 +92,8 @@ cudaError_t geglu_launch(const void* x, const void* ls, const void* lb,
   const int blocks = (R + MC - 1) / MC;
   kern<<<blocks, kThreads, lay.bytes, stream>>>(
       (const T*)x, (const T*)ls, (const T*)lb, (const T*)w1, (const T*)b1,
-      (const T*)w2, (const T*)b2, (T*)out, R, C, inner, eps, residual, fast);
+      (const T*)w2, (const T*)b2, (T*)out, R, C, inner, eps, ln, residual,
+      fast);
   return cudaGetLastError();
 }
 
@@ -91,11 +101,12 @@ template <typename T>
 cudaError_t geglu_dispatch(int rows, const void* x, const void* ls, const void* lb,
                      const void* w1, const void* b1, const void* w2,
                      const void* b2, void* out, int R, int C, int inner,
-                     float eps, int residual, int fast, cudaStream_t stream) {
+                     float eps, int ln, int residual, int fast,
+                     cudaStream_t stream) {
   switch (rows) {
-    case 16: return geglu_launch<T, 16>(x, ls, lb, w1, b1, w2, b2, out, R, C, inner, eps, residual, fast, stream);
-    case 32: return geglu_launch<T, 32>(x, ls, lb, w1, b1, w2, b2, out, R, C, inner, eps, residual, fast, stream);
-    case 64: return geglu_launch<T, 64>(x, ls, lb, w1, b1, w2, b2, out, R, C, inner, eps, residual, fast, stream);
+    case 16: return geglu_launch<T, 16>(x, ls, lb, w1, b1, w2, b2, out, R, C, inner, eps, ln, residual, fast, stream);
+    case 32: return geglu_launch<T, 32>(x, ls, lb, w1, b1, w2, b2, out, R, C, inner, eps, ln, residual, fast, stream);
+    case 64: return geglu_launch<T, 64>(x, ls, lb, w1, b1, w2, b2, out, R, C, inner, eps, ln, residual, fast, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -107,6 +118,23 @@ extern "C" long long fyc_ln_geglu_smem_bytes(int rows, int C, int dtype) {
   return (long long)fyc::GegluLayout(rows, C, dtype == 1 ? 2 : 4).bytes;
 }
 
+static int geglu_entry(const void* x, const void* ls, const void* lb,
+                       const void* w1, const void* b1, const void* w2,
+                       const void* b2, void* out, int R, int C, int inner,
+                       float eps, int ln, int residual, int fast, int dtype,
+                       int rows, void* stream) {
+  if (fyc::GegluLayout(rows, C, dtype == 1 ? 2 : 4).bytes > fyc::kMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 1)
+    return (int)fyc::geglu_dispatch<__nv_bfloat16>(
+        rows, x, ls, lb, w1, b1, w2, b2, out, R, C, inner, eps, ln, residual,
+        fast, s);
+  return (int)fyc::geglu_dispatch<float>(rows, x, ls, lb, w1, b1, w2, b2, out,
+                                         R, C, inner, eps, ln, residual, fast,
+                                         s);
+}
+
 // dtype: 0 = float32, 1 = bfloat16. rows: 16, 32 or 64 rows per block.
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int fyc_ln_geglu(const void* x, const void* ls, const void* lb,
@@ -114,13 +142,15 @@ extern "C" int fyc_ln_geglu(const void* x, const void* ls, const void* lb,
                             const void* b2, void* out, int R, int C,
                             int inner, float eps, int residual, int fast,
                             int dtype, int rows, void* stream) {
-  if (fyc::GegluLayout(rows, C, dtype == 1 ? 2 : 4).bytes > fyc::kMaxSmem)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 1)
-    return (int)fyc::geglu_dispatch<__nv_bfloat16>(rows, x, ls, lb, w1, b1, w2, b2,
-                                             out, R, C, inner, eps, residual,
-                                             fast, s);
-  return (int)fyc::geglu_dispatch<float>(rows, x, ls, lb, w1, b1, w2, b2, out, R, C,
-                                   inner, eps, residual, fast, s);
+  return geglu_entry(x, ls, lb, w1, b1, w2, b2, out, R, C, inner, eps, 1,
+                     residual, fast, dtype, rows, stream);
+}
+
+// The LN-off, residual-off mode (fused_geglu): out = GEGLU(x) . W2 + b2.
+extern "C" int fyc_geglu(const void* x, const void* w1, const void* b1,
+                         const void* w2, const void* b2, void* out, int R,
+                         int C, int inner, int fast, int dtype, int rows,
+                         void* stream) {
+  return geglu_entry(x, nullptr, nullptr, w1, b1, w2, b2, out, R, C, inner,
+                     0.f, 0, 0, fast, dtype, rows, stream);
 }

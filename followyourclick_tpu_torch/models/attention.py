@@ -2,9 +2,9 @@
 
 Port of ``followyourclick_tpu/models/attention.py`` with the PAB sites of
 the self-attention (``attn1_out``, kind ``spatial``) and the text
-cross-attention (``attn2_out``, kind ``cross``): the IP-Adapter keys, the T5
-cross-attention and cross-frame and in-block temporal attention are not
-ported yet.
+cross-attention (``attn2_out``, kind ``cross``; with IP-Adapter tokens it
+wraps the whole output, ip part included). The T5 cross-attention and
+cross-frame and in-block temporal attention are not ported yet.
 """
 
 from __future__ import annotations
@@ -18,22 +18,35 @@ from torch import nn
 from followyourclick_tpu_torch.models.layers import GroupNorm, LayerNorm
 from followyourclick_tpu_torch.models.pab import PabMode, pab_site
 from followyourclick_tpu_torch.ops.attention import dot_product_attention
-from followyourclick_tpu_torch.ops.geglu import fused_ln_geglu
+from followyourclick_tpu_torch.ops.geglu import fused_geglu, fused_ln_geglu
 
 
 class CrossAttention(nn.Module):
-    """q/k/v projections (no bias) → multi-head attention → out projection."""
+    """q/k/v projections (no bias) → multi-head attention → out projection.
+
+    ``ip_num_tokens > 0`` adds the decoupled IP-Adapter path: the last
+    ``ip_num_tokens`` of the context are image-prompt tokens, attended
+    through ``to_k_ip``/``to_v_ip`` and added as ``out + ip_scale·ip_out``.
+    The upstream scale quirk is kept for checkpoint parity: with ip on, both
+    attentions run at ``scale = ip_scale``, not ``dim_head**-0.5``
+    (``followyourclick_tpu/models/attention.py:103-111``).
+    """
 
     def __init__(self, query_dim: int, heads: int = 8, dim_head: int = 64,
-                 cross_attention_dim: Optional[int] = None):
+                 cross_attention_dim: Optional[int] = None,
+                 ip_num_tokens: int = 0, ip_scale: float = 1.0):
         super().__init__()
         inner = heads * dim_head
         kv_dim = cross_attention_dim or query_dim
         self.heads, self.dim_head = heads, dim_head
+        self.ip_num_tokens, self.ip_scale = ip_num_tokens, ip_scale
         self.to_q = nn.Linear(query_dim, inner, bias=False)
         self.to_k = nn.Linear(kv_dim, inner, bias=False)
         self.to_v = nn.Linear(kv_dim, inner, bias=False)
         self.to_out = nn.Linear(inner, query_dim)
+        if ip_num_tokens > 0:
+            self.to_k_ip = nn.Linear(kv_dim, inner, bias=False)
+            self.to_v_ip = nn.Linear(kv_dim, inner, bias=False)
 
     def forward(self, hidden_states: torch.Tensor,
                 context: Optional[torch.Tensor] = None,
@@ -47,16 +60,29 @@ class CrossAttention(nn.Module):
             return t.reshape(t.shape[0], t.shape[1], self.heads,
                              self.dim_head)
 
-        out = dot_product_attention(split(self.to_q(hidden_states)),
-                                    split(self.to_k(context)),
+        ip_context, scale = None, None
+        if self.ip_num_tokens > 0:
+            end = context.shape[1] - self.ip_num_tokens
+            context, ip_context = context[:, :end], context[:, end:]
+            scale = self.ip_scale
+        q = split(self.to_q(hidden_states))
+        out = dot_product_attention(q, split(self.to_k(context)),
                                     split(self.to_v(context)),
-                                    bias=attention_bias)
+                                    bias=attention_bias, scale=scale)
+        if ip_context is not None:
+            ip_out = dot_product_attention(q, split(self.to_k_ip(ip_context)),
+                                           split(self.to_v_ip(ip_context)),
+                                           scale=scale)
+            out = out + self.ip_scale * ip_out
         return self.to_out(out.reshape(b, s, -1).to(hidden_states.dtype))
 
 
 class GEGLUFeedForward(nn.Module):
-    """proj to 2·(mult·dim) → h · gelu(gate) (exact erf) → out. The plain
-    path of :func:`_ln_ff_residual`."""
+    """proj to 2·(mult·dim) → h · gelu(gate) → out. On a CUDA tensor one
+    launch of ``ops/geglu.fused_geglu`` (the JAX module's kernel branch);
+    elsewhere the plain layers with the exact erf gate. The sampler reaches
+    neither: :func:`_ln_ff_residual` takes the fused LN-GEGLU kernel on the
+    card and calls this module only on the CPU."""
 
     def __init__(self, dim: int, mult: int = 4):
         super().__init__()
@@ -65,6 +91,10 @@ class GEGLUFeedForward(nn.Module):
         self.out = nn.Linear(inner, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.device.type == "cuda":
+            y = fused_geglu(x.reshape(-1, x.shape[-1]), self.proj.weight,
+                            self.proj.bias, self.out.weight, self.out.bias)
+            return y.reshape(*x.shape[:-1], self.out.out_features)
         h, gate = self.proj(x).chunk(2, dim=-1)
         return self.out(h * F.gelu(gate, approximate="none"))
 
@@ -87,14 +117,16 @@ class BasicTransformerBlock(nn.Module):
     """self-attention → text cross-attention → GEGLU FF, pre-LN residuals."""
 
     def __init__(self, dim: int, num_attention_heads: int,
-                 attention_head_dim: int, cross_attention_dim: int = 768):
+                 attention_head_dim: int, cross_attention_dim: int = 768,
+                 ip_num_tokens: int = 0, ip_scale: float = 1.0):
         super().__init__()
         self.norm1 = LayerNorm(dim)
         self.attn1 = CrossAttention(dim, num_attention_heads,
                                     attention_head_dim)
         self.norm2 = LayerNorm(dim)
         self.attn2 = CrossAttention(dim, num_attention_heads,
-                                    attention_head_dim, cross_attention_dim)
+                                    attention_head_dim, cross_attention_dim,
+                                    ip_num_tokens, ip_scale)
         self.norm3 = LayerNorm(dim)
         self.ff = GEGLUFeedForward(dim)
 
@@ -119,18 +151,21 @@ class BasicTransformerBlock(nn.Module):
 
 class SpatialTransformer3D(nn.Module):
     """GroupNorm (per frame) → proj_in → blocks → proj_out → +residual, frames
-    folded into the batch."""
+    folded into the batch. ``ip_num_tokens > 0``: the context ends in that
+    many IP-Adapter tokens (``CrossAttention``)."""
 
     def __init__(self, in_channels: int, num_attention_heads: int,
                  attention_head_dim: int, num_layers: int = 1,
-                 cross_attention_dim: int = 768, norm_num_groups: int = 32):
+                 cross_attention_dim: int = 768, norm_num_groups: int = 32,
+                 ip_num_tokens: int = 0, ip_scale: float = 1.0):
         super().__init__()
         inner = num_attention_heads * attention_head_dim
         self.norm = GroupNorm(in_channels, norm_num_groups, eps=1e-6)
         self.proj_in = nn.Linear(in_channels, inner)
         self.transformer_blocks = nn.ModuleList(
             BasicTransformerBlock(inner, num_attention_heads,
-                                  attention_head_dim, cross_attention_dim)
+                                  attention_head_dim, cross_attention_dim,
+                                  ip_num_tokens, ip_scale)
             for _ in range(num_layers))
         self.proj_out = nn.Linear(inner, in_channels)
 

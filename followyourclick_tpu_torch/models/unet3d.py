@@ -4,9 +4,10 @@ Port of ``followyourclick_tpu/models/unet3d.py``: time, fps and
 motion-score embeddings, the 9-channel ``conv_in`` (noisy latent, click
 mask, first-frame latent), the down / mid / up topology, ``conv_norm_out``
 with SiLU over the whole clip, ``conv_out``, and the PAB sites of the serving
-schedules (``models/pab.py``), the DeepCache trunk site among them. Camera
-motion, T5, IP-Adapter, class embeddings, PseudoConv3d and temporal convs
-are not ported yet and raise.
+schedules (``models/pab.py``), the DeepCache trunk site among them, and
+the IP-Adapter's decoupled cross-attention (``use_ip_cross_attention``: the
+context ends in ``ip_num_tokens`` image tokens). Camera motion, T5, class
+embeddings, PseudoConv3d and temporal convs are not ported yet and raise.
 
 Tensors are ``(B, F, H, W, C)``. CFG prefix sharing (exact): when
 ``cond.context`` has twice the sample's batch, the stem runs once and the
@@ -38,8 +39,7 @@ from followyourclick_tpu_torch.models.unet_blocks import (
 )
 
 _NOT_PORTED = ("center_input_sample", "use_camera_motion_condition",
-               "use_text_encoder_2", "use_ip_cross_attention",
-               "use_pseudo_conv3d", "use_temporal_conv",
+               "use_text_encoder_2", "use_pseudo_conv3d", "use_temporal_conv",
                "use_first_frame_condition_concat",
                "unet_use_cross_frame_attention",
                "unet_use_temporal_attention", "motion_module_decoder_only",
@@ -52,7 +52,7 @@ class UNetConditioning:
     ([uncond; cond] when doubled); ``fps`` and ``motion_score`` may be at the
     sample's batch or the context's."""
 
-    context: torch.Tensor                       # (B, 77, 768)
+    context: torch.Tensor                       # (B, 77 [+ ip tokens], 768)
     fps: Optional[torch.Tensor] = None          # (B,)
     motion_score: Optional[torch.Tensor] = None  # (B,)
 

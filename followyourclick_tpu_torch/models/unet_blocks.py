@@ -2,7 +2,9 @@
 → MotionModule, with down- and upsampling.
 
 Port of ``followyourclick_tpu/models/unet_blocks.py``. ``pab`` and
-``cache`` (``models/pab.py``) pass through to every attention site.
+``cache`` (``models/pab.py``) pass through to every attention site; the
+IP-Adapter settings (``use_ip_cross_attention``, ``ip_num_tokens``,
+``ip_scale``) to every spatial transformer.
 """
 
 from __future__ import annotations
@@ -25,8 +27,11 @@ from followyourclick_tpu_torch.models.resnet import (
 
 def _spatial_transformer(cfg: UNet3DConfig, ch: int) -> SpatialTransformer3D:
     heads = cfg.attention_head_dim  # diffusers SD-1.5: the head COUNT
-    return SpatialTransformer3D(ch, heads, ch // heads, 1,
-                                cfg.cross_attention_dim, cfg.norm_num_groups)
+    return SpatialTransformer3D(
+        ch, heads, ch // heads, 1, cfg.cross_attention_dim,
+        cfg.norm_num_groups,
+        ip_num_tokens=cfg.ip_num_tokens if cfg.use_ip_cross_attention else 0,
+        ip_scale=cfg.ip_scale)
 
 
 def _resnet(cfg: UNet3DConfig, in_ch: int, out_ch: int) -> ResnetBlock3D:

@@ -41,6 +41,11 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "fyc_flash_attention": (_I, [_P] * 4 + [_I] * 5 + [_F, _I, _P]),
+    "fyc_geglu": (_I, [_P] * 6 + [_I] * 6 + [_P]),
+    "fyc_group_norm": (_I, [_P] * 5 + [_I] * 5 + [_F, _I, _I, _P]),
+    "fyc_ln_cross_attention": (_I, [_P] * 9 + [_I] * 6 + [_F, _F, _I, _I,
+                                                          _P]),
+    "fyc_ln_cross_attention_smem_bytes": (ctypes.c_longlong, [_I] * 6),
     "fyc_ln_geglu": (_I, [_P] * 8 + [_I, _I, _I, _F, _I, _I, _I, _I, _P]),
     "fyc_ln_geglu_smem_bytes": (ctypes.c_longlong, [_I, _I, _I]),
     "fyc_motion_block": (_I, [_P, _P, ctypes.POINTER(_P), _P]

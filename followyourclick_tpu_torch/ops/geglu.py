@@ -1,9 +1,14 @@
 """LayerNorm → GEGLU feed-forward → +residual, one hand-written kernel.
 
-Port of ``followyourclick_tpu/ops/geglu.py::fused_ln_geglu``. On a CUDA
-tensor ``fused_ln_geglu`` launches the ``sm_90a`` kernel of
-``csrc/geglu.cu``; on a CPU tensor it runs :func:`ln_geglu_ref`, the plain
-PyTorch version with the same numerics. Nothing else routes between them.
+Port of ``followyourclick_tpu/ops/geglu.py``: ``fused_ln_geglu`` and
+``fused_geglu`` (the feed-forward alone, no LN and no residual). On a CUDA
+tensor each launches the ``sm_90a`` kernel of ``csrc/geglu.cu``, the second
+in the kernel's LN-off, residual-off mode; on a CPU tensor each runs its
+plain PyTorch version with the same numerics (:func:`ln_geglu_ref`,
+:func:`geglu_ref`). Nothing else routes between them. As in the JAX
+package, no path of the sampler reaches ``fused_geglu``: its caller,
+``models/attention.GEGLUFeedForward``, runs on the card only when called
+outside ``_ln_ff_residual``.
 
 Weights are in ``nn.Linear`` layout: ``w1 (2·inner, C)``, ``w2 (C, inner)``
 (the transposes of the JAX kernel's ``(C, 2·inner)`` and ``(inner, C)``).
@@ -84,6 +89,12 @@ def ln_geglu_ref(x, ln_scale, ln_bias, w1, b1, w2, b2, eps: float = 1e-5,
     return out + x if residual else out
 
 
+def geglu_ref(x, w1, b1, w2, b2, fast_gating: bool = False):
+    """The plain PyTorch version of the LN-off mode (the Pallas ``_kernel``):
+    ``gate(x · W1 + b1) · W2 + b2``, cast to ``x.dtype``."""
+    return geglu_ff(x, w1, b1, w2, b2, fast_gating).to(x.dtype)
+
+
 @functools.lru_cache(maxsize=None)
 def rows_per_block(c: int, dtype: torch.dtype) -> int:
     """Rows per block: the most (of 64, 32, 16) whose tile fits the budget."""
@@ -95,29 +106,32 @@ def rows_per_block(c: int, dtype: torch.dtype) -> int:
     return 16
 
 
-def _check(x, params) -> None:
+def _check(what, x, ln_params, ff_params) -> None:
+    """Raise on what the kernel does not take; ``ln_params`` is empty in
+    the LN-off mode."""
     if x.dtype not in _build.DTYPE_CODES:
-        raise TypeError(f"fused_ln_geglu: dtype {x.dtype} not supported")
+        raise TypeError(f"{what}: dtype {x.dtype} not supported")
     if x.ndim != 2:
-        raise ValueError(f"fused_ln_geglu: x must be (R, C), got {x.shape}")
+        raise ValueError(f"{what}: x must be (R, C), got {x.shape}")
     r, c = x.shape
-    ls, lb, w1, b1, w2, b2 = params
+    w1, b1, w2, b2 = ff_params
     inner = w2.shape[1]
-    shapes = {"ln_scale": (ls, (c,)), "ln_bias": (lb, (c,)),
-              "w1": (w1, (2 * inner, c)), "b1": (b1, (2 * inner,)),
+    shapes = {"w1": (w1, (2 * inner, c)), "b1": (b1, (2 * inner,)),
               "w2": (w2, (c, inner)), "b2": (b2, (c,))}
+    shapes.update(zip(("ln_scale", "ln_bias"),
+                      ((t, (c,)) for t in ln_params)))
     for name, (t, shape) in shapes.items():
         if tuple(t.shape) != shape:
-            raise ValueError(f"fused_ln_geglu: {name} {tuple(t.shape)}, "
+            raise ValueError(f"{what}: {name} {tuple(t.shape)}, "
                              f"expected {shape}")
-    for t in (x,) + tuple(params):
+    for t in (x, *ln_params, *ff_params):
         if t.device != x.device or t.dtype != x.dtype:
-            raise ValueError("fused_ln_geglu: all tensors must share x's "
+            raise ValueError(f"{what}: all tensors must share x's "
                              f"device and dtype ({x.device}, {x.dtype})")
         if not t.is_contiguous():
-            raise ValueError("fused_ln_geglu: tensors must be contiguous")
+            raise ValueError(f"{what}: tensors must be contiguous")
     if r == 0 or r >= 2 ** 31 // max(c, 1):
-        raise ValueError(f"fused_ln_geglu: unsupported row count {r}")
+        raise ValueError(f"{what}: unsupported row count {r}")
 
 
 def fused_ln_geglu(x: torch.Tensor, ln_scale: torch.Tensor,
@@ -134,7 +148,7 @@ def fused_ln_geglu(x: torch.Tensor, ln_scale: torch.Tensor,
                             fast_gating=fast_gating)
     if x.device.type != "cuda":
         raise ValueError(f"fused_ln_geglu: no kernel for {x.device}")
-    _check(x, params)
+    _check("fused_ln_geglu", x, params[:2], params[2:])
     r, c = x.shape
     lib = _build.load_library()
     out = torch.empty_like(x)
@@ -152,3 +166,33 @@ def fused_ln_geglu(x: torch.Tensor, ln_scale: torch.Tensor,
 
 
 fused_ln_geglu.launches = 0
+
+
+def fused_geglu(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                w2: torch.Tensor, b2: torch.Tensor,
+                fast_gating: bool | None = None) -> torch.Tensor:
+    """GEGLU FF over ``(R, C)`` rows with the ``(R, 2·inner)`` intermediate
+    kept on chip: the LN-off, residual-off mode of the LN-GEGLU kernel."""
+    if fast_gating is None:
+        fast_gating = default_fast_gating(x)
+    if x.device.type == "cpu":
+        return geglu_ref(x, w1, b1, w2, b2, fast_gating)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_geglu: no kernel for {x.device}")
+    _check("fused_geglu", x, (), (w1, b1, w2, b2))
+    r, c = x.shape
+    lib = _build.load_library()
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        err = lib.fyc_geglu(
+            x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+            b2.data_ptr(), out.data_ptr(), r, c, w2.shape[1],
+            int(fast_gating), _build.DTYPE_CODES[x.dtype],
+            rows_per_block(c, x.dtype),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "fused_geglu")
+    fused_geglu.launches += 1
+    return out
+
+
+fused_geglu.launches = 0

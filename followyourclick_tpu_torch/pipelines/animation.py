@@ -14,6 +14,13 @@ other field off its default raises ``NotImplementedError``, except
 ``video_length``, ``height``, ``width``, ``num_inference_steps`` and
 ``guidance_scale`` (> 1). The tokenizer needs vocabulary files the
 repository does not ship, so requests carry token ids.
+
+IP-Adapter image prompts (BASELINE config 3): a pipeline built with an
+``ip_adapter`` (``models/ip_adapter.IPAdapter``) over a UNet with
+``use_ip_cross_attention`` encodes ``ip_pixel_values`` once per request and
+appends the ``[uncond; cond]`` image tokens to the text context on the token
+axis, before the denoise; the cond-half steps of a serving schedule then
+slice ``context[b:]`` with the ip tokens included.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ import torch
 
 from followyourclick_tpu_torch.config import InferenceConfig
 from followyourclick_tpu_torch.models.clip_text import CLIPTextModel
+from followyourclick_tpu_torch.models.ip_adapter import IPAdapter
 from followyourclick_tpu_torch.models.pab import PabMode
 from followyourclick_tpu_torch.models.unet3d import (
     UNet3DConditionModel,
@@ -150,15 +158,16 @@ def step_plan(spec: SampleSpec) -> list[PlanStep]:
 
 
 class AnimationPipeline:
-    """Text encoder, UNet3D and VAE on one device, in one dtype: the card
-    unless the caller passes ``device="cpu"``."""
+    """Text encoder, UNet3D, VAE and the optional IP-Adapter on one device,
+    in one dtype: the card unless the caller passes ``device="cpu"``."""
 
     def __init__(self, config: InferenceConfig,
                  unet: Optional[UNet3DConditionModel] = None,
                  vae: Optional[AutoencoderKL] = None,
                  text_encoder: Optional[CLIPTextModel] = None,
                  device: torch.device | str = "cuda",
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 ip_adapter: Optional[IPAdapter] = None):
         self.config = config
         self.device = torch.device(device)
         self.dtype = dtype
@@ -170,6 +179,7 @@ class AnimationPipeline:
         self.vae = place(vae or AutoencoderKL(config.vae))
         self.text_encoder = place(text_encoder
                                   or CLIPTextModel(config.clip_text))
+        self.ip_adapter = None if ip_adapter is None else place(ip_adapter)
 
     def _on(self, x, dtype=None):
         if x is None:
@@ -181,6 +191,17 @@ class AnimationPipeline:
         """CFG context ``[uncond; cond]`` on the batch axis."""
         cond, _ = self.text_encoder(self._on(input_ids))
         uncond, _ = self.text_encoder(self._on(neg_input_ids))
+        return torch.cat([uncond, cond], dim=0)
+
+    def encode_image_prompt(self, pixel_values: torch.Tensor
+                            ) -> torch.Tensor:
+        """CLIP-normalised condition images (B, 224, 224, 3) → the ip
+        tokens ``[uncond; cond]`` (2B, N, 768), ready to append to the text
+        context on the token axis."""
+        if self.ip_adapter is None:
+            raise ValueError("pipeline built without an IP-Adapter: pass "
+                             "ip_adapter= to use ip_pixel_values")
+        cond, uncond = self.ip_adapter(self._on(pixel_values, self.dtype))
         return torch.cat([uncond, cond], dim=0)
 
     def encode_image(self, image: torch.Tensor,
@@ -305,12 +326,26 @@ class AnimationPipeline:
                fps: torch.Tensor, motion_score: torch.Tensor,
                spec: SampleSpec = SampleSpec(),
                generator: Optional[torch.Generator] = None,
-               noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+               noise: Optional[torch.Tensor] = None,
+               ip_pixel_values: Optional[torch.Tensor] = None
+               ) -> torch.Tensor:
         """Token ids (B, 77) + first-frame latent (B, h, w, 4) + click mask
         (B, h, w, 1) + fps and motion score (B,) → video (B, F, H, W, 3).
-        ``noise`` (B, F, h, w, 4) replaces the draw from ``generator``."""
+        ``noise`` (B, F, h, w, 4) replaces the draw from ``generator``;
+        ``ip_pixel_values`` (B, 224, 224, 3) is the image prompt, required
+        when the UNet has ``use_ip_cross_attention``."""
         spec.check_ported()
+        if ip_pixel_values is None and \
+                self.config.unet.use_ip_cross_attention:
+            raise ValueError(
+                "unet.use_ip_cross_attention is on: the attention layers "
+                "treat the last ip_num_tokens of the context as image tokens, "
+                "so ip_pixel_values (CLIP pixel values) are required")
         context = self.encode_prompt(input_ids, neg_input_ids)
+        if ip_pixel_values is not None:
+            ip_tokens = self.encode_image_prompt(ip_pixel_values)
+            context = torch.cat([context, ip_tokens.to(context.dtype)],
+                                dim=1)
         latents = self.prepare_latents(int(input_ids.shape[0]), spec,
                                        generator=generator, noise=noise)
         latents = self.denoise(latents, context, spec, first_image_latents,

@@ -12,7 +12,13 @@ torch module kind:
 - ``nn.Embedding``: ``embedding`` → ``weight``;
 - norms (any other module with ``weight``): ``scale`` → ``weight``;
 - ``bias`` stays ``bias``; a module may declare raw parameters under other
-  names (kept as they are, same shape).
+  names (kept as they are, same shape): the CLIP vision tower's
+  ``class_embedding`` and the Resampler's ``latents``.
+
+A flax module name that holds underscores and digits but is no list entry
+(the Resampler's ``layers_0_attn``) is registered under that same name on
+the torch side (``models/ip_adapter.py``), so it maps to itself; a
+``ModuleList`` entry ``layers.0.attn`` would map to ``layers_0/attn``.
 
 Real checkpoints go reference ``.ckpt`` → ``followyourclick_tpu.utils.
 convert.convert_*_state_dict`` (numpy, no JAX) → :func:`load_jax_params`.

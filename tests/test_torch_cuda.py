@@ -25,12 +25,26 @@ import torch
 from followyourclick_tpu_torch.config import MotionModuleConfig
 from followyourclick_tpu_torch.models.motion_module import MotionModule
 from followyourclick_tpu_torch.models.pab import PabMode
+from followyourclick_tpu_torch.models.attention import GEGLUFeedForward
 from followyourclick_tpu_torch.ops.attention import dot_product_attention
+from followyourclick_tpu_torch.ops.cross_attention import (
+    fused_ln_cross_attention,
+    ln_cross_attention_ref,
+)
 from followyourclick_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_ref,
 )
-from followyourclick_tpu_torch.ops.geglu import fused_ln_geglu, ln_geglu_ref
+from followyourclick_tpu_torch.ops.geglu import (
+    fused_geglu,
+    fused_ln_geglu,
+    geglu_ref,
+    ln_geglu_ref,
+)
+from followyourclick_tpu_torch.ops.groupnorm import (
+    fused_group_norm,
+    group_norm_ref,
+)
 from followyourclick_tpu_torch.ops.motion_block import (
     fused_motion_block,
     motion_block_ref,
@@ -333,4 +347,130 @@ def test_two_clip_tiny_request_card_against_cpu(card, schedule):
     torch.cuda.synchronize()
     assert got.shape == want.shape == (2, 4, 64, 64, 3)
     assert float((want[0] - want[1]).abs().mean()) > 1e-3
+    assert float((got.cpu() - want).abs().max()) <= chip_smoke.TINY_VIDEO_ATOL
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("rows,c", [(77, 64), (1000, 320), (300, 1280)])
+@pytest.mark.parametrize("fast", [False, True])
+def test_geglu_kernel_matches_plain(card, dtype, rows, c, fast):
+    """fused_geglu: the LN-off, residual-off mode of the LN-GEGLU kernel."""
+    args = ln_geglu_args(np.random.RandomState(rows + 1), rows, c, dtype)
+    ff = [args[0]] + args[3:]
+    before = fused_geglu.launches
+    got = fused_geglu(*ff, fast_gating=fast)
+    assert fused_geglu.launches == before + 1
+    assert_close(got, geglu_ref(*ff, fast_gating=fast), _bound(dtype, fast))
+
+
+def test_geglu_feed_forward_module_launches_on_the_card(card):
+    """GEGLUFeedForward takes the kernel on a CUDA tensor (exact erf gate
+    in fp32, as its CPU layers)."""
+    torch.manual_seed(0)
+    cpu = GEGLUFeedForward(64)
+    x = _randn(np.random.RandomState(4), (2, 9, 64), 1.0, F32, "cpu")
+    with torch.no_grad():
+        want = cpu(x)
+        before = fused_geglu.launches
+        got = copy.deepcopy(cpu).cuda()(x.cuda())
+    assert fused_geglu.launches == before + 1
+    assert_close(got.cpu(), want, FP32_REL)
+
+
+# (B, N, C, groups, act): the tiny configs, ragged N, a site of each UNet
+# width (C = 2560 owns two vectors a thread), and a batch of frames
+GROUP_NORM_SHAPES = [(2, 64, 32, 8, None), (3, 37, 64, 8, "silu"),
+                     (1, 4096, 320, 32, "silu"), (2, 1024, 2560, 32, "silu"),
+                     (32, 256, 1280, 32, None), (2, 1000, 640, 32, None)]
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("b,n,c,groups,act", GROUP_NORM_SHAPES)
+def test_group_norm_kernel_matches_plain(card, dtype, b, n, c, groups, act):
+    rs = np.random.RandomState(n + c)
+    x = _randn(rs, (b, n, c), 1.0, dtype) + 2.0
+    scale = 1.0 + _randn(rs, (c,), 0.05, dtype)
+    bias = _randn(rs, (c,), 0.05, dtype)
+    before = fused_group_norm.launches
+    got = fused_group_norm(x, scale, bias, groups, 1e-5, act)
+    again = fused_group_norm(x, scale, bias, groups, 1e-5, act)
+    assert fused_group_norm.launches == before + 2
+    assert torch.equal(got, again)  # no float atomics: bit for bit
+    assert_close(got, group_norm_ref(x, scale, bias, groups, 1e-5, act),
+                 FP32_REL if dtype == F32 else BF16_REL)
+
+
+def cross_args(rs, b, s, c, skv, dtype, ck=768):
+    return [_randn(rs, (b, s, c), 1.0, dtype),
+            _randn(rs, (b, skv, ck), 1.0, dtype),
+            1.0 + _randn(rs, (c,), 0.05, dtype), _randn(rs, (c,), 0.05, dtype),
+            _randn(rs, (c, c), c ** -0.5, dtype),
+            _randn(rs, (c, ck), ck ** -0.5, dtype),
+            _randn(rs, (c, ck), ck ** -0.5, dtype),
+            _randn(rs, (c, c), c ** -0.5, dtype),
+            _randn(rs, (c,), 0.02, dtype)]
+
+
+# (B, S, C, heads, Skv): D = 16, 40, 80 and 160, ragged rows, 7 / 77 / 128
+# keys; fp32 at C = 1280 does not fit one block's shared memory (the
+# wrapper raises, tested below)
+CROSS_SHAPES = [(2, 100, 64, 4, 7), (3, 333, 320, 8, 77),
+                (2, 256, 640, 8, 77), (2, 50, 320, 8, 128)]
+
+
+@pytest.mark.parametrize("dtype,b,s,c,heads,skv", [
+    (dtype, *shape) for dtype in (F32, BF16) for shape in CROSS_SHAPES]
+    + [(BF16, 2, 64, 1280, 8, 77)])
+def test_cross_attention_kernel_matches_plain(card, dtype, b, s, c, heads,
+                                              skv):
+    args = cross_args(np.random.RandomState(s + skv), b, s, c, skv, dtype)
+    before = fused_ln_cross_attention.launches
+    got = fused_ln_cross_attention(*args, heads=heads)
+    assert fused_ln_cross_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == (b, s, c)
+    assert_close(got, ln_cross_attention_ref(*args, heads=heads),
+                 FP32_REL if dtype == F32 else BF16_REL)
+
+
+def test_unrouted_wrappers_reject_what_the_kernels_do_not_take(card):
+    rs = np.random.RandomState(0)
+    args = cross_args(rs, 1, 16, 1280, 77, F32)
+    with pytest.raises(ValueError):                     # fp32 at 1280 does
+        fused_ln_cross_attention(*args, heads=8)        # not fit on chip
+    long = cross_args(rs, 1, 16, 64, 129, BF16)
+    with pytest.raises(ValueError):
+        fused_ln_cross_attention(*long, heads=4)        # Skv > 128
+    x = _randn(rs, (2, 16, 36))
+    with pytest.raises(ValueError):                     # C % 8 != 0
+        fused_group_norm(x, x[0, 0], x[0, 0], groups=4)
+    with pytest.raises(TypeError):                      # no fp16 kernel
+        fused_group_norm(x[..., :32].half().contiguous(),
+                         *[torch.ones(32, device="cuda").half()] * 2,
+                         groups=8)
+
+
+@pytest.mark.parametrize("plus,schedule", [(False, None), (True, None),
+                                           (False, "pab244_deep4_cfg4_ex")])
+def test_tiny_ip_request_card_against_cpu(card, plus, schedule):
+    """A tiny fp32 IP-Adapter request (vanilla or Plus) on the card against
+    the same request on the CPU: 2e-3 on the [0, 1] video, as
+    chip_smoke.py's tiny phase."""
+    import chip_smoke
+    from followyourclick_tpu_torch.pipelines.animation import SampleSpec
+    from followyourclick_tpu_torch.pipelines.serving_schedules import (
+        apply_schedule,
+    )
+
+    cpu, gpu = chip_smoke.tiny_pipelines(chip_smoke.tiny_config(), 2, plus)
+    spec = SampleSpec(video_length=4, height=64, width=64,
+                      num_inference_steps=2 if schedule is None else 6)
+    if schedule is not None:
+        spec = apply_schedule(spec, schedule)
+    with torch.inference_mode():
+        req = chip_smoke.make_request(cpu, spec, 3, 1000)
+    assert "ip_pixel_values" in req
+    want = cpu.sample(spec=spec, **req)
+    got = gpu.sample(spec=spec, **req)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (1, 4, 64, 64, 3)
     assert float((got.cpu() - want).abs().max()) <= chip_smoke.TINY_VIDEO_ATOL

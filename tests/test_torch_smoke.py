@@ -9,14 +9,21 @@ counts worked out by hand: on the serving path the smoke's own
 ``SERVING_LAUNCHES``, on the exact path 20 whole-block motion kernels and
 16 LN-GEGLU feed-forwards per step, in fp32 the modular route for the
 blocks at C ≥ 640, and at two clips per request 4 flash launches per exact
-step and 20 per 10-step ``pab488_deep4_cfg4_ex`` request.
+step and 20 per 10-step ``pab488_deep4_cfg4_ex`` request. The IP-Adapter
+Plus UNet (16 ip tokens) launches as the exact path does. The smoke's
+GroupNorm sites, read by hooks from a meta-device run, are the module
+tree's.
 """
+
+import dataclasses
+
 
 import pytest
 import torch
 
 import chip_smoke
 from followyourclick_tpu_torch.config import InferenceConfig
+from followyourclick_tpu_torch.models.layers import GroupNorm
 from followyourclick_tpu_torch.models.unet3d import UNet3DConditionModel
 from followyourclick_tpu_torch.ops.attention import route
 from followyourclick_tpu_torch.pipelines.animation import SampleSpec
@@ -83,3 +90,31 @@ def test_flash_line_is_the_ports_route(rows, tokens):
     shape = (rows, tokens, 8, 40)
     assert chip_smoke.flash_line(rows, tokens, 8) == (
         route(shape, shape, False) == "flash")
+
+
+def test_ip_plus_unet_launches_as_the_exact_path(meta_unet):
+    cfg = InferenceConfig().unet
+    with torch.device("meta"):
+        ip_unet = UNet3DConditionModel(dataclasses.replace(
+            cfg, use_ip_cross_attention=True,
+            ip_num_tokens=chip_smoke.IP_TOKENS))
+    spec = SampleSpec(num_inference_steps=4)
+    assert chip_smoke.expected_launches(ip_unet, spec, torch.bfloat16) == \
+        chip_smoke.expected_launches(meta_unet, spec, torch.bfloat16) == \
+        _counts(80, 64, 0, 0)
+
+
+def test_group_norm_sites_are_the_module_tree(meta_unet):
+    """One call per GroupNorm module and evaluation, at 16 f / 512²: every
+    resnet and conv_norm_out norm (SiLU, statistics over the clip) and
+    every spatial-transformer and motion-module norm (no act, per frame,
+    16 frames × the CFG batch)."""
+    sites = chip_smoke.group_norm_sites(InferenceConfig().unet,
+                                        SampleSpec())
+    norms = [m for m in meta_unet.modules() if isinstance(m, GroupNorm)]
+    assert sum(sites.values()) == len(norms) == 81
+    assert sum(n for k, n in sites.items() if k[5] is None) == sum(
+        m.act is None for m in norms) == 36
+    assert sites[(2, 65536, 320, 32, 1e-5, "silu")] == 6
+    assert sites[(32, 4096, 320, 32, 1e-6, None)] == 9
+    assert all(c <= 2560 and c % 8 == 0 for _, _, c, *_ in sites)

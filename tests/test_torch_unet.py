@@ -133,7 +133,7 @@ def test_bridge_fills_every_leaf_at_the_tiny_configs(unet_tree):
 
 def test_unet3d_rejects_unported_options():
     for name in ("use_camera_motion_condition", "use_text_encoder_2",
-                 "use_ip_cross_attention", "use_pseudo_conv3d"):
+                 "use_temporal_conv", "use_pseudo_conv3d"):
         with pytest.raises(NotImplementedError):
             UNet3DConditionModel(dataclasses.replace(TINY_UNET,
                                                      **{name: True}))
