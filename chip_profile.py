@@ -16,7 +16,8 @@ clock, ending in ``torch.cuda.synchronize()``), the peak device memory of
 the profiled request, the device's busy time (the union of the kernel,
 memcpy and memset intervals of the trace), the device span, the idle share
 of the wall time, each hand-written kernel's device time, launches and
-share of the wall, and the 30 kernels that
+share of the wall (an LN-GEGLU call's three device kernels counted
+under ``fused_ln_geglu``), and the 30 kernels that
 take the most device time; the whole table goes to
 ``chiprun_out/profile_<path>.txt``. Needs torch with CUDA and the CUDA
 toolkit; imports no JAX.
@@ -63,12 +64,16 @@ def busy_us(intervals):
     return total
 
 
-# device-kernel names of the hand-written kernels (csrc/*.cu), by wrapper
-KERNEL_NAMES = {"fused_motion_block": "motion_block_kernel",
-                "fused_ln_geglu": "ln_geglu_kernel",
-                "fused_temporal_block": "temporal_block_kernel",
-                "temporal_attention": "temporal_attention_kernel",
-                "flash_attention": "flash_bf16_kernel"}
+# device-kernel names of the hand-written kernels (csrc/*.cu), by wrapper:
+# one bf16 LN-GEGLU call is three device kernels (the LN pass and the two
+# wgmma products of the GEMM core, which only LN-GEGLU runs so far)
+KERNEL_NAMES = {"fused_motion_block": ("motion_block_kernel",),
+                "fused_ln_geglu": ("ln_bf16_kernel", "wgmma_gemm_kernel",
+                                   "ln_geglu_kernel"),
+                "fused_temporal_block": ("temporal_block_kernel",),
+                "temporal_attention": ("temporal_attention_kernel",),
+                "flash_attention": ("flash_wgmma_kernel",
+                                    "flash_fp32_kernel")}
 
 
 def request(pipe, spec, seed, batch=1):
@@ -136,12 +141,13 @@ def main() -> int:
                        f"device memory {peak:.2f} GiB, device busy "
                        f"{busy:.3f} s over a device span of {span:.3f} s; "
                        f"idle share of wall {1 - busy / wall:.3f}")
-        for wrapper, kname in KERNEL_NAMES.items():
-            us = sum(t for n, t in by_name.items() if kname in n)
-            n = sum(c for n_, c in calls.items() if kname in n_)
+        for wrapper, knames in KERNEL_NAMES.items():
+            mine = [n for n in by_name if any(k in n for k in knames)]
+            us = sum(by_name[n] for n in mine)
+            n = sum(calls[n] for n in mine)
             chip_smoke.log(f"[{label}] {wrapper}: {us / 1e3:.2f} ms over "
-                           f"{n} launches, {us / 1e6 / wall:.3f} of the "
-                           "wall")
+                           f"{n} device launches, {us / 1e6 / wall:.3f} of "
+                           "the wall")
         rows = [f"{us / 1e3:12.2f} ms {calls[name]:6d}  {name}"
                 for name, us in by_name.most_common()]
         (out_dir / f"profile_{label}.txt").write_text("\n".join(rows) + "\n")

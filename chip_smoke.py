@@ -240,6 +240,51 @@ def bound_times(ops, tensors, peak_ops=PEAK_BF16_OPS):
     return ops / peak_ops * 1e3, nbytes / PEAK_BYTES * 1e3
 
 
+def sfu_ms(exps):
+    """Milliseconds the card's special-function units take for ``exps``
+    exponentials: 16 per SM per clock, at the maximum SM clock that
+    ``nvidia-smi`` reports."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return exps / (16 * sms * mhz * 1e6) * 1e3
+
+
+def geglu_stages_ms(args, fast):
+    """Milliseconds of each of the three device launches of one bf16
+    LN-GEGLU call -- (a) the LN pass, (b) the up-projection with the gate,
+    (c) the down-projection with the residual -- and of its two products
+    alone, each one ``torch.matmul`` on the stage inputs the kernels see:
+    an informative yardstick, used nowhere in the port."""
+    from followyourclick_tpu_torch.ops import _build
+
+    lib = _build.load_library()
+    x, ls, lb, w1, b1, w2, b2 = args
+    rows, c = x.shape
+    inner = w2.shape[1]
+    xn, out = torch.empty_like(x), torch.empty_like(x)
+    y = torch.empty(rows, inner, dtype=x.dtype, device=x.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    stages = {
+        "(a)": lambda: _build.check(lib.fyc_ln_rows_bf16(
+            x.data_ptr(), ls.data_ptr(), lb.data_ptr(), xn.data_ptr(), rows,
+            c, 1e-5, stream), "(a)"),
+        "(b)": lambda: _build.check(lib.fyc_geglu_up_bf16(
+            xn.data_ptr(), w1.data_ptr(), b1.data_ptr(), y.data_ptr(), rows,
+            c, inner, int(fast), stream), "(b)"),
+        "(c)": lambda: _build.check(lib.fyc_geglu_down_bf16(
+            y.data_ptr(), w2.data_ptr(), b2.data_ptr(), x.data_ptr(),
+            out.data_ptr(), rows, c, inner, stream), "(c)"),
+    }
+    times = {name: time_ms(run) for name, run in stages.items()}
+    w1t, w2t = w1.t(), w2.t()
+    times["matmul (b)"] = time_ms(lambda: torch.matmul(xn, w1t))
+    times["matmul (c)"] = time_ms(lambda: torch.matmul(y, w2t))
+    return times
+
+
 def kernel_wrappers():
     """The wrappers of every routed kernel, by name; each counts its
     launches."""
@@ -385,6 +430,12 @@ def phase_kernels(seed):
                   lambda: fused_ln_geglu(*args, fast_gating=fast),
                   lambda: ln_geglu_ref(*args, fast_gating=fast),
                   count if fast == default else 0, 24 * rows * c * c, args)
+        t = geglu_stages_ms(args, default)
+        log(f"    stages (a) LN {t['(a)']:.3f} ms, (b) up + gate "
+            f"{t['(b)']:.3f} ms, (c) down + residual {t['(c)']:.3f} ms; the "
+            f"two products alone by torch.matmul {t['matmul (b)']:.3f} + "
+            f"{t['matmul (c)']:.3f} ms (a yardstick, not library_ms: no one "
+            "call computes LN-GEGLU)")
 
     for (p, f, c), count in MOTION_SHAPES:
         heads = 8
@@ -442,6 +493,11 @@ def phase_kernels(seed):
               4 * b * h * sq * sk * d, [q, *kv],
               run_library=(lambda: sdpa(q, *kv)) if path else None,
               tol=BF16_REL if dtype == bf else FP32_REL, timed=path)
+        if path:
+            exps = b * h * sq * sk
+            log(f"    {exps:.3e} exponentials: {sfu_ms(exps):.3f} ms at the "
+                "special-function units' rate (16 per SM per clock at the "
+                "card's maximum SM clock)")
     phase_unrouted_kernels(gen, check, vec)
     for name, st in stats.items():
         st["bound_by"] = ("operations" if st["ops_ms"] >= st["bytes_ms"]

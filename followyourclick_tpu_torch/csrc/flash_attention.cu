@@ -3,154 +3,57 @@
 // Replaces the Pallas TPU kernel of followyourclick_tpu/ops/
 // flash_attention.py (flash_attention, body _fwd_kernel): softmax attention
 // of (B, Sq, H, D) q over (B, Sk, H, D) k and v without keeping the Sq x Sk
-// scores. Numerics as there: logits q . k^T in fp32 times scale, key rows
-// past Sk masked with -1e30, running row max and sum in fp32, p cast to v's
-// type before p . v, which accumulates in fp32, the sum divided out at the
-// end and the result cast.
+// scores. Numerics as there: logits q . k^T in fp32 times scale (in log2
+// units here), key rows past Sk masked with -1e30, running row max and sum
+// in fp32, p cast to v's type before p . v, which accumulates in fp32, the
+// sum divided out at the end and the result cast.
 //
 // What bounds it on the H100. At the path shape (B * H = 512, Sq = Sk =
 // 4096, D = 40, bf16) it does 4 * B * H * Sq * Sk * D = 1.37 TFLOP on the
-// tensor cores against 671 MB of q, k, v and o: ~2000 operations per byte,
-// far above the card's ~295, so it is bound by operations (1.39 ms at
-// 989 TFLOP/s). It also takes B * H * Sq * Sk = 8.6e9 exponentials, which
-// at D = 40 cost the special-function units (16 per SM per clock) more than
-// the products cost the tensor cores.
+// tensor cores against 671 MB of q, k, v and o (1.39 ms at 989 TFLOP/s,
+// bound by operations). It also takes B * H * Sq * Sk = 8.6e9 exponentials:
+// at the special-function units' 16 per SM per clock, about 2.1 ms, above
+// the tensor bound. So the exponentials bind first, then the issue of the
+// products.
 //
-// What the design does. q, k and v are read by stride from the (B, S, H, D)
-// layout, so the Pallas wrapper's transpose to (B * H, S, D) is not needed,
-// and D is padded with zeros only in shared memory, to whole 16-element
-// product depths (40 -> 48; zero columns change neither q . k^T nor the
-// kept part of p . v), where the TPU wrapper padded it to 128 lanes in
-// device memory. A block takes one (batch * head, query tile) and walks the
-// keys in 64-row k/v tiles staged in shared memory; each warp owns 16 query
-// rows end to end. Consecutive blocks take consecutive query tiles of one
-// head, so a head's k and v stay in L2.
+// bf16 (flash_wgmma_kernel), warp-specialised, a block per 192 or 128 query
+// rows of one (batch, head):
+//  - warpgroup 0 is the producer: one thread loads the q tile once and keeps
+//    a ring of 2-3 stages of k and v tiles (128 keys; 64 at D > 128) in
+//    flight by TMA, each completing on an mbarrier. The tensor maps are 4-D
+//    over the (B, S, H, D) layout (dims D, H, S, B), so no transpose is
+//    needed; a box 64 columns wide is written 128-byte-swizzled, and the
+//    columns past D (and the rows past S) arrive as zeros without being read
+//    (D = 40: 80-byte rows, 48 columns used). Heads wider than 64 come in
+//    64-column slabs.
+//  - the consumer warpgroups own 64 query rows each: three (192 rows a
+//    block) for heads up to 64 wide, so that three warps share each SM
+//    sub-partition's special-function unit and hide each other's softmax
+//    latency; two (128 rows) for wider heads, whose O accumulator needs the
+//    registers. S = Q . K^T runs on wgmma
+//    from shared memory (m64n128k16, D / 16 k-steps); the softmax runs on
+//    the fp32 accumulator fragments in registers; p is rounded to bf16 in
+//    registers and fed as wgmma's register A operand to O += P . V, with V
+//    the MN-major B operand (the descriptor's transpose bit).
+//  - Each warpgroup issues S(j) and P(j-1) . V(j-1) together, then does the
+//    softmax of S(j) while P . V runs, then rescales O (the FlashAttention-3
+//    order); the warpgroups take turns at issuing, round robin through
+//    named barriers, so one group's exponentials run under another's
+//    products.
+//  - The exponentials run on the special-function units (ex2.approx): the
+//    third consumer warpgroup is what hides them. A share computed on the
+//    FMA pipe by a range reduction and a polynomial was measured slower at
+//    every share tried (PERF.md), and was removed.
 //
-// bf16: 8 warps, 128 query rows per block (each k/v tile read from L2 once
-// per 128 rows); k/v tiles double-buffered by cp.async, so the next tile's
-// copy runs under this tile's products. mma.sync m16n8k16 on the tensor
-// cores with fp32 accumulation, every fragment in registers: q's A
-// fragments for the whole walk, the S accumulator, whose layout is that of
-// P's A operand, so p is rounded to bf16 and fed to P . V without leaving
-// registers, and the O accumulator, rescaled in place; v's B fragments come
-// transposed from shared memory by ldmatrix (staging S, P and O in shared
-// memory instead makes the kernel bound by shared-memory traffic). p is
-// exp2 of (s * scale * log2(e) - max), one FMA and one ex2.approx per score.
-//
-// fp32: 4 warps, 64 query rows, FMA on shared-memory tiles of S, p and O.
+// fp32 (flash_fp32_kernel): 4 warps, 64 query rows, FMA on shared-memory
+// tiles of S, p and O.
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace fyc {
 
-constexpr int kFaBK = 64;  // key rows per staged tile
 constexpr float kFaMask = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
-
-// warps per block (16 query rows each) by storage type
-template <typename T> __host__ __device__ constexpr int fa_warps() {
-  return std::is_same<T, bf16>::value ? 8 : 4;
-}
-
-// head dim padded to whole 16-element product depths (40 -> 48)
-__host__ __device__ constexpr int fa_dp(int d) { return (d + 15) / 16 * 16; }
-
-// Shared memory of one block, rows padded by 16 bytes (common.cuh
-// `padded`). bf16: the q tile and two k and two v tiles (row stride ldq).
-// fp32: the q, k and v tiles, the scores (lds), p (ldp) and O (ldo).
-struct FlashLayout {
-  size_t q, k[2], v[2], s, p, o, bytes;
-  int ldq, lds, ldp, ldo;
-  __host__ __device__ FlashLayout(int d, size_t tsize) {
-    const bool half = tsize == 2;
-    const int dp = fa_dp(d), bq = 16 * (half ? 8 : 4);
-    ldq = padded(dp, (int)tsize);
-    lds = padded(kFaBK, 4);
-    ldp = padded(kFaBK, (int)tsize);
-    ldo = padded(dp, 4);
-    SmemCursor cur;
-    q = cur.take<char>((size_t)bq * ldq * tsize);
-    for (int i = 0; i < 2; ++i) {
-      const bool own = half || i == 0;  // fp32 has one k/v buffer
-      k[i] = own ? cur.take<char>((size_t)kFaBK * ldq * tsize) : k[0];
-      v[i] = own ? cur.take<char>((size_t)kFaBK * ldq * tsize) : v[0];
-    }
-    s = p = o = 0;
-    if (!half) {
-      s = cur.take<float>((size_t)bq * lds);
-      p = cur.take<char>((size_t)bq * ldp * tsize);
-      o = cur.take<float>((size_t)bq * ldo);
-    }
-    bytes = cur.off;
-  }
-};
-
-// The block's (batch * head, query tile) and the first rows of its head.
-template <typename T>
-struct FlashTile {
-  int q0, b, h;
-  size_t rs;  // elements between sequence rows, H * D
-  const T* qg;
-  const T* kg;
-  const T* vg;
-  __device__ FlashTile(const T* q, const T* k, const T* v, int Sq, int Sk,
-                       int H, int D) {
-    q0 = blockIdx.x * 16 * fa_warps<T>();
-    b = blockIdx.y / H;
-    h = blockIdx.y % H;
-    rs = (size_t)H * D;
-    qg = q + ((size_t)b * Sq + q0) * rs + (size_t)h * D;
-    kg = k + (size_t)b * Sk * rs + (size_t)h * D;
-    vg = v + (size_t)b * Sk * rs + (size_t)h * D;
-  }
-};
-
-// `tile_rows` rows of one head of a (B, S, H, D) tensor (src: its first
-// row, row stride rs elements) into a tile of shared memory (row stride ld,
-// dp columns): zero beyond `rows` rows and D columns. 16-byte copies: D is
-// a multiple of 8 (bf16) or 4 (fp32) elements, so a copy is all data or all
-// padding. ASYNC: cp.async copies (zero-filled where there is no data),
-// which the caller commits and waits for.
-template <typename T, bool ASYNC = false>
-__device__ __forceinline__ void fa_load_tile(const T* __restrict__ src,
-                                             size_t rs, int tile_rows,
-                                             int rows, int D, int dp, T* dst,
-                                             int ld) {
-  constexpr int kVec = 16 / sizeof(T);
-  const int chunks = dp / kVec;
-  for (int i = threadIdx.x; i < tile_rows * chunks; i += blockDim.x) {
-    const int r = i / chunks, c = (i % chunks) * kVec;
-    const bool data = r < rows && c < D;
-    T* to = dst + (size_t)r * ld + c;
-    if constexpr (ASYNC) {
-      const unsigned sa = static_cast<unsigned>(__cvta_generic_to_shared(to));
-      const T* from = data ? src + (size_t)r * rs + c : src;
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                   :: "r"(sa), "l"(from), "r"(data ? 16 : 0));
-    } else {
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (data) val = *reinterpret_cast<const uint4*>(src + (size_t)r * rs + c);
-      *reinterpret_cast<uint4*>(to) = val;
-    }
-  }
-}
-
-// ---- bf16: mma.sync m16n8k16, every fragment in registers ----------------
-//
-// Fragment layouts (PTX ISA, mma.m16n8k16 .bf16; g = lane / 4, t = lane % 4):
-//  A (16 x 16): a[0] = (row g, cols 2t, 2t+1), a[1] = (row g+8, same),
-//               a[2] = (row g, cols 2t+8, 2t+9), a[3] = (row g+8, same);
-//  B (16 x 8):  b[0] = (rows 2t, 2t+1, col g), b[1] = (rows 2t+8, 2t+9);
-//  C (16 x 8):  c[0], c[1] = (row g, cols 2t, 2t+1), c[2], c[3] = (row g+8).
-// Each register holds the lower column (A) or row (B) in its low half.
-
-static __device__ __forceinline__ unsigned lds32(const bf16* p) {
-  return *reinterpret_cast<const unsigned*>(p);
-}
-
-static __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&v);
-}
 
 static __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -158,121 +61,156 @@ static __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-static __device__ __forceinline__ void mma_bf16(float* c, const unsigned* a,
-                                                unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// ---- bf16: wgmma, TMA, warp-specialised ------------------------------------
+
+static __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// Four 8 x 8 bf16 matrices, transposed: lane l gives the address of row
-// l % 8 of matrix l / 8 (16 contiguous bytes) and receives, of matrix i,
-// the elements (rows 2t, 2t+1; col g) in r[i].
-static __device__ __forceinline__ void ldsm_x4_trans(unsigned* r,
-                                                     const bf16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-template <int NK>
-__global__ void __launch_bounds__(32 * fa_warps<bf16>())
-flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, bf16* __restrict__ out, int Sq,
-                  int Sk, int H, int D, float scale_log2) {
-  constexpr int DP = NK * 16, NT = DP / 8;  // padded width, 8-column tiles
-  constexpr int ST = kFaBK / 8;             // score tiles per k/v tile
-  constexpr int BQ = 16 * fa_warps<bf16>();
-  extern __shared__ __align__(128) unsigned char smem[];
-  const FlashLayout lay(D, sizeof(bf16));
-  const int ldq = lay.ldq;
-  const FlashTile<bf16> tile(q, k, v, Sq, Sk, H, D);
-  const int tiles = (Sk + kFaBK - 1) / kFaBK;
-
-  bf16* kbuf0 = reinterpret_cast<bf16*>(smem + lay.k[0]);
-  bf16* kbuf1 = reinterpret_cast<bf16*>(smem + lay.k[1]);
-  bf16* vbuf0 = reinterpret_cast<bf16*>(smem + lay.v[0]);
-  bf16* vbuf1 = reinterpret_cast<bf16*>(smem + lay.v[1]);
-
-  // cp.async copies of k/v tile `it` into buffer it % 2, one commit group
-  auto issue = [=](int it) {
-    const int k0 = it * kFaBK, kv = min(kFaBK, Sk - k0);
-    fa_load_tile<bf16, true>(tile.kg + (size_t)k0 * tile.rs, tile.rs, kFaBK,
-                             kv, D, DP, it % 2 ? kbuf1 : kbuf0, ldq);
-    fa_load_tile<bf16, true>(tile.vg + (size_t)k0 * tile.rs, tile.rs, kFaBK,
-                             kv, D, DP, it % 2 ? vbuf1 : vbuf0, ldq);
-    asm volatile("cp.async.commit_group;\n" ::);
-  };
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int r0 = warp * 16;  // the warp's 16 query rows
-
-  bf16* qs = reinterpret_cast<bf16*>(smem + lay.q);
-  fa_load_tile(tile.qg, tile.rs, BQ, min(BQ, Sq - tile.q0), D, DP, qs, ldq);
-  issue(0);
-  __syncthreads();
-  unsigned qa[NK][4];  // the warp's q rows as A fragments, one per depth
+template <int R>
+static __device__ __forceinline__ void fence_u32(uint32_t (&a)[R][4]) {
 #pragma unroll
-  for (int kk = 0; kk < NK; ++kk) {
-    const bf16* at = qs + (r0 + g) * ldq + kk * 16 + 2 * t;
-    qa[kk][0] = lds32(at);
-    qa[kk][1] = lds32(at + 8 * ldq);
-    qa[kk][2] = lds32(at + 8);
-    qa[kk][3] = lds32(at + 8 * ldq + 8);
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+// Padded head width DP (the O accumulator's N, a multiple of 16): 64-column
+// slabs DS, consumer warpgroups NWG and query rows BQ per block, keys per
+// tile BK, ring stages; bytes of the q tile and of one k (or v) tile;
+// registers of a producer and of a consumer thread after setmaxnreg (the
+// block's 64 K registers: 128 * PREGS + 128 * NWG * CREGS <= 65536).
+template <int DP>
+struct FaShape {
+  static constexpr int DS = (DP + 63) / 64;
+  static constexpr int NWG = DS == 1 ? 3 : 2;
+  static constexpr int BQ = 64 * NWG;
+  static constexpr int THREADS = 128 * (NWG + 1);
+  static constexpr int BK = DS > 2 ? 64 : 128;
+  static constexpr int STAGES = DS > 1 ? 2 : 3;
+  static constexpr int kQ = DS * BQ * 128;
+  static constexpr int kKV = DS * BK * 128;
+  static constexpr int kSmem = 1024 + kQ + STAGES * 2 * kKV;
+  static constexpr int PREGS = NWG == 3 ? 24 : 40;
+  static constexpr int CREGS = NWG == 3 ? 160 : 232;
+};
+
+// the padded widths the kernel is built for: D in 8..160, a multiple of 8
+__host__ __device__ constexpr int fa_dp(int d) {
+  return d <= 16 ? 16 : d <= 32 ? 32 : d <= 48 ? 48 : d <= 64 ? 64
+       : d <= 96 ? 96 : d <= 128 ? 128 : 160;
+}
+
+template <int DP>
+__global__ void __launch_bounds__(FaShape<DP>::THREADS, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   bf16* __restrict__ out, int Sq, int Sk, int H, int D,
+                   float scale_log2) {
+  using F = FaShape<DP>;
+  using namespace hopper;
+  constexpr int BK = F::BK, BQ = F::BQ, NWG = F::NWG;
+  constexpr int NS = BK / 2, NO = DP / 2;
+  constexpr int KQK = DP / 16, KPV = BK / 16;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t q_full, k_full[F::STAGES],
+      v_full[F::STAGES], kv_empty[F::STAGES];
+  const uint32_t base = smem_u32(smem_raw);
+  uint8_t* qs = smem_raw + (((base + 1023) & ~1023u) - base);
+  uint8_t* kvs = qs + F::kQ;  // stage s: k at kvs + 2 s kKV, v after it
+
+  const int q0 = blockIdx.x * BQ;
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int tiles = (Sk + BK - 1) / BK;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&q_full, 1);
+    for (int s = 0; s < F::STAGES; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&kv_empty[s], 4 * NWG);  // one arrival per consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    setmaxnreg_dec<F::PREGS>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(&q_full, F::kQ);
+      for (int s = 0; s < F::DS; ++s)
+        tma_load_4d(qs + s * BQ * 128, &tq, &q_full, 64 * s, h, q0, b);
+      for (int it = 0; it < tiles; ++it) {
+        const int st = it % F::STAGES;
+        mbar_wait(&kv_empty[st], ((it / F::STAGES) & 1) ^ 1);
+        uint8_t* ks = kvs + st * 2 * F::kKV;
+        mbar_expect_tx(&k_full[st], F::kKV);
+        for (int s = 0; s < F::DS; ++s)
+          tma_load_4d(ks + s * BK * 128, &tk, &k_full[st], 64 * s, h,
+                      it * BK, b);
+        mbar_expect_tx(&v_full[st], F::kKV);
+        for (int s = 0; s < F::DS; ++s)
+          tma_load_4d(ks + F::kKV + s * BK * 128, &tv, &v_full[st], 64 * s,
+                      h, it * BK, b);
+      }
+    }
+    return;
   }
 
-  float o[NT][4];  // O rows g and g + 8, columns 8n + 2t, 2t + 1
-#pragma unroll
-  for (int n = 0; n < NT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  // rows g and g + 8: running max of the scaled logits (log2 units) and
-  // this lane's part of the running sum (the row's four lanes share the max)
-  float m[2] = {kFaMask, kFaMask}, l[2] = {0.f, 0.f};
+  setmaxnreg_inc<F::CREGS>();
+  const int c = wg - 1;  // this warpgroup's 64 rows
+  // named barriers: this group's turn to issue, and the next group's
+  const int my_turn = 1 + c, next = 1 + (c + 1) % NWG;
+  const int lane = threadIdx.x % 32, w = (threadIdx.x / 32) % 4;
+  const int t = lane % 4;
+  const bool releaser = lane == 0;
+  const uint8_t* qc = qs + c * 64 * 128;
 
-  for (int it = 0; it < tiles; ++it) {
-    if (it + 1 < tiles) {
-      issue(it + 1);
-      asm volatile("cp.async.wait_group 1;\n" ::);
-    } else {
-      asm volatile("cp.async.wait_group 0;\n" ::);
-    }
-    __syncthreads();  // tile `it` has landed for every thread
-    const bf16* ks = it % 2 ? kbuf1 : kbuf0;
-    const bf16* vs = it % 2 ? vbuf1 : vbuf0;
-    const int kv = min(kFaBK, Sk - it * kFaBK);
+  float s[NS], o[NO];
+  uint32_t p[KPV][4];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) o[i] = 0.f;
+  // rows g and g + 8 of the warp: running max of the scaled logits (log2
+  // units), this thread's part of the running sum
+  float m[2] = {kFaMask, kFaMask}, l[2] = {0.f, 0.f}, alpha[2];
 
-    // S = Q . K^T: B fragment (d, key) = K[key][d], a row of the k tile
-    float s[ST][4];
+  auto issue_qk = [&](int st) {
+    const uint8_t* ks = kvs + st * 2 * F::kKV;
 #pragma unroll
-    for (int j = 0; j < ST; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      const bf16* kr = ks + (8 * j + g) * ldq + 2 * t;
+    for (int k = 0; k < KQK; ++k)
+      Wgmma<BK>::ss(s, desc_sw128(qc + (k / 4) * BQ * 128, 16, 1024)
+                           + 2 * (k % 4),
+                    desc_sw128(ks + (k / 4) * BK * 128, 16, 1024)
+                        + 2 * (k % 4),
+                    k > 0);
+  };
+  auto issue_pv = [&](int st) {
+    const uint64_t dv =
+        desc_sw128(kvs + st * 2 * F::kKV + F::kKV, BK * 128, 1024);
 #pragma unroll
-      for (int kk = 0; kk < NK; ++kk)
-        mma_bf16(s[j], qa[kk], lds32(kr + kk * 16), lds32(kr + kk * 16 + 8));
-    }
-    if (kv < kFaBK) {  // the ragged last tile
+    for (int kk = 0; kk < KPV; ++kk)
+      Wgmma<DP>::template rs<1>(o, p[kk], dv + kk * 128, 1);
+  };
+  // the online softmax of tile `it` on s: new max, alpha, p in s, sums
+  auto softmax = [&](int it) {
+    const int kv = Sk - it * BK;
+    if (kv < BK) {
 #pragma unroll
-      for (int j = 0; j < ST; ++j)
+      for (int i = 0; i < BK / 8; ++i)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          if (8 * j + 2 * t + (e & 1) >= kv) s[j][e] = kFaMask;
+          if (8 * i + 2 * t + (e & 1) >= kv) s[4 * i + e] = kFaMask;
     }
-
-    // online softmax of rows g (s[.][0..1]) and g + 8 (s[.][2..3]); the max
-    // is taken on the raw logits (scale > 0)
     float mx[2] = {kFaMask, kFaMask};
 #pragma unroll
-    for (int j = 0; j < ST; ++j) {
-      mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
-      mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
+    for (int i = 0; i < BK / 8; ++i) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[4 * i], s[4 * i + 1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[4 * i + 2], s[4 * i + 3]));
     }
-    float alpha[2], neg[2];
+    float neg[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
@@ -284,59 +222,217 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       l[r] *= alpha[r];
     }
 #pragma unroll
-    for (int j = 0; j < ST; ++j)
+    for (int i = 0; i < BK / 8; ++i)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        s[j][e] = ex2(fmaf(s[j][e], scale_log2, neg[e / 2]));
-        l[e / 2] += s[j][e];
+        const float x = fmaf(s[4 * i + e], scale_log2, neg[e / 2]);
+        s[4 * i + e] = ex2(x);
+        l[e / 2] += s[4 * i + e];
       }
+  };
+  auto to_p = [&]() {
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      o[n][0] *= alpha[0], o[n][1] *= alpha[0];
-      o[n][2] *= alpha[1], o[n][3] *= alpha[1];
+    for (int kk = 0; kk < KPV; ++kk) {
+      p[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+      p[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      p[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      p[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
     }
+  };
+  auto rescale_o = [&]() {
+#pragma unroll
+    for (int i = 0; i < NO; ++i) o[i] *= alpha[(i % 4) / 2];
+  };
 
-    // O += P . V: P's A fragment of keys 16kk.. is score tiles 2kk, 2kk+1,
-    // rounded to bf16; V's B fragments come transposed from the v tile
-#pragma unroll
-    for (int kk = 0; kk < kFaBK / 16; ++kk) {
-      const unsigned pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      // matrix i = lane / 8: keys 16kk + 8 (i % 2) + lane % 8, columns
-      // 16c + 8 (i / 2): b0, b1 of column tile 2c, then of 2c + 1
-      const bf16* vr = vs + (16 * kk + 8 * ((lane / 8) % 2) + lane % 8) * ldq
-                       + 8 * (lane / 16);
-#pragma unroll
-      for (int c = 0; c < NT / 2; ++c) {
-        unsigned vb[4];
-        ldsm_x4_trans(vb, vr + 16 * c);
-        mma_bf16(o[2 * c], pa, vb[0], vb[1]);
-        mma_bf16(o[2 * c + 1], pa, vb[2], vb[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with buffer it % 2
+  mbar_wait(&q_full, 0);
+  // the last group lets group 0 go first
+  if (c == NWG - 1) bar_arrive(next, 256);
+
+  // tile 0: S(0) alone
+  mbar_wait(&k_full[0], 0);
+  bar_sync(my_turn, 256);
+  wgmma_fence();
+  fence_regs(s);
+  issue_qk(0);
+  wgmma_commit();
+  bar_arrive(next, 256);
+  wgmma_wait<0>();
+  fence_regs(s);
+  softmax(0);
+  to_p();
+
+  for (int it = 1; it < tiles; ++it) {
+    const int st = it % F::STAGES, pst = (it - 1) % F::STAGES;
+    mbar_wait(&k_full[st], (it / F::STAGES) & 1);
+    bar_sync(my_turn, 256);
+    wgmma_fence();
+    fence_regs(s);
+    issue_qk(st);
+    wgmma_commit();
+    mbar_wait(&v_full[pst], ((it - 1) / F::STAGES) & 1);
+    fence_regs(o);
+    issue_pv(pst);
+    wgmma_commit();
+    bar_arrive(next, 256);
+    wgmma_wait<1>();  // S(it) is done, P(it-1) . V(it-1) may run on
+    fence_regs(s);
+    softmax(it);
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_u32(p);
+    if (releaser) mbar_arrive(&kv_empty[pst]);
+    rescale_o();
+    to_p();
   }
+
+  // the last P . V
+  const int lst = (tiles - 1) % F::STAGES;
+  mbar_wait(&v_full[lst], ((tiles - 1) / F::STAGES) & 1);
+  bar_sync(my_turn, 256);
+  wgmma_fence();
+  fence_regs(o);
+  issue_pv(lst);
+  wgmma_commit();
+  // every group takes tiles + 1 turns; the last has none to give after its
+  // last, which the first group never waits for
+  if (c != NWG - 1) bar_arrive(next, 256);
+  wgmma_wait<0>();
+  fence_regs(o);
+  fence_u32(p);
+  if (releaser) mbar_arrive(&kv_empty[lst]);
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l[r] = 1.f / l[r];
   }
+  const size_t rs = (size_t)H * D;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = tile.q0 + r0 + g + 8 * r;
+    const int row = q0 + 64 * c + 16 * w + lane / 4 + 8 * r;
     if (row >= Sq) continue;
-    bf16* og = out + ((size_t)tile.b * Sq + row) * tile.rs +
-               (size_t)tile.h * D;
+    bf16* og = out + ((size_t)b * Sq + row) * rs + (size_t)h * D;
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      const int c = 8 * n + 2 * t;
-      if (c < D)
-        *reinterpret_cast<__nv_bfloat162*>(og + c) = __floats2bfloat162_rn(
-            o[n][2 * r] / l[r], o[n][2 * r + 1] / l[r]);
+    for (int i = 0; i < NO / 4; ++i) {
+      const int col = 8 * i + 2 * t;
+      if (col < D)
+        *reinterpret_cast<__nv_bfloat162*>(og + col) = __floats2bfloat162_rn(
+            o[4 * i + 2 * r] * l[r], o[4 * i + 2 * r + 1] * l[r]);
     }
+  }
+}
+
+// (B, S, H, D) bf16 as a 4-D map (dims D, H, S, B), box 64 x 1 x rows x 1
+static bool fa_map(CUtensorMap* map, const void* base, int B, int S, int H,
+                   int D, int rows) {
+  const uint64_t dims[4] = {(uint64_t)D, (uint64_t)H, (uint64_t)S,
+                            (uint64_t)B};
+  const uint64_t strides[3] = {(uint64_t)D * 2, (uint64_t)H * D * 2,
+                               (uint64_t)S * H * D * 2};
+  const uint32_t box[4] = {64, 1, (uint32_t)rows, 1};
+  return hopper::make_map(map, base, 4, dims, strides, box);
+}
+
+template <int DP>
+cudaError_t fa_wgmma_launch(const void* q, const void* k, const void* v,
+                            void* out, int B, int Sq, int Sk, int H, int D,
+                            float scale, cudaStream_t stream) {
+  using F = FaShape<DP>;
+  CUtensorMap tq, tk, tv;
+  if (!fa_map(&tq, q, B, Sq, H, D, F::BQ) ||
+      !fa_map(&tk, k, B, Sk, H, D, F::BK) ||
+      !fa_map(&tv, v, B, Sk, H, D, F::BK))
+    return cudaErrorInvalidValue;
+  auto kern = flash_wgmma_kernel<DP>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, F::kSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Sq + F::BQ - 1) / F::BQ, B * H);
+  kern<<<grid, F::THREADS, F::kSmem, stream>>>(tq, tk, tv, (bf16*)out, Sq, Sk, H,
+                                        D, scale * kLog2e);
+  return cudaGetLastError();
+}
+
+cudaError_t fa_bf16(const void* q, const void* k, const void* v, void* out,
+                    int B, int Sq, int Sk, int H, int D, float scale,
+                    cudaStream_t s) {
+  switch (fa_dp(D)) {
+    case 16: return fa_wgmma_launch<16>(q, k, v, out, B, Sq, Sk, H, D, scale, s);
+    case 32: return fa_wgmma_launch<32>(q, k, v, out, B, Sq, Sk, H, D, scale, s);
+    case 48: return fa_wgmma_launch<48>(q, k, v, out, B, Sq, Sk, H, D, scale, s);
+    case 64: return fa_wgmma_launch<64>(q, k, v, out, B, Sq, Sk, H, D, scale, s);
+    case 96: return fa_wgmma_launch<96>(q, k, v, out, B, Sq, Sk, H, D, scale, s);
+    case 128: return fa_wgmma_launch<128>(q, k, v, out, B, Sq, Sk, H, D, scale, s);
+    case 160: return fa_wgmma_launch<160>(q, k, v, out, B, Sq, Sk, H, D, scale, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// ---- fp32 helpers ----------------------------------------------------------
+
+constexpr int kFaBK = 64;      // key rows per staged tile
+constexpr int kFaWarps32 = 4;  // warps per block, 16 query rows each
+
+// head dim padded to whole 16-element depths (40 -> 48)
+__host__ __device__ constexpr int fa_dp16(int d) { return (d + 15) / 16 * 16; }
+
+// Shared memory of one block, rows padded by 16 bytes (common.cuh
+// `padded`): the q, k and v tiles (row stride ldq), the scores (lds), p
+// (ldp) and O (ldo).
+struct FlashLayout {
+  size_t q, k, v, s, p, o, bytes;
+  int ldq, lds, ldp, ldo;
+  __host__ __device__ explicit FlashLayout(int d) {
+    const int dp = fa_dp16(d), bq = 16 * kFaWarps32;
+    ldq = padded(dp, 4);
+    lds = padded(kFaBK, 4);
+    ldp = padded(kFaBK, 4);
+    ldo = padded(dp, 4);
+    SmemCursor cur;
+    q = cur.take<float>((size_t)bq * ldq);
+    k = cur.take<float>((size_t)kFaBK * ldq);
+    v = cur.take<float>((size_t)kFaBK * ldq);
+    s = cur.take<float>((size_t)bq * lds);
+    p = cur.take<float>((size_t)bq * ldp);
+    o = cur.take<float>((size_t)bq * ldo);
+    bytes = cur.off;
+  }
+};
+
+// The block's (batch * head, query tile) and the first rows of its head.
+struct FlashTile {
+  int q0, b, h;
+  size_t rs;  // elements between sequence rows, H * D
+  const float* qg;
+  const float* kg;
+  const float* vg;
+  __device__ FlashTile(const float* q, const float* k, const float* v,
+                       int Sq, int Sk, int H, int D) {
+    q0 = blockIdx.x * 16 * kFaWarps32;
+    b = blockIdx.y / H;
+    h = blockIdx.y % H;
+    rs = (size_t)H * D;
+    qg = q + ((size_t)b * Sq + q0) * rs + (size_t)h * D;
+    kg = k + (size_t)b * Sk * rs + (size_t)h * D;
+    vg = v + (size_t)b * Sk * rs + (size_t)h * D;
+  }
+};
+
+// `tile_rows` rows of one head of a (B, S, H, D) tensor (src: its first
+// row, row stride rs elements) into a tile of shared memory (row stride ld,
+// dp columns): zero beyond `rows` rows and D columns, in 16-byte copies (D
+// is a multiple of 4 floats, so a copy is all data or all padding).
+static __device__ __forceinline__ void fa_load_tile(
+    const float* __restrict__ src, size_t rs, int tile_rows, int rows, int D,
+    int dp, float* dst, int ld) {
+  const int chunks = dp / 4;
+  for (int i = threadIdx.x; i < tile_rows * chunks; i += blockDim.x) {
+    const int r = i / chunks, c = (i % chunks) * 4;
+    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r < rows && c < D)
+      val = *reinterpret_cast<const float4*>(src + (size_t)r * rs + c);
+    *reinterpret_cast<float4*>(dst + (size_t)r * ld + c) = val;
   }
 }
 
@@ -346,22 +442,22 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // its softmax rows (two lanes per row, columns 2i + half), its rows of p
 // and of the accumulator O, all in shared memory.
 template <int NK>
-__global__ void __launch_bounds__(32 * fa_warps<float>())
+__global__ void __launch_bounds__(32 * kFaWarps32)
 flash_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ out,
                   int Sq, int Sk, int H, int D, float scale_log2) {
   constexpr int DP = NK * 16;
-  constexpr int BQ = 16 * fa_warps<float>();
+  constexpr int BQ = 16 * kFaWarps32;
   extern __shared__ __align__(128) unsigned char smem[];
-  const FlashLayout lay(D, sizeof(float));
+  const FlashLayout lay(D);
   float* qs = reinterpret_cast<float*>(smem + lay.q);
-  float* ks = reinterpret_cast<float*>(smem + lay.k[0]);
-  float* vs = reinterpret_cast<float*>(smem + lay.v[0]);
+  float* ks = reinterpret_cast<float*>(smem + lay.k);
+  float* vs = reinterpret_cast<float*>(smem + lay.v);
   float* ss = reinterpret_cast<float*>(smem + lay.s);
   float* ps = reinterpret_cast<float*>(smem + lay.p);
   float* os = reinterpret_cast<float*>(smem + lay.o);
   const int ldq = lay.ldq, lds = lay.lds, ldp = lay.ldp, ldo = lay.ldo;
-  const FlashTile<float> tile(q, k, v, Sq, Sk, H, D);
+  const FlashTile tile(q, k, v, Sq, Sk, H, D);
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int r0 = warp * 16;
@@ -453,42 +549,38 @@ flash_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <typename T, int NK>
-cudaError_t fa_launch(const void* q, const void* k, const void* v, void* out,
-                      int B, int Sq, int Sk, int H, int D, float scale,
-                      cudaStream_t stream) {
-  const FlashLayout lay(D, sizeof(T));
-  void (*kern)(const T*, const T*, const T*, T*, int, int, int, int, float);
-  if constexpr (std::is_same<T, bf16>::value)
-    kern = flash_bf16_kernel<NK>;
-  else
-    kern = flash_fp32_kernel<NK>;
+template <int NK>
+cudaError_t fa_fp32_launch(const void* q, const void* k, const void* v,
+                           void* out, int B, int Sq, int Sk, int H, int D,
+                           float scale, cudaStream_t stream) {
+  const FlashLayout lay(D);
+  auto kern = flash_fp32_kernel<NK>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay.bytes);
   if (err != cudaSuccess) return err;
-  const int bq = 16 * fa_warps<T>();
+  const int bq = 16 * kFaWarps32;
   const dim3 grid((Sq + bq - 1) / bq, B * H);
-  kern<<<grid, 32 * fa_warps<T>(), lay.bytes, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, Sq, Sk, H, D,
-      scale * kLog2e);
+  kern<<<grid, 32 * kFaWarps32, lay.bytes, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)out, Sq, Sk,
+      H, D, scale * kLog2e);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t fa_dispatch(const void* q, const void* k, const void* v,
-                        void* out, int B, int Sq, int Sk, int H, int D,
-                        float scale, cudaStream_t s) {
-  switch (fa_dp(D) / 16) {
-    case 1: return fa_launch<T, 1>(q, k, v, out, B, Sq, Sk, H, D, scale, s);
-    case 2: return fa_launch<T, 2>(q, k, v, out, B, Sq, Sk, H, D, scale, s);
-    case 3: return fa_launch<T, 3>(q, k, v, out, B, Sq, Sk, H, D, scale, s);
-    case 4: return fa_launch<T, 4>(q, k, v, out, B, Sq, Sk, H, D, scale, s);
-    case 5: return fa_launch<T, 5>(q, k, v, out, B, Sq, Sk, H, D, scale, s);
-    case 6: return fa_launch<T, 6>(q, k, v, out, B, Sq, Sk, H, D, scale, s);
-    case 7: return fa_launch<T, 7>(q, k, v, out, B, Sq, Sk, H, D, scale, s);
-    case 8: return fa_launch<T, 8>(q, k, v, out, B, Sq, Sk, H, D, scale, s);
-    case 9: return fa_launch<T, 9>(q, k, v, out, B, Sq, Sk, H, D, scale, s);
-    case 10: return fa_launch<T, 10>(q, k, v, out, B, Sq, Sk, H, D, scale, s);
+cudaError_t fa_fp32(const void* q, const void* k, const void* v, void* out,
+                    int B, int Sq, int Sk, int H, int D, float scale,
+                    cudaStream_t s) {
+  if (FlashLayout(D).bytes > kMaxSmem) return cudaErrorInvalidValue;
+  switch (fa_dp16(D) / 16) {
+    case 1: return fa_fp32_launch<1>(q, k, v, out, B, Sq, Sk, H, D, scale, s);
+    case 2: return fa_fp32_launch<2>(q, k, v, out, B, Sq, Sk, H, D, scale, s);
+    case 3: return fa_fp32_launch<3>(q, k, v, out, B, Sq, Sk, H, D, scale, s);
+    case 4: return fa_fp32_launch<4>(q, k, v, out, B, Sq, Sk, H, D, scale, s);
+    case 5: return fa_fp32_launch<5>(q, k, v, out, B, Sq, Sk, H, D, scale, s);
+    case 6: return fa_fp32_launch<6>(q, k, v, out, B, Sq, Sk, H, D, scale, s);
+    case 7: return fa_fp32_launch<7>(q, k, v, out, B, Sq, Sk, H, D, scale, s);
+    case 8: return fa_fp32_launch<8>(q, k, v, out, B, Sq, Sk, H, D, scale, s);
+    case 9: return fa_fp32_launch<9>(q, k, v, out, B, Sq, Sk, H, D, scale, s);
+    case 10: return fa_fp32_launch<10>(q, k, v, out, B, Sq, Sk, H, D, scale, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -503,13 +595,10 @@ extern "C" int fyc_flash_attention(const void* q, const void* k,
                                    int Sk, int H, int D, float scale,
                                    int dtype, void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0 || D <= 0 || D % 8 != 0 ||
-      D > 160 || (long long)B * H > 65535 ||
-      fyc::FlashLayout(D, dtype == 1 ? 2 : 4).bytes > fyc::kMaxSmem)
+      D > 160 || (long long)B * H > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 1)
-    return (int)fyc::fa_dispatch<__nv_bfloat16>(q, k, v, out, B, Sq, Sk, H,
-                                                D, scale, s);
-  return (int)fyc::fa_dispatch<float>(q, k, v, out, B, Sq, Sk, H, D, scale,
-                                      s);
+    return (int)fyc::fa_bf16(q, k, v, out, B, Sq, Sk, H, D, scale, s);
+  return (int)fyc::fa_fp32(q, k, v, out, B, Sq, Sk, H, D, scale, s);
 }

@@ -6,6 +6,11 @@ plain C interface, loaded through ``ctypes``. The library goes to
 ``followyourclick_tpu_torch/_build/`` (listed in ``.gitignore``) under a name
 keyed by a hash of the sources and flags, so an edit rebuilds and an
 unchanged tree reuses the previous build. Nothing is built on import.
+
+The library links against the CUDA runtime only. The TMA kernels' tensor
+maps come from the driver's ``cuTensorMapEncodeTiled``, which
+``csrc/hopper.cuh`` takes through the runtime's driver entry-point query
+(``cudaGetDriverEntryPointByVersion``), so no ``-lcuda`` is needed.
 """
 
 from __future__ import annotations
@@ -41,13 +46,16 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "fyc_flash_attention": (_I, [_P] * 4 + [_I] * 5 + [_F, _I, _P]),
-    "fyc_geglu": (_I, [_P] * 6 + [_I] * 6 + [_P]),
+    "fyc_geglu": (_I, [_P] * 6 + [_I] * 5 + [_P]),
+    "fyc_geglu_down_bf16": (_I, [_P] * 5 + [_I] * 3 + [_P]),
+    "fyc_geglu_up_bf16": (_I, [_P] * 4 + [_I] * 4 + [_P]),
     "fyc_group_norm": (_I, [_P] * 5 + [_I] * 5 + [_F, _I, _I, _P]),
     "fyc_ln_cross_attention": (_I, [_P] * 9 + [_I] * 6 + [_F, _F, _I, _I,
                                                           _P]),
     "fyc_ln_cross_attention_smem_bytes": (ctypes.c_longlong, [_I] * 6),
-    "fyc_ln_geglu": (_I, [_P] * 8 + [_I, _I, _I, _F, _I, _I, _I, _I, _P]),
-    "fyc_ln_geglu_smem_bytes": (ctypes.c_longlong, [_I, _I, _I]),
+    "fyc_ln_geglu": (_I, [_P] * 8 + [_I, _I, _I, _F, _I, _I, _I, _P]),
+    "fyc_ln_geglu_smem_bytes": (ctypes.c_longlong, [_I, _I]),
+    "fyc_ln_rows_bf16": (_I, [_P] * 4 + [_I, _I, _F, _P]),
     "fyc_motion_block": (_I, [_P, _P, ctypes.POINTER(_P), _P]
                          + [_I, _I, _I, _I, _I, _F, _F, _I, _I, _P]),
     "fyc_motion_block_smem_bytes": (ctypes.c_longlong, [_I] * 5),

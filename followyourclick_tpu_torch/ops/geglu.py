@@ -1,12 +1,25 @@
-"""LayerNorm → GEGLU feed-forward → +residual, one hand-written kernel.
+"""LayerNorm → GEGLU feed-forward → +residual, hand-written kernels.
 
 Port of ``followyourclick_tpu/ops/geglu.py``: ``fused_ln_geglu`` and
-``fused_geglu`` (the feed-forward alone, no LN and no residual). On a CUDA
-tensor each launches the ``sm_90a`` kernel of ``csrc/geglu.cu``, the second
-in the kernel's LN-off, residual-off mode; on a CPU tensor each runs its
-plain PyTorch version with the same numerics (:func:`ln_geglu_ref`,
-:func:`geglu_ref`). Nothing else routes between them. As in the JAX
-package, no path of the sampler reaches ``fused_geglu``: its caller,
+``fused_geglu`` (the feed-forward alone, no LN and no residual). On a CPU
+tensor each runs its plain PyTorch version with the same numerics
+(:func:`ln_geglu_ref`, :func:`geglu_ref`). On a CUDA tensor:
+
+- bf16 (every path of the sampler): three launches of ``csrc/geglu.cu``
+  per call, one for each stage, whose plain versions are
+  :func:`layer_norm_cast` (a: LN with fp32 statistics, cast to bf16),
+  :func:`up_stage` (b: ``x·W1ᵀ + b1`` on wgmma, value and gate columns in
+  one tile, the gate in the epilogue, ``y`` stored in bf16) and
+  :func:`down_stage` (c: ``y·W2ᵀ + b2`` on wgmma, rounded, ``+ x``
+  rounded). ``fused_geglu`` is (b) on x and (c) without the residual.
+  The wrapper allocates the intermediates ``xn (R, C)`` and
+  ``y (R, inner)``.
+- fp32: one launch of the all-on-chip kernel (``csrc/geglu.cu``
+  ``ln_geglu_kernel``), ``fused_geglu`` in its LN-off, residual-off mode.
+
+Nothing else routes between them: the dtype alone chooses. Each wrapper
+call counts one launch, whatever the number of device kernels. As in the
+JAX package, no path of the sampler reaches ``fused_geglu``: its caller,
 ``models/attention.GEGLUFeedForward``, runs on the card only when called
 outside ``_ln_ff_residual``.
 
@@ -63,7 +76,7 @@ def linear_f32(x: torch.Tensor, w: torch.Tensor,
 
 def layer_norm_cast(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                     eps: float) -> torch.Tensor:
-    """LN with fp32 statistics, output cast to ``x.dtype``."""
+    """LN with fp32 statistics, output cast to ``x.dtype`` (stage (a))."""
     xf = x.float()
     mean = xf.mean(-1, keepdim=True)
     ctr = xf - mean
@@ -72,13 +85,27 @@ def layer_norm_cast(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return (n * scale.float() + bias.float()).to(x.dtype)
 
 
+def up_stage(t: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+             fast: bool) -> torch.Tensor:
+    """Stage (b): ``h·gelu(gate)`` of ``t·W1ᵀ + b1`` (bias in fp32), in
+    ``t.dtype``."""
+    inner = w1.shape[0] // 2
+    h2 = linear_f32(t, w1, b1)
+    return gate_mul(h2[..., :inner], h2[..., inner:], fast, t.dtype)
+
+
+def down_stage(y: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
+               residual: torch.Tensor | None = None) -> torch.Tensor:
+    """Stage (c): ``y·W2ᵀ + b2`` (bias in fp32) cast to ``y.dtype``, then
+    ``+ residual`` in that dtype."""
+    out = linear_f32(y, w2, b2).to(y.dtype)
+    return out if residual is None else out + residual
+
+
 def geglu_ff(t: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
              w2: torch.Tensor, b2: torch.Tensor, fast: bool) -> torch.Tensor:
     """``gate(t · W1 + b1) · W2 + b2`` in fp32 (t in the working dtype)."""
-    inner = w2.shape[1]
-    h2 = linear_f32(t, w1, b1)
-    y = gate_mul(h2[..., :inner], h2[..., inner:], fast, t.dtype)
-    return linear_f32(y, w2, b2)
+    return linear_f32(up_stage(t, w1, b1, fast), w2, b2)
 
 
 def ln_geglu_ref(x, ln_scale, ln_bias, w1, b1, w2, b2, eps: float = 1e-5,
@@ -96,12 +123,12 @@ def geglu_ref(x, w1, b1, w2, b2, fast_gating: bool = False):
 
 
 @functools.lru_cache(maxsize=None)
-def rows_per_block(c: int, dtype: torch.dtype) -> int:
-    """Rows per block: the most (of 64, 32, 16) whose tile fits the budget."""
+def rows_per_block(c: int) -> int:
+    """Rows per block of the fp32 kernel: the most (of 64, 32, 16) whose
+    tile fits the budget."""
     lib = _build.load_library()
-    code = _build.DTYPE_CODES[dtype]
     for rows in (64, 32, 16):
-        if lib.fyc_ln_geglu_smem_bytes(rows, c, code) <= _build.SMEM_BUDGET:
+        if lib.fyc_ln_geglu_smem_bytes(rows, c) <= _build.SMEM_BUDGET:
             return rows
     return 16
 
@@ -130,8 +157,36 @@ def _check(what, x, ln_params, ff_params) -> None:
                              f"device and dtype ({x.device}, {x.dtype})")
         if not t.is_contiguous():
             raise ValueError(f"{what}: tensors must be contiguous")
-    if r == 0 or r >= 2 ** 31 // max(c, 1):
+    if r == 0 or r >= 2 ** 31 // max(c, inner, 1):
         raise ValueError(f"{what}: unsupported row count {r}")
+    if x.dtype == torch.bfloat16:
+        # TMA reads rows of 16-byte multiples from 16-byte aligned tensors
+        if c % 8 or inner % 8:
+            raise ValueError(f"{what}: bf16 takes C and inner multiples of "
+                             f"8, got C={c}, inner={inner}")
+        if any(t.data_ptr() % 16 for t in (x, *ln_params, *ff_params)):
+            raise ValueError(f"{what}: data must be 16-byte aligned")
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _ff_bf16(what, lib, stream, x, xn, w1, b1, w2, b2, fast,
+             residual) -> torch.Tensor:
+    """Stages (b) and (c) on the card; ``xn`` is the input of (b)."""
+    r, c = x.shape
+    inner = w2.shape[1]
+    y = torch.empty(r, inner, dtype=x.dtype, device=x.device)
+    _build.check(lib.fyc_geglu_up_bf16(
+        xn.data_ptr(), w1.data_ptr(), b1.data_ptr(), y.data_ptr(), r, c,
+        inner, int(fast), stream), f"{what} (b)")
+    out = torch.empty_like(x)
+    _build.check(lib.fyc_geglu_down_bf16(
+        y.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+        x.data_ptr() if residual else None, out.data_ptr(), r, c, inner,
+        stream), f"{what} (c)")
+    return out
 
 
 def fused_ln_geglu(x: torch.Tensor, ln_scale: torch.Tensor,
@@ -139,7 +194,7 @@ def fused_ln_geglu(x: torch.Tensor, ln_scale: torch.Tensor,
                    w2: torch.Tensor, b2: torch.Tensor, eps: float = 1e-5,
                    residual: bool = True,
                    fast_gating: bool | None = None) -> torch.Tensor:
-    """LN → GEGLU FF → (+x) over ``(R, C)`` rows; one read, one write."""
+    """LN → GEGLU FF → (+x) over ``(R, C)`` rows."""
     if fast_gating is None:
         fast_gating = default_fast_gating(x)
     params = (ln_scale, ln_bias, w1, b1, w2, b2)
@@ -151,16 +206,24 @@ def fused_ln_geglu(x: torch.Tensor, ln_scale: torch.Tensor,
     _check("fused_ln_geglu", x, params[:2], params[2:])
     r, c = x.shape
     lib = _build.load_library()
-    out = torch.empty_like(x)
     with torch.cuda.device(x.device):
-        err = lib.fyc_ln_geglu(
-            x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
-            w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-            out.data_ptr(), r, c, w2.shape[1], float(eps), int(residual),
-            int(fast_gating), _build.DTYPE_CODES[x.dtype],
-            rows_per_block(c, x.dtype),
-            torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, "fused_ln_geglu")
+        stream = _stream(x)
+        if x.dtype == torch.bfloat16:
+            xn = torch.empty_like(x)
+            _build.check(lib.fyc_ln_rows_bf16(
+                x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
+                xn.data_ptr(), r, c, float(eps), stream),
+                "fused_ln_geglu (a)")
+            out = _ff_bf16("fused_ln_geglu", lib, stream, x, xn, w1, b1, w2,
+                           b2, fast_gating, residual)
+        else:
+            out = torch.empty_like(x)
+            _build.check(lib.fyc_ln_geglu(
+                x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
+                w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+                out.data_ptr(), r, c, w2.shape[1], float(eps), int(residual),
+                int(fast_gating), rows_per_block(c), stream),
+                "fused_ln_geglu")
     fused_ln_geglu.launches += 1
     return out
 
@@ -171,8 +234,8 @@ fused_ln_geglu.launches = 0
 def fused_geglu(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                 w2: torch.Tensor, b2: torch.Tensor,
                 fast_gating: bool | None = None) -> torch.Tensor:
-    """GEGLU FF over ``(R, C)`` rows with the ``(R, 2·inner)`` intermediate
-    kept on chip: the LN-off, residual-off mode of the LN-GEGLU kernel."""
+    """GEGLU FF over ``(R, C)`` rows: stages (b) and (c) in bf16, the LN-off,
+    residual-off mode of the all-on-chip kernel in fp32."""
     if fast_gating is None:
         fast_gating = default_fast_gating(x)
     if x.device.type == "cpu":
@@ -182,15 +245,18 @@ def fused_geglu(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     _check("fused_geglu", x, (), (w1, b1, w2, b2))
     r, c = x.shape
     lib = _build.load_library()
-    out = torch.empty_like(x)
     with torch.cuda.device(x.device):
-        err = lib.fyc_geglu(
-            x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-            b2.data_ptr(), out.data_ptr(), r, c, w2.shape[1],
-            int(fast_gating), _build.DTYPE_CODES[x.dtype],
-            rows_per_block(c, x.dtype),
-            torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, "fused_geglu")
+        stream = _stream(x)
+        if x.dtype == torch.bfloat16:
+            out = _ff_bf16("fused_geglu", lib, stream, x, x, w1, b1, w2, b2,
+                           fast_gating, residual=False)
+        else:
+            out = torch.empty_like(x)
+            _build.check(lib.fyc_geglu(
+                x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+                b2.data_ptr(), out.data_ptr(), r, c, w2.shape[1],
+                int(fast_gating), rows_per_block(c), stream),
+                "fused_geglu")
     fused_geglu.launches += 1
     return out
 

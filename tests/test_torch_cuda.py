@@ -112,15 +112,25 @@ def _bound(dtype, fast):
     return FP32_REL if dtype == torch.float32 and not fast else BF16_REL
 
 
+# (rows, C): the four widths of the path (320, 640, 1280 and the tiny 64),
+# row counts off the 128-row tile, C = 40, whose k-extent is off the 64-wide
+# k-slice of the bf16 products, and more row tiles (313) than the card has
+# SMs, so the persistent blocks walk several tiles each
+GEGLU_SHAPES = [(77, 64), (1000, 320), (300, 1280), (1000, 640), (130, 1280),
+                (50, 40), (40000, 320)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("rows,c", [(77, 64), (1000, 320), (300, 1280)])
+@pytest.mark.parametrize("rows,c", GEGLU_SHAPES)
 @pytest.mark.parametrize("fast", [False, True])
-def test_ln_geglu_kernel_matches_plain(card, dtype, rows, c, fast):
+@pytest.mark.parametrize("residual", [True, False])
+def test_ln_geglu_kernel_matches_plain(card, dtype, rows, c, fast, residual):
     args = ln_geglu_args(np.random.RandomState(rows), rows, c, dtype)
     before = fused_ln_geglu.launches
-    got = fused_ln_geglu(*args, fast_gating=fast).float()
+    got = fused_ln_geglu(*args, residual=residual, fast_gating=fast).float()
+    torch.cuda.synchronize()
     assert fused_ln_geglu.launches == before + 1
-    ref = ln_geglu_ref(*args, fast_gating=fast).float()
+    ref = ln_geglu_ref(*args, residual=residual, fast_gating=fast).float()
     assert_close(got, ref, _bound(dtype, fast))
 
 
@@ -162,6 +172,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take(card):
         fused_ln_geglu(args[0].t(), *args[1:])          # not (R, C) rows
     with pytest.raises(TypeError):
         fused_ln_geglu(*[a.half() for a in args])       # no fp16 kernel
+    odd = ln_geglu_args(np.random.RandomState(0), 8, 36, torch.bfloat16)
+    with pytest.raises(ValueError):                     # bf16 rows of TMA
+        fused_ln_geglu(*odd)                            # need C % 8 == 0
     x, pe, params = motion_block_args(np.random.RandomState(0), 4, 16, 640,
                                       torch.float32)
     with pytest.raises(ValueError):                     # fp32 at 640 does
@@ -264,7 +277,13 @@ def test_motion_module_routes_on_the_card(card, c, dtype, pab, want):
 # batch-head count above a few blocks
 FLASH_SHAPES = [(2, 128, 128, 4, 40), (2, 300, 300, 4, 64),
                 (2, 256, 77, 4, 40), (1, 512, 512, 2, 160),
-                (3, 100, 1030, 2, 8), (4, 1024, 1024, 8, 40)]
+                (3, 100, 1030, 2, 8), (4, 1024, 1024, 8, 40),
+                # queries and keys off the 128-row tiles at each head width
+                # the bf16 kernel pads to (48, 64, 96, 128, 160), and a
+                # large batch x heads
+                (2, 77, 300, 3, 160), (1, 300, 77, 2, 96),
+                (2, 200, 129, 2, 128), (3, 77, 77, 5, 64),
+                (64, 256, 300, 8, 40)]
 
 
 @pytest.mark.parametrize("dtype", [F32, BF16])
@@ -351,7 +370,7 @@ def test_two_clip_tiny_request_card_against_cpu(card, schedule):
 
 
 @pytest.mark.parametrize("dtype", [F32, BF16])
-@pytest.mark.parametrize("rows,c", [(77, 64), (1000, 320), (300, 1280)])
+@pytest.mark.parametrize("rows,c", GEGLU_SHAPES)
 @pytest.mark.parametrize("fast", [False, True])
 def test_geglu_kernel_matches_plain(card, dtype, rows, c, fast):
     """fused_geglu: the LN-off, residual-off mode of the LN-GEGLU kernel."""
