@@ -15,10 +15,9 @@ then one under ``torch.profiler`` (CPU and CUDA activities, no schedule). For ea
 clock, ending in ``torch.cuda.synchronize()``), the peak device memory of
 the profiled request, the device's busy time (the union of the kernel,
 memcpy and memset intervals of the trace), the device span, the idle share
-of the wall time, each hand-written kernel's device time, launches and
-share of the wall (an LN-GEGLU call's three device kernels counted
-under ``fused_ln_geglu``), and the 30 kernels that
-take the most device time; the whole table goes to
+of the wall time, each kernel wrapper's device time, calls, device launches
+and share of the wall, and the 30 kernels that take the most device time;
+the whole table goes to
 ``chiprun_out/profile_<path>.txt``. Needs torch with CUDA and the CUDA
 toolkit; imports no JAX.
 """
@@ -43,15 +42,59 @@ TOP = 30
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
-def device_intervals(prof):
-    """(start µs, end µs, name) of every device activity in the trace."""
+def trace_events(prof):
+    """The events of the profiler's Chrome trace."""
     with tempfile.TemporaryDirectory() as d:
         path = os.path.join(d, "trace.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
-            events = json.load(f)["traceEvents"]
+            return json.load(f)["traceEvents"]
+
+
+def device_intervals(events):
+    """(start µs, end µs, name) of every device activity in the trace."""
     return [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
             if e.get("cat") in DEVICE_CATS and "dur" in e]
+
+
+def annotated(name, fn):
+    """``fn`` inside a profiler range named ``name``."""
+    def run(*args, **kwargs):
+        with torch.profiler.record_function(name):
+            return fn(*args, **kwargs)
+    return run
+
+
+def by_wrapper(events):
+    """Per kernel wrapper: its calls, and the device µs and device launches
+    of the kernels launched inside its calls. A kernel joins the runtime
+    call that launched it (same correlation id), and that call the wrapper
+    range of its thread that holds it. Several wrappers share device
+    kernels (the bf16 motion block runs LN-GEGLU's, fused_ln_geglu's and
+    the frame attention's), so names alone cannot tell them apart."""
+    names = set(chip_smoke.KERNELS)
+    ranges = collections.defaultdict(list)
+    launch = {}
+    for e in events:
+        args = e.get("args", {})
+        if e.get("cat") == "user_annotation" and e["name"] in names:
+            ranges[e["tid"]].append((e["ts"], e["ts"] + e["dur"], e["name"]))
+        elif e.get("cat") in ("cuda_runtime", "cuda_driver") \
+                and "correlation" in args:
+            launch[args["correlation"]] = (e["tid"], e["ts"])
+    calls = collections.Counter(r[2] for rs in ranges.values() for r in rs)
+    us, n = collections.Counter(), collections.Counter()
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        tid, ts = launch.get(e.get("args", {}).get("correlation"),
+                             (None, None))
+        for start, end, name in ranges.get(tid, ()):
+            if start <= ts <= end:
+                us[name] += e["dur"]
+                n[name] += 1
+                break
+    return calls, us, n
 
 
 def busy_us(intervals):
@@ -62,18 +105,6 @@ def busy_us(intervals):
             total += e - max(s, end)
             end = e
     return total
-
-
-# device-kernel names of the hand-written kernels (csrc/*.cu), by wrapper:
-# one bf16 LN-GEGLU call is three device kernels (the LN pass and the two
-# wgmma products of the GEMM core, which only LN-GEGLU runs so far)
-KERNEL_NAMES = {"fused_motion_block": ("motion_block_kernel",),
-                "fused_ln_geglu": ("ln_bf16_kernel", "wgmma_gemm_kernel",
-                                   "ln_geglu_kernel"),
-                "fused_temporal_block": ("temporal_block_kernel",),
-                "temporal_attention": ("temporal_attention_kernel",),
-                "flash_attention": ("flash_wgmma_kernel",
-                                    "flash_fp32_kernel")}
 
 
 def request(pipe, spec, seed, batch=1):
@@ -122,12 +153,14 @@ def main() -> int:
             pipe = chip_smoke.full_pipeline(0, ip_plus=ip_plus)
         request(pipe, spec, 100, batch)
         torch.cuda.reset_peak_memory_stats()
-        with torch.profiler.profile(activities=acts) as prof:
+        with chip_smoke.wrappers_replaced(annotated), \
+                torch.profiler.profile(activities=acts) as prof:
             t0 = time.perf_counter()
             request(pipe, spec, 101, batch)
             wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        iv = device_intervals(prof)
+        events = trace_events(prof)
+        iv = device_intervals(events)
         if not iv:
             raise SystemExit(f"{label}: the trace holds no device activity")
         busy = busy_us(iv) / 1e6
@@ -141,13 +174,12 @@ def main() -> int:
                        f"device memory {peak:.2f} GiB, device busy "
                        f"{busy:.3f} s over a device span of {span:.3f} s; "
                        f"idle share of wall {1 - busy / wall:.3f}")
-        for wrapper, knames in KERNEL_NAMES.items():
-            mine = [n for n in by_name if any(k in n for k in knames)]
-            us = sum(by_name[n] for n in mine)
-            n = sum(calls[n] for n in mine)
+        w_calls, w_us, w_n = by_wrapper(events)
+        for wrapper in chip_smoke.KERNELS:
+            us = w_us[wrapper]
             chip_smoke.log(f"[{label}] {wrapper}: {us / 1e3:.2f} ms over "
-                           f"{n} device launches, {us / 1e6 / wall:.3f} of "
-                           "the wall")
+                           f"{w_calls[wrapper]} calls, {w_n[wrapper]} device "
+                           f"launches, {us / 1e6 / wall:.3f} of the wall")
         rows = [f"{us / 1e3:12.2f} ms {calls[name]:6d}  {name}"
                 for name, us in by_name.most_common()]
         (out_dir / f"profile_{label}.txt").write_text("\n".join(rows) + "\n")

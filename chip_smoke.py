@@ -15,7 +15,10 @@ result line:
    shapes), in bf16 and in both GEGLU gate forms, with the error against a
    stated tolerance, both times, the least time the card could take
    (bound) and, where one PyTorch call computes the same function, that
-   call's time. The three kernels no path routes (as in the JAX package)
+   call's time; the bf16 motion block also launch by launch (LN + PE,
+   q/k/v, attention, out-projection, feed-forward) and, at C < 1280, beside
+   the modular kernels on the same block (two ``fused_temporal_block`` and
+   one LN-GEGLU). The three kernels no path routes (as in the JAX package)
    run at the shapes their sites would give them: ``fused_geglu`` at the
    LN-GEGLU rows, ``fused_group_norm`` at each of the 81 GroupNorm sites of
    one exact evaluation (listed from the module tree by hooks on a UNet on
@@ -27,24 +30,31 @@ result line:
    one on the exact sampler, one under ``pab244_deep4_cfg4_ex``, and with
    an IP-Adapter image prompt (a tiny CLIP vision tower): vanilla and Plus
    on the exact sampler, vanilla under ``pab244_deep4_cfg4_ex``;
-4. two requests of one clip at full width (the default ``InferenceConfig``,
-   1.28 B UNet parameters) in bf16 at 16 frames, 512², CFG 8, with seeded
-   random weights, on the exact sampler (``--steps``);
-5. two such requests under the serving schedule ``pab488_deep4_cfg4_ex``
+4. one UNet evaluation at full width (the default ``InferenceConfig``,
+   1.28 B UNet parameters, seeded random weights) in bf16 at 16 frames,
+   512², on the exact sampler's CFG batch, through the kernels and again
+   with every routed wrapper replaced by its plain version in the model
+   modules, in bf16 and in fp32: the kernels' noise prediction must agree
+   with the plain bf16 one within ``EVAL_NORM_MAX`` (normalised max error)
+   and ``EVAL_REL_L2`` (relative L2), and lie no farther from the fp32 one
+   than ``EVAL_FP32_RATIO`` times the plain bf16 one does;
+5. two requests of one clip at full width on that pipeline at 16 frames,
+   512², CFG 8, on the exact sampler (``--steps``);
+6. two such requests under the serving schedule ``pab488_deep4_cfg4_ex``
    at 10 steps (one period of 8 and the 2 final exact steps);
-6. batched serving: two requests of two clips each (different prompts,
+7. batched serving: two requests of two clips each (different prompts,
    first frames, clicks, fps and motion scores per clip), on the exact
    sampler and under ``pab488_deep4_cfg4_ex``; level-0 spatial
    self-attention of the doubled CFG batch (16 GiB of bf16 scores) takes the
    flash-attention kernel;
-7. IP-Adapter Plus (BASELINE config 3), built after the earlier pipeline
+8. IP-Adapter Plus (BASELINE config 3), built after the earlier pipeline
    is freed: the default widths with ``use_ip_cross_attention`` and 16 ip
    tokens, the CLIP ViT-H/14 tower (32 layers, 1280 wide) and the
    Resampler (depth 4, 12 heads, 16 queries); two one-clip requests with
    different images on the exact sampler (``--steps``), and the ip encode
    alone (tower and Resampler, condition and black image) by CUDA events.
 
-Phases 4 to 7 are the main paths: each sets every kernel's launch count to
+Phases 5 to 8 are the main paths: each sets every kernel's launch count to
 0 before each request and checks the request's counts against those its
 ``step_plan`` gives at its batch and against the counts worked out by hand
 (the three unrouted kernels: 0), and prints time, video statistics per clip
@@ -58,6 +68,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import copy
 import dataclasses
 import gc
@@ -81,6 +92,20 @@ FP32_REL = 1e-4
 # only in summation order (TF32 off) through 2-6 steps of ~60 layers and the
 # VAE
 TINY_VIDEO_ATOL = 2e-3
+# one full-width bf16 UNet evaluation through the kernels against the same
+# evaluation through their plain versions (phase 4), on the noise
+# prediction: max |kernels - plain| / max |plain| and ||kernels - plain|| /
+# ||plain||. Two bf16 evaluations that round in different places lie about
+# 1.4e-2 apart in relative L2 at random weights, whichever wrapper differs
+# (swapping the plain version in for LN-GEGLU alone gave 1.35e-2, for the
+# motion block alone 1.37e-2; NVIDIA H100 80GB HBM3, 700.00 W), while each
+# lies 1.24-1.25e-2 from the same evaluation in fp32: so the relative L2
+# limit is 2e-2, and the sharper test is against fp32. There the kernels'
+# relative L2 must be within EVAL_FP32_RATIO of the plain bf16 evaluation's:
+# the kernels add no error beyond bf16's own rounding.
+EVAL_NORM_MAX = 5e-2
+EVAL_REL_L2 = 2e-2
+EVAL_FP32_RATIO = 1.25
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense): bf16
 # tensor-core operations per second and device-memory bytes per second
 PEAK_BF16_OPS = 989e12
@@ -196,6 +221,19 @@ def time_ms(fn, reps=5):
     return float(np.median(times))
 
 
+def host_ms(fn, calls=10):
+    """Host milliseconds per call of ``fn`` to enqueue its work (the card
+    still busy with earlier calls: no synchronisation inside)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = (time.perf_counter() - t0) / calls * 1e3
+    torch.cuda.synchronize()
+    return dt
+
+
 def randn(gen, shape, scale, dtype):
     return (torch.randn(shape, generator=gen, device="cuda") * scale).to(
         dtype)
@@ -258,31 +296,68 @@ def geglu_stages_ms(args, fast):
     (c) the down-projection with the residual -- and of its two products
     alone, each one ``torch.matmul`` on the stage inputs the kernels see:
     an informative yardstick, used nowhere in the port."""
-    from followyourclick_tpu_torch.ops import _build
+    from followyourclick_tpu_torch.ops.geglu import (
+        down_bf16,
+        ln_rows_bf16,
+        up_bf16,
+    )
 
-    lib = _build.load_library()
     x, ls, lb, w1, b1, w2, b2 = args
     rows, c = x.shape
     inner = w2.shape[1]
     xn, out = torch.empty_like(x), torch.empty_like(x)
     y = torch.empty(rows, inner, dtype=x.dtype, device=x.device)
-    stream = torch.cuda.current_stream().cuda_stream
     stages = {
-        "(a)": lambda: _build.check(lib.fyc_ln_rows_bf16(
-            x.data_ptr(), ls.data_ptr(), lb.data_ptr(), xn.data_ptr(), rows,
-            c, 1e-5, stream), "(a)"),
-        "(b)": lambda: _build.check(lib.fyc_geglu_up_bf16(
-            xn.data_ptr(), w1.data_ptr(), b1.data_ptr(), y.data_ptr(), rows,
-            c, inner, int(fast), stream), "(b)"),
-        "(c)": lambda: _build.check(lib.fyc_geglu_down_bf16(
-            y.data_ptr(), w2.data_ptr(), b2.data_ptr(), x.data_ptr(),
-            out.data_ptr(), rows, c, inner, stream), "(c)"),
+        "(a)": lambda: ln_rows_bf16(x, ls, lb, xn, 1e-5),
+        "(b)": lambda: up_bf16(xn, w1, b1, y, fast),
+        "(c)": lambda: down_bf16(y, w2, b2, x, out),
     }
     times = {name: time_ms(run) for name, run in stages.items()}
     w1t, w2t = w1.t(), w2.t()
     times["matmul (b)"] = time_ms(lambda: torch.matmul(xn, w1t))
     times["matmul (c)"] = time_ms(lambda: torch.matmul(y, w2t))
     return times
+
+
+def motion_stages_ms(x, pe, params, qkv, scale, heads, fast):
+    """Milliseconds of each device launch of one bf16 motion-block call, one
+    by one: per attention sublayer (a) LN + PE, (b) the q/k/v product, (c)
+    the frame attention, (d) the out-projection with the residual (each run
+    twice a call), then the feed-forward's three launches together."""
+    from followyourclick_tpu_torch.ops.geglu import (
+        down_bf16,
+        ln_rows_bf16,
+        up_bf16,
+    )
+    from followyourclick_tpu_torch.ops.motion_block import (
+        attention_bf16,
+        qkv_bf16,
+    )
+
+    p, f, c = x.shape
+    rows = p * f
+    h = x.view(rows, c)
+    t, o, h1, out = (torch.empty_like(h) for _ in range(4))
+    y = torch.empty(rows, 4 * c, dtype=x.dtype, device=x.device)
+    q, k, v = y.view(-1)[:3 * rows * c].view(3, rows, c)
+    ls, lb, _, _, _, wo, bo = params[:7]
+    lfs, lfb, w1, b1, w2, b2 = params[14:20]
+
+    def ff():
+        ln_rows_bf16(h1, lfs, lfb, t, 1e-5)
+        up_bf16(t, w1, b1, y, fast)
+        down_bf16(y, w2, b2, h1, out)
+
+    # in launch order: each stage reads what the one before it wrote, and
+    # the FF's gated rows overwrite q, k, v last
+    stages = {
+        "(a) LN + PE": lambda: ln_rows_bf16(h, ls, lb, t, 1e-5, pe),
+        "(b) q/k/v": lambda: qkv_bf16(t, qkv[0], q, k, v),
+        "(c) attention": lambda: attention_bf16(q, k, v, o, f, heads, scale),
+        "(d) out + residual": lambda: down_bf16(o, wo, bo, h, h1),
+        "FF": ff,
+    }
+    return {name: time_ms(run) for name, run in stages.items()}
 
 
 def kernel_wrappers():
@@ -311,6 +386,67 @@ def unrouted_wrappers():
 
     fns = (fused_geglu, fused_group_norm, fused_ln_cross_attention)
     return {fn.__name__: fn for fn in fns}
+
+
+def plain_versions():
+    """Each routed wrapper's plain PyTorch version, called as the wrapper
+    is called."""
+    from followyourclick_tpu_torch.ops.flash_attention import (
+        flash_attention_ref,
+    )
+    from followyourclick_tpu_torch.ops.geglu import (
+        default_fast_gating,
+        ln_geglu_ref,
+    )
+    from followyourclick_tpu_torch.ops.motion_block import motion_block_ref
+    from followyourclick_tpu_torch.ops.temporal_attention import (
+        temporal_attention_ref,
+        temporal_block_ref,
+    )
+
+    def motion_block(x, pe, params, scale, heads, eps=1e-5,
+                     fast_gating=None, qkv=None):
+        if fast_gating is None:
+            fast_gating = default_fast_gating(x)
+        return motion_block_ref(x, pe, tuple(params), scale, heads, eps,
+                                fast_gating)
+
+    def ln_geglu(x, *params, eps=1e-5, residual=True, fast_gating=None):
+        if fast_gating is None:
+            fast_gating = default_fast_gating(x)
+        return ln_geglu_ref(x, *params, eps=eps, residual=residual,
+                            fast_gating=fast_gating)
+
+    return {"fused_motion_block": motion_block, "fused_ln_geglu": ln_geglu,
+            "fused_temporal_block": temporal_block_ref,
+            "temporal_attention": temporal_attention_ref,
+            "flash_attention": flash_attention_ref}
+
+
+@contextlib.contextmanager
+def wrappers_replaced(make):
+    """Within the block, every name in the port's modules that refers to a
+    routed wrapper refers to ``make(name, wrapper)`` instead; the wrappers'
+    own modules keep theirs, and so their launch counts."""
+    # the UNet's modules hold every call site
+    from followyourclick_tpu_torch.models import unet3d  # noqa: F401
+
+    wrappers = kernel_wrappers()
+    undo = []
+    for mod in list(sys.modules.values()):
+        if not getattr(mod, "__name__", "").startswith(
+                "followyourclick_tpu_torch."):
+            continue
+        for attr, value in list(vars(mod).items()):
+            for name, fn in wrappers.items():
+                if value is fn and mod.__name__ != fn.__module__:
+                    undo.append((mod, attr, value))
+                    setattr(mod, attr, make(name, fn))
+    try:
+        yield
+    finally:
+        for mod, attr, value in undo:
+            setattr(mod, attr, value)
 
 
 def group_norm_sites(unet_config, spec):
@@ -370,6 +506,7 @@ def phase_kernels(seed):
     from followyourclick_tpu_torch.ops.motion_block import (
         fused_motion_block,
         motion_block_ref,
+        qkv_weights,
     )
     from followyourclick_tpu_torch.ops.temporal_attention import (
         fused_temporal_block,
@@ -452,16 +589,38 @@ def phase_kernels(seed):
         scale = (c // heads) ** -0.5
         default = c <= 640
         rows = p * f
+        # built once per module on the path (TemporalTransformerBlock)
+        qkv = qkv_weights(params)
         for fast in (default, not default):
             check("fused_motion_block",
                   f"fused_motion_block P={p} F={f} C={c} "
                   f"{'tanh' if fast else 'erf'}",
                   lambda: fused_motion_block(x, pe, params, scale, heads,
-                                             fast_gating=fast),
+                                             fast_gating=fast, qkv=qkv),
                   lambda: motion_block_ref(x, pe, params, scale, heads,
                                            fast_gating=fast),
                   count if fast == default else 0,
                   40 * rows * c * c + 8 * rows * f * c, [x, pe, *params])
+        t = motion_stages_ms(x, pe, params, qkv, scale, heads, default)
+        host = host_ms(lambda: fused_motion_block(
+            x, pe, params, scale, heads, fast_gating=default, qkv=qkv))
+        log("    stages: " + ", ".join(f"{k} {v:.3f} ms"
+                                       for k, v in t.items())
+            + f"; 2 x (a..d) + FF = "
+            f"{2 * sum(list(t.values())[:4]) + t['FF']:.3f} ms; the host "
+            f"takes {host:.3f} ms a call to enqueue its 11 launches")
+        if c < 1280:
+            # the modular kernels on the same block: two attention
+            # sublayers without their LN, PE and residual, and the FF
+            tb = time_ms(lambda: fused_temporal_block(
+                x, *params[2:7], scale=scale, heads=heads))
+            ff = time_ms(lambda: fused_ln_geglu(
+                x.view(rows, c), *params[14:20], fast_gating=default))
+            ms = time_ms(lambda: fused_motion_block(
+                x, pe, params, scale, heads, fast_gating=default, qkv=qkv))
+            log(f"    modular yardstick: 2 x fused_temporal_block {tb:.3f} "
+                f"+ fused_ln_geglu {ff:.3f} = {2 * tb + ff:.3f} ms against "
+                f"the block's {ms:.3f} ms")
 
     heads = 8
     for (b, f, c), count in TEMPORAL_BLOCK_SHAPES:
@@ -859,6 +1018,88 @@ def full_pipeline(seed, ip_plus=False):
     return pipe
 
 
+def phase_evaluation(pipe, seed):
+    """One bf16 UNet evaluation at 16 f / 512² on the exact sampler's CFG
+    batch (the latents and their 5 condition channels, the doubled
+    context), through the kernels, then with every routed wrapper replaced
+    by its plain version in the model modules, then that again with the
+    UNet in fp32 (cast there and back, which bf16 weights survive
+    exactly). The kernels' noise prediction must lie within
+    ``EVAL_NORM_MAX`` and ``EVAL_REL_L2`` of the plain bf16 one, and no
+    farther from the fp32 one than ``EVAL_FP32_RATIO`` times the plain bf16
+    one's distance. Prints the bf16 evaluations' times (CUDA events)."""
+    from followyourclick_tpu_torch.models.unet3d import UNetConditioning
+    from followyourclick_tpu_torch.pipelines.animation import SampleSpec
+
+    spec = SampleSpec(num_inference_steps=1)
+    cfg = pipe.config.unet
+    gen = torch.Generator(device="cuda").manual_seed(seed + 5)
+    x = randn(gen, (1, spec.video_length, spec.height // 8, spec.width // 8,
+                    cfg.conv_in_channels), 1.0, pipe.dtype)
+    context = randn(gen, (2, TEXT_KEYS, cfg.cross_attention_dim), 1.0,
+                    pipe.dtype)
+    t = torch.tensor([501], device="cuda")
+    wrappers = {**kernel_wrappers(), **unrouted_wrappers()}
+
+    def evaluate(dtype=pipe.dtype):
+        cond = UNetConditioning(
+            context=context.to(dtype),
+            fps=torch.tensor([8.0], device="cuda"),
+            motion_score=torch.tensor([20.0], device="cuda"))
+        with torch.inference_mode():
+            return pipe.unet(x.to(dtype), t, cond, None, {})
+
+    def launched(run):
+        for fn in wrappers.values():
+            fn.launches = 0
+        out = run()
+        torch.cuda.synchronize()
+        return out.float(), {name: fn.launches
+                             for name, fn in wrappers.items()}
+
+    def rel(a, b):
+        d = a - b
+        return (float(d.abs().max() / b.abs().max()),
+                float(d.norm() / b.norm()))
+
+    want_launches = {**dict.fromkeys(wrappers, 0), **expected_launches(
+        pipe.unet, spec, pipe.dtype)}
+    got, counts = launched(evaluate)
+    kernel_ms = time_ms(evaluate, reps=3)
+    plain = plain_versions()
+    with wrappers_replaced(lambda name, _: plain[name]):
+        want, plain_counts = launched(evaluate)
+        plain_ms = time_ms(evaluate, reps=3)
+        pipe.unet.float()
+        try:
+            fp32, fp32_counts = launched(lambda: evaluate(torch.float32))
+        finally:
+            pipe.unet.to(pipe.dtype)
+    norm_max, rel_l2 = rel(got, want)
+    got_32, want_32 = rel(got, fp32)[1], rel(want, fp32)[1]
+    log(f"[evaluation] one UNet evaluation, noise prediction "
+        f"{tuple(got.shape)}: kernels {kernel_ms:.1f} ms (launches "
+        f"{counts}), plain versions {plain_ms:.1f} ms; kernels vs plain: "
+        f"normalised max error {norm_max:.3e} (limit {EVAL_NORM_MAX}), "
+        f"relative L2 {rel_l2:.3e} (limit {EVAL_REL_L2}); relative L2 to "
+        f"the fp32 evaluation: kernels {got_32:.3e}, plain bf16 "
+        f"{want_32:.3e} (limit {EVAL_FP32_RATIO} x the plain's)")
+    shape = (2, spec.video_length, spec.height // 8, spec.width // 8, 4)
+    if counts != want_launches or any(plain_counts.values()) \
+            or any(fp32_counts.values()):
+        raise SystemExit(f"evaluation: launches {counts} (want "
+                         f"{want_launches}), with the plain versions "
+                         f"{plain_counts} and {fp32_counts} (want none)")
+    if got.shape != shape or not bool(torch.isfinite(got).all()) \
+            or float(want.std()) <= 0.0:
+        raise SystemExit("evaluation: the noise prediction is not finite "
+                         "and non-constant of the expected shape")
+    if norm_max > EVAL_NORM_MAX or rel_l2 > EVAL_REL_L2 \
+            or got_32 > EVAL_FP32_RATIO * want_32:
+        raise SystemExit("evaluation: the kernels' noise prediction "
+                         "disagrees with the plain versions'")
+
+
 def phase_requests(pipe, spec, label, seed, by_hand=None, batch=1):
     """Two full-width requests of ``batch`` clips on one path: the counts
     are set to 0 before and read after each; each must equal what
@@ -966,6 +1207,7 @@ def main(argv=None) -> int:
     stats = phase_kernels(args.seed)
     phase_tiny(args.seed)
     pipe = full_pipeline(args.seed)
+    phase_evaluation(pipe, args.seed)
     exact = SampleSpec(num_inference_steps=args.steps)
     serving = apply_schedule(SampleSpec(num_inference_steps=SERVING_STEPS),
                              SERVING_SCHEDULE)

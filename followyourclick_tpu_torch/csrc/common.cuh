@@ -1,9 +1,10 @@
 // Shared device helpers of the port's Hopper kernels (geglu.cu,
-// motion_block.cu, temporal_attention.cu): the fp32-statistics LayerNorm of
-// a row tile, a tiled product with fp32 accumulation, the two GEGLU gate
-// forms (`_gate_mul` of followyourclick_tpu/ops/geglu.py), the per-head
-// frame softmax, the frame-axis attention of a row tile, and the LN -> GEGLU
-// feed-forward over a row tile.
+// motion_block.cu, temporal_attention.cu, cross_attention.cu): the
+// fp32-statistics LayerNorm of a row tile, a tiled product with fp32
+// accumulation, the two GEGLU gate forms (`_gate_mul` of
+// followyourclick_tpu/ops/geglu.py), the per-head frame softmax, the
+// frame-axis attention of a row tile, and the LN -> GEGLU feed-forward over
+// a row tile (the fp32 all-on-chip kernels).
 //
 // Storage types: float and __nv_bfloat16. All arithmetic is fp32; values
 // are rounded to the storage type exactly where the Pallas kernels cast
@@ -12,9 +13,10 @@
 // Products (block_gemm_nt, block_gemm_nt_acc): 256 threads per block, a
 // row tile of MC = 16, 32 or 64 rows, A in shared memory, B (an nn.Linear
 // weight, K contiguous) read from device memory / L2.
-//  - bf16 with 16-aligned shapes: tensor cores through WMMA (16 x 16 x 16
-//    bf16 fragments, fp32 accumulators); each warp owns whole 16 x 16
-//    output tiles and loads its B fragments straight from L2.
+//  - bf16 with 16-aligned shapes (block_gemm_nt, fused_temporal_block):
+//    tensor cores through WMMA (16 x 16 x 16 bf16 fragments, fp32
+//    accumulators); each warp owns whole 16 x 16 output tiles and loads its
+//    B fragments straight from L2.
 //  - otherwise (fp32, odd widths): fp32 FMA on shared-memory tiles, B staged
 //    k-major in k-slices of 32, a pass width of 64, 128 or 256 columns
 //    chosen per call, TM = MC * width / 1024 rows x 4 columns per thread.
@@ -113,13 +115,15 @@ __device__ __forceinline__ float gate_mul(float h, float gate, int fast) {
   return rnd<T>(rbf(hb * g));
 }
 
-// dst[m, :] = T(LN(src[m, :]) * ls + lb) [+ pe[m % F, :], added in T],
-// fp32 statistics (two-pass mean / centred variance), one warp per row;
-// dst has row stride ldd.
+// dst[m, :] = T(LN(src[m, :]) * ls + lb) [+ pe[(row0 + m) % F, :], added
+// in T], fp32 statistics (two-pass mean / centred variance), one warp per
+// row; dst has row stride ldd. row0: the frame phase of row 0 (the tile's
+// first row in the whole (positions x F) row range).
 template <typename T>
 __device__ void ln_rows(const T* src, int M, int C, const T* __restrict__ ls,
                         const T* __restrict__ lb, float eps,
-                        const T* __restrict__ pe, int F, T* dst, int ldd) {
+                        const T* __restrict__ pe, int F, T* dst, int ldd,
+                        size_t row0 = 0) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int m = warp; m < M; m += kThreads / 32) {
     const T* row = src + (size_t)m * C;
@@ -135,7 +139,8 @@ __device__ void ln_rows(const T* src, int M, int C, const T* __restrict__ ls,
     for (int c = lane; c < C; c += 32) {
       const float n = (to_f(row[c]) - mean) * rs * to_f(ls[c]) + to_f(lb[c]);
       float o = rnd<T>(n);
-      if (pe != nullptr) o = rnd<T>(o + to_f(pe[(size_t)(m % F) * C + c]));
+      if (pe != nullptr)
+        o = rnd<T>(o + to_f(pe[((row0 + m) % F) * C + c]));
       dst[(size_t)m * ldd + c] = from_f<T>(o);
     }
   }
@@ -323,31 +328,11 @@ __device__ void block_gemm_nt(const T* A, int lda, int M, const T* B, int ldb,
 }
 
 // Cm[m * ldc + n] += sum_k A[m * lda + k] * B[n, k] (Cm fp32 in shared
-// memory with frag_rows(M) rows). The WMMA path keeps each tile in a
-// fragment: load, multiply-accumulate over K, store back.
+// memory with frag_rows(M) rows).
 template <typename T, int MC>
 __device__ void block_gemm_nt_acc(const T* A, int lda, int M, const T* B,
                                   int ldb, int N, int K, void* work,
                                   float* Cm, int ldc) {
-  if constexpr (std::is_same<T, bf16>::value) {
-    if (wmma_ok(A, lda, B, B, N, ldb, N, K) && ldc % 4 == 0 &&
-        ((uintptr_t)Cm & 31) == 0) {
-      __syncthreads();
-      const int warp = threadIdx.x / 32;
-      const int mt = (M + 15) / 16, nt = N / 16;
-      for (int t = warp; t < mt * nt; t += kWarps) {
-        const int fm = t % mt, n0 = t / mt * 16;
-        float* c_at = Cm + (size_t)fm * 16 * ldc + n0;
-        FragC c;
-        wmma::load_matrix_sync(c, c_at, ldc, wmma::mem_row_major);
-        wmma_tile(c, A + (size_t)fm * 16 * lda, lda, B + (size_t)n0 * ldb,
-                  ldb, K);
-        wmma::store_matrix_sync(c_at, c, ldc, wmma::mem_row_major);
-      }
-      __syncthreads();
-      return;
-    }
-  }
   block_gemm_nt<T, MC>(A, lda, M, B, ldb, N, K, work,
                        [&](int m, int n, float v) { Cm[m * ldc + n] += v; });
 }

@@ -129,15 +129,16 @@ cudaError_t geglu_fp32(int rows, const void* x, const void* ls,
 
 // ---- bf16: LN pass, then two wgmma products --------------------------------
 
-// xn = bf16(LN(x) * ls + lb) over the block's kWarps rows: ln_rows
-// (common.cuh), one warp per row, fp32 two-pass statistics.
+// xn = bf16(LN(x) * ls + lb) [+ pe[row % F], rounded] over the block's
+// kWarps rows: ln_rows (common.cuh), one warp per row, fp32 two-pass
+// statistics.
 __global__ void __launch_bounds__(kThreads)
 ln_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ ls,
-               const bf16* __restrict__ lb, bf16* __restrict__ xn, int R,
-               int C, float eps) {
+               const bf16* __restrict__ lb, const bf16* __restrict__ pe,
+               bf16* __restrict__ xn, int R, int C, int F, float eps) {
   const size_t r0 = (size_t)blockIdx.x * kWarps;
-  ln_rows<bf16>(x + r0 * C, min(kWarps, (int)(R - r0)), C, ls, lb, eps,
-                nullptr, 1, xn + r0 * C, C);
+  ln_rows<bf16>(x + r0 * C, min(kWarps, (int)(R - r0)), C, ls, lb, eps, pe,
+                F, xn + r0 * C, C, r0);
 }
 
 // gate_mul (common.cuh) of two adjacent columns, bit for bit. The tanh
@@ -260,15 +261,17 @@ extern "C" int fyc_geglu(const void* x, const void* w1, const void* b1,
                               (cudaStream_t)stream);
 }
 
-// bf16 (a): xn = bf16(LN(x)), (R, C) contiguous.
+// bf16 (a): xn = bf16(LN(x)), (R, C) contiguous; with pe (F, C) not
+// nullptr, + pe[row % F] rounded to bf16 (the motion block's LN + PE).
 extern "C" int fyc_ln_rows_bf16(const void* x, const void* ls,
-                                const void* lb, void* xn, int R, int C,
-                                float eps, void* stream) {
-  if (R <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
+                                const void* lb, const void* pe, void* xn,
+                                int R, int C, int F, float eps,
+                                void* stream) {
+  if (R <= 0 || C <= 0 || F <= 0) return (int)cudaErrorInvalidValue;
   const int blocks = (R + fyc::kWarps - 1) / fyc::kWarps;
   fyc::ln_bf16_kernel<<<blocks, fyc::kThreads, 0, (cudaStream_t)stream>>>(
       (const fyc::bf16*)x, (const fyc::bf16*)ls, (const fyc::bf16*)lb,
-      (fyc::bf16*)xn, R, C, eps);
+      (const fyc::bf16*)pe, (fyc::bf16*)xn, R, C, F, eps);
   return (int)cudaGetLastError();
 }
 

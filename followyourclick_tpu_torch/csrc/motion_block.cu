@@ -1,32 +1,51 @@
-// The whole motion-module transformer block in one kernel, over the
-// frames-minor (P, F, C) rows (P = B * H * W spatial positions).
+// The motion-module transformer block over the frames-minor (P, F, C) rows
+// (P = B * H * W spatial positions, R = P * F rows).
 //
 // Replaces the Pallas TPU kernel followyourclick_tpu/ops/motion_block.py,
 // fused_motion_block (_kernel): twice [LN (fp32 statistics) -> + PE ->
 // q/k/v projections -> per-head softmax over the F frames -> out-proj +
 // bias -> + residual], then LN -> GEGLU feed-forward -> + residual.
 //
-// What bounds it on the H100: the projections, 2 * P * F * C * (8 * C +
-// 12 * C) FLOPs (about 0.54 TFLOP per call at 64^2 / C = 320 in the 16-frame
-// CFG step) against 2 * P * F * C * 2 bytes in and out: compute-bound, as
-// long as the residual stream and the intermediates stay on chip. The
-// modular formulation writes and re-reads the hidden state about ten times
-// per block (two LNs, q/k/v, the scores, the FF intermediate).
+// What bounds it on the H100: the products, 2 * R * C * (8 * C + 12 * C)
+// FLOPs (about 0.54 TFLOP per call at 64^2 / C = 320 in the 16-frame CFG
+// step), against 2 * R * C * 2 bytes in and out: bound by operations.
 //
-// What the design does: a block owns G whole spatial positions (G * F rows,
-// at most 64) and keeps their residual stream in shared memory across all
-// three sublayers, so h is read once and written once. Each attention
-// sublayer projects q, k, v for all heads at once (three full-width
-// products), then runs head by head: the F x F scores in fp32, the softmax,
-// and o = p . v written over the LN output, which is dead by then
-// (frame_attention in common.cuh, shared with fused_temporal_block); one
-// out-projection product adds into h. The FF reuses the q/k/v space for its
-// fp32 accumulator and chunks, so at C = 1280 in bf16 one position (16
-// rows) fits the 227 KB; fp32 at C >= 640 does not fit, and the model
-// routes such blocks to the modular kernels instead. The FF is the same
-// device code as the LN-GEGLU kernel. bf16 products run on the tensor cores
-// (WMMA), fp32 ones on FMA tiles (common.cuh).
+// bf16 (every path of the sampler): eleven launches per call, all on the
+// GEMM core of gemm.cuh or on device code the other kernels already run;
+// the wrapper (ops/motion_block.py) sequences them. Per attention sublayer:
+//  (a) the LN pass of geglu.cu (fyc_ln_rows_bf16 on common.cuh's ln_rows)
+//      with the PE table: t = bf16(bf16(LN(h)) + pe[row % F]);
+//  (b) q | k | v = bf16(t . Wqkv^T) on the GEMM core, here: one product
+//      over the (3C, C) concatenation of Wq, Wk, Wv (160-wide tiles, which
+//      divide 3C = 960, 1920 and 3840), the epilogue storing each column to
+//      q, k or v by its range;
+//  (c) the frame attention of temporal_attention.cu (fyc_temporal_attention)
+//      over (P, F, heads, C / heads): fp32 scores and softmax, p rounded to
+//      bf16, o = bf16(p . v);
+//  (d) the down-projection of geglu.cu (fyc_geglu_down_bf16, inner = C):
+//      h' = bf16(h + bf16(o . Wo^T + bo)), into a buffer other than h.
+// Then the feed-forward: geglu.cu's three launches (LN, up-projection with
+// the gate, down-projection with the residual). Every intermediate goes to
+// device memory rounded exactly where the Pallas kernel rounds (the LN
+// output + PE, q, k, v, o, h after each residual, the gated FF rows), so the
+// split changes no numerics. Against keeping the block on chip it moves
+// about 37 * R * C more bf16 values (3.1 GB, 0.93 ms at 3.35 TB/s, at 8192
+// positions x C = 320); what it buys: every product streams its
+// operands by TMA into a 5-stage ring and runs on wgmma with 128-row
+// tiles, where an all-on-chip block holds at most 64 rows of the residual
+// stream (16 at C = 1280) and re-reads all 20 C^2 weights from L2 per block.
+//
+// fp32: the all-on-chip kernel (motion_block_kernel). A
+// block owns G whole positions (G * F rows, at most 64) and keeps their
+// residual stream in shared memory across all three sublayers: q, k, v for
+// all heads at once, head by head the F x F scores, the softmax and o = p . v
+// (frame_attention in common.cuh, shared with fused_temporal_block), the
+// out-projection added into h, then the LN and the FF (the device code of
+// the fp32 LN-GEGLU kernel) over the q/k/v space. fp32 at C >= 640 does not
+// fit the 227 KB, and the model routes such blocks to the modular kernels.
+// Its products run on FMA tiles (common.cuh).
 #include "common.cuh"
+#include "gemm.cuh"
 
 namespace fyc {
 
@@ -146,44 +165,84 @@ cudaError_t mb_launch(const void* x, const void* pe, const MotionParams& prm,
   return cudaGetLastError();
 }
 
-template <typename T>
 cudaError_t mb_dispatch(const void* x, const void* pe, const MotionParams& prm,
                         void* out, int P, int F, int C, int heads, int G,
                         float scale, float eps, int fast, cudaStream_t stream) {
   const int rows = G * F;
   if (rows <= 16)
-    return mb_launch<T, 16>(x, pe, prm, out, P, F, C, heads, G, scale, eps, fast, stream);
+    return mb_launch<float, 16>(x, pe, prm, out, P, F, C, heads, G, scale, eps, fast, stream);
   if (rows <= 32)
-    return mb_launch<T, 32>(x, pe, prm, out, P, F, C, heads, G, scale, eps, fast, stream);
+    return mb_launch<float, 32>(x, pe, prm, out, P, F, C, heads, G, scale, eps, fast, stream);
   if (rows <= 64)
-    return mb_launch<T, 64>(x, pe, prm, out, P, F, C, heads, G, scale, eps, fast, stream);
+    return mb_launch<float, 64>(x, pe, prm, out, P, F, C, heads, G, scale, eps, fast, stream);
   return cudaErrorInvalidValue;
 }
 
+// (b)'s epilogue: column n of the (3C)-wide product goes to q, k or v
+// (R, C) by its range, rounded to bf16 (each pair n, n + 1 lies in one
+// range: C is even)
+struct QkvEpi {
+  bf16* q;
+  bf16* k;
+  bf16* v;
+  int R, C;
+  template <int N>
+  __device__ void operator()(float (&acc)[1][N], int row, int col) const {
+#pragma unroll
+    for (int i = 0; i < N / 4; ++i) {
+      const int n = col + 8 * i;
+      if (n >= 3 * C) continue;
+      const int part = n / C, c = n - part * C;
+      bf16* dst = part == 0 ? q : part == 1 ? k : v;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = row + 8 * h;
+        if (r >= R) continue;
+        *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)r * C + c) =
+            __floats2bfloat162_rn(acc[0][4 * i + 2 * h],
+                                  acc[0][4 * i + 2 * h + 1]);
+      }
+    }
+  }
+};
+
+constexpr int kQkvBN = 160, kQkvStages = 5;  // 160 divides 3C at 320..1280
+
 }  // namespace fyc
 
-// Shared memory one block takes for G positions of F frames at width C.
-extern "C" long long fyc_motion_block_smem_bytes(int G, int F, int C,
-                                                 int heads, int dtype) {
-  return (long long)fyc::MotionLayout(G * F, F, C, dtype == 1 ? 2 : 4).bytes;
+// Shared memory one block of the fp32 kernel takes for G positions of F
+// frames at width C.
+extern "C" long long fyc_motion_block_smem_bytes(int G, int F, int C) {
+  return (long long)fyc::MotionLayout(G * F, F, C, sizeof(float)).bytes;
 }
 
-// params: host array of the 20 device pointers. dtype: 0 = float32,
-// 1 = bfloat16. G: positions per block (G * F <= 64). Returns the
-// cudaError_t of the launch (0 on success).
+// fp32, the all-on-chip kernel. params: host array of the 20 device
+// pointers. G: positions per block (G * F <= 64). Returns the cudaError_t
+// of the launch (0 on success).
 extern "C" int fyc_motion_block(const void* x, const void* pe,
                                 const void* const* params, void* out, int P,
                                 int F, int C, int heads, int G, float scale,
-                                float eps, int fast, int dtype, void* stream) {
+                                float eps, int fast, void* stream) {
   if (C % heads != 0 || G * F > 64 ||
-      fyc::MotionLayout(G * F, F, C, dtype == 1 ? 2 : 4).bytes > fyc::kMaxSmem)
+      fyc::MotionLayout(G * F, F, C, sizeof(float)).bytes > fyc::kMaxSmem)
     return (int)cudaErrorInvalidValue;
   fyc::MotionParams prm;
   for (int i = 0; i < 20; ++i) prm.p[i] = params[i];
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 1)
-    return (int)fyc::mb_dispatch<__nv_bfloat16>(x, pe, prm, out, P, F, C,
-                                                heads, G, scale, eps, fast, s);
-  return (int)fyc::mb_dispatch<float>(x, pe, prm, out, P, F, C, heads, G,
-                                      scale, eps, fast, s);
+  return (int)fyc::mb_dispatch(x, pe, prm, out, P, F, C, heads, G, scale,
+                               eps, fast, (cudaStream_t)stream);
+}
+
+// bf16 (b): q, k, v (R, C) = bf16(t . W^T) of the three C-row ranges of
+// wqkv (3C, C) = [Wq; Wk; Wv]. C a multiple of 8 (16-byte rows for TMA),
+// pointers 16-byte aligned.
+extern "C" int fyc_qkv_bf16(const void* t, const void* wqkv, void* q, void* k,
+                            void* v, int R, int C, void* stream) {
+  if (R <= 0 || C <= 0 || C % 8) return (int)cudaErrorInvalidValue;
+  CUtensorMap ta, tb;
+  if (!fyc::hopper::make_map_2d(&ta, t, R, C, fyc::kGemmBM) ||
+      !fyc::hopper::make_map_2d(&tb, wqkv, 3 * (uint64_t)C, C, fyc::kQkvBN))
+    return (int)cudaErrorInvalidValue;
+  const fyc::QkvEpi epi{(fyc::bf16*)q, (fyc::bf16*)k, (fyc::bf16*)v, R, C};
+  return (int)fyc::gemm_launch<fyc::kQkvBN, 1, fyc::kQkvStages>(
+      ta, tb, R, 3 * C, C, 0, epi, (cudaStream_t)stream);
 }

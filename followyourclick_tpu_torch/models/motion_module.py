@@ -8,10 +8,10 @@ Routes on a CUDA tensor, decided before any launch:
 
 - the whole-block kernel ``ops/motion_block.fused_motion_block`` takes a
   standard block (two ``Temporal_Self`` attentions, full width ≤ 1280) when
-  no PAB mode records or reuses temporal sites and one position's block fits
-  a thread block's shared memory at this width, frame count and dtype
-  (``ops/motion_block.fits``, the test its tile sizing applies; fp32 at
-  C ≥ 640 does not fit);
+  no PAB mode records or reuses temporal sites and the kernel takes this
+  width, frame count and dtype (``ops/motion_block.fits``: bf16 at every
+  width of 16-byte rows; fp32 where one position's block fits a thread
+  block's shared memory, which C ≥ 640 does not);
 - every other block takes the modular path, each attention through a PAB
   site: at C < 1280 one launch of ``ops/temporal_attention.
   fused_temporal_block`` (the JAX package's condition), at C = 1280 the
@@ -124,6 +124,7 @@ class TemporalTransformerBlock(nn.Module):
             for _ in attention_block_types)
         self.ff_norm = LayerNorm(dim)
         self.ff = GEGLUFeedForward(dim)
+        self._qkv_key, self._qkv = None, None
 
     def fused_params(self) -> tuple:
         """The kernel's 20 tensors, in ``fused_motion_block`` order."""
@@ -135,6 +136,18 @@ class TemporalTransformerBlock(nn.Module):
         return tuple(out) + (self.ff_norm.weight, self.ff_norm.bias,
                              self.ff.proj.weight, self.ff.proj.bias,
                              self.ff.out.weight, self.ff.out.bias)
+
+    def qkv_weights(self) -> tuple:
+        """The bf16 kernel's ``[Wq; Wk; Wv]`` of both attentions, built once
+        and again only when one of those weights changes (another storage or
+        an in-place write)."""
+        ws = [w for a in self.attention_blocks
+              for w in (a.to_q.weight, a.to_k.weight, a.to_v.weight)]
+        key = tuple((w.data_ptr(), w._version) for w in ws)
+        if key != self._qkv_key:
+            self._qkv = motion_block.qkv_weights(self.fused_params())
+            self._qkv_key = key
+        return self._qkv
 
     def whole_block_kernel(self, h: torch.Tensor,
                            pab: Optional[PabMode]) -> bool:
@@ -152,9 +165,10 @@ class TemporalTransformerBlock(nn.Module):
                 cache: Optional[dict] = None) -> torch.Tensor:
         if self.whole_block_kernel(h, pab):
             pe = _pe_table(self.pe, self.pe_max_len, h.shape[1], self.dim, h)
+            qkv = self.qkv_weights() if h.dtype == torch.bfloat16 else None
             return fused_motion_block(h.contiguous(), pe, self.fused_params(),
                                       scale=self.head_dim ** -0.5,
-                                      heads=self.heads)
+                                      heads=self.heads, qkv=qkv)
         for i, (norm, attn) in enumerate(zip(self.norms,
                                              self.attention_blocks)):
             h = pab_site(self, "temporal", f"attn_{i}_out", pab, cache,

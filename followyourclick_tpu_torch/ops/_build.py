@@ -55,10 +55,11 @@ _SIGNATURES = {
     "fyc_ln_cross_attention_smem_bytes": (ctypes.c_longlong, [_I] * 6),
     "fyc_ln_geglu": (_I, [_P] * 8 + [_I, _I, _I, _F, _I, _I, _I, _P]),
     "fyc_ln_geglu_smem_bytes": (ctypes.c_longlong, [_I, _I]),
-    "fyc_ln_rows_bf16": (_I, [_P] * 4 + [_I, _I, _F, _P]),
+    "fyc_ln_rows_bf16": (_I, [_P] * 5 + [_I, _I, _I, _F, _P]),
     "fyc_motion_block": (_I, [_P, _P, ctypes.POINTER(_P), _P]
-                         + [_I, _I, _I, _I, _I, _F, _F, _I, _I, _P]),
-    "fyc_motion_block_smem_bytes": (ctypes.c_longlong, [_I] * 5),
+                         + [_I] * 5 + [_F, _F, _I, _P]),
+    "fyc_motion_block_smem_bytes": (ctypes.c_longlong, [_I] * 3),
+    "fyc_qkv_bf16": (_I, [_P] * 5 + [_I, _I, _P]),
     "fyc_temporal_attention": (_I, [_P] * 4 + [_I] * 4 + [_F, _I, _P]),
     "fyc_temporal_attention_smem_bytes": (ctypes.c_longlong, [_I, _I]),
     "fyc_temporal_block": (_I, [_P, ctypes.POINTER(_P), _P] + [_I] * 5

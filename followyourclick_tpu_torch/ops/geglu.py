@@ -172,20 +172,54 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def _ff_bf16(what, lib, stream, x, xn, w1, b1, w2, b2, fast,
-             residual) -> torch.Tensor:
-    """Stages (b) and (c) on the card; ``xn`` is the input of (b)."""
+# One device launch of a bf16 stage each, on (R, ·) row-major CUDA tensors,
+# into a buffer the caller allocates; the plain version of each is named
+# in its docstring. The wrappers here and ops/motion_block.py sequence them.
+
+def ln_rows_bf16(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                 out: torch.Tensor, eps: float,
+                 pe: torch.Tensor | None = None) -> None:
+    """Stage (a), :func:`layer_norm_cast` (with ``pe`` (F, C), ``+
+    pe[row % F]`` in bf16 after it: the motion block's LN + PE)."""
     r, c = x.shape
-    inner = w2.shape[1]
-    y = torch.empty(r, inner, dtype=x.dtype, device=x.device)
+    lib = _build.load_library()
+    _build.check(lib.fyc_ln_rows_bf16(
+        x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+        None if pe is None else pe.data_ptr(), out.data_ptr(), r, c,
+        1 if pe is None else pe.shape[0], float(eps), _stream(x)),
+        "LN pass (fyc_ln_rows_bf16)")
+
+
+def up_bf16(t: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+            y: torch.Tensor, fast: bool) -> None:
+    """Stage (b), :func:`up_stage`: ``y (R, inner)`` from ``t (R, C)``."""
+    r, c = t.shape
+    lib = _build.load_library()
     _build.check(lib.fyc_geglu_up_bf16(
-        xn.data_ptr(), w1.data_ptr(), b1.data_ptr(), y.data_ptr(), r, c,
-        inner, int(fast), stream), f"{what} (b)")
-    out = torch.empty_like(x)
+        t.data_ptr(), w1.data_ptr(), b1.data_ptr(), y.data_ptr(), r, c,
+        y.shape[1], int(fast), _stream(t)),
+        "up-projection (fyc_geglu_up_bf16)")
+
+
+def down_bf16(y: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
+              residual: torch.Tensor | None, out: torch.Tensor) -> None:
+    """Stage (c), :func:`down_stage`: ``out (R, C)`` from ``y (R, inner)``;
+    ``out`` must not be ``residual`` or ``y``."""
+    r, inner = y.shape
+    lib = _build.load_library()
     _build.check(lib.fyc_geglu_down_bf16(
         y.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-        x.data_ptr() if residual else None, out.data_ptr(), r, c, inner,
-        stream), f"{what} (c)")
+        None if residual is None else residual.data_ptr(), out.data_ptr(),
+        r, out.shape[1], inner, _stream(y)),
+        "down-projection (fyc_geglu_down_bf16)")
+
+
+def _ff_bf16(x, xn, w1, b1, w2, b2, fast, residual) -> torch.Tensor:
+    """Stages (b) and (c) on the card; ``xn`` is the input of (b)."""
+    y = torch.empty(x.shape[0], w2.shape[1], dtype=x.dtype, device=x.device)
+    up_bf16(xn, w1, b1, y, fast)
+    out = torch.empty_like(x)
+    down_bf16(y, w2, b2, x if residual else None, out)
     return out
 
 
@@ -205,24 +239,19 @@ def fused_ln_geglu(x: torch.Tensor, ln_scale: torch.Tensor,
         raise ValueError(f"fused_ln_geglu: no kernel for {x.device}")
     _check("fused_ln_geglu", x, params[:2], params[2:])
     r, c = x.shape
-    lib = _build.load_library()
     with torch.cuda.device(x.device):
-        stream = _stream(x)
         if x.dtype == torch.bfloat16:
             xn = torch.empty_like(x)
-            _build.check(lib.fyc_ln_rows_bf16(
-                x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
-                xn.data_ptr(), r, c, float(eps), stream),
-                "fused_ln_geglu (a)")
-            out = _ff_bf16("fused_ln_geglu", lib, stream, x, xn, w1, b1, w2,
-                           b2, fast_gating, residual)
+            ln_rows_bf16(x, ln_scale, ln_bias, xn, eps)
+            out = _ff_bf16(x, xn, w1, b1, w2, b2, fast_gating, residual)
         else:
             out = torch.empty_like(x)
+            lib = _build.load_library()
             _build.check(lib.fyc_ln_geglu(
                 x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
                 w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
                 out.data_ptr(), r, c, w2.shape[1], float(eps), int(residual),
-                int(fast_gating), rows_per_block(c), stream),
+                int(fast_gating), rows_per_block(c), _stream(x)),
                 "fused_ln_geglu")
     fused_ln_geglu.launches += 1
     return out
@@ -244,18 +273,16 @@ def fused_geglu(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
         raise ValueError(f"fused_geglu: no kernel for {x.device}")
     _check("fused_geglu", x, (), (w1, b1, w2, b2))
     r, c = x.shape
-    lib = _build.load_library()
     with torch.cuda.device(x.device):
-        stream = _stream(x)
         if x.dtype == torch.bfloat16:
-            out = _ff_bf16("fused_geglu", lib, stream, x, x, w1, b1, w2, b2,
-                           fast_gating, residual=False)
+            out = _ff_bf16(x, x, w1, b1, w2, b2, fast_gating, residual=False)
         else:
             out = torch.empty_like(x)
+            lib = _build.load_library()
             _build.check(lib.fyc_geglu(
                 x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
                 b2.data_ptr(), out.data_ptr(), r, c, w2.shape[1],
-                int(fast_gating), rows_per_block(c), stream),
+                int(fast_gating), rows_per_block(c), _stream(x)),
                 "fused_geglu")
     fused_geglu.launches += 1
     return out

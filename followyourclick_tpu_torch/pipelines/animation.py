@@ -250,7 +250,7 @@ class AnimationPipeline:
         return latents.to(self.dtype).contiguous()
 
     def denoise(self, latents: torch.Tensor, context: torch.Tensor,
-                spec: SampleSpec, first_image_latents: torch.Tensor,
+                spec: SampleSpec, first_image_latents: Optional[torch.Tensor],
                 mask: Optional[torch.Tensor], fps: torch.Tensor,
                 motion_score: torch.Tensor) -> torch.Tensor:
         """The CFG DDIM loop over :func:`step_plan`.
@@ -263,23 +263,34 @@ class AnimationPipeline:
         runs the UNet on the cond rows with the cond context and takes the
         uncond prediction from the last full step, or under
         ``cfg_cache_extrapolate`` its first-order forecast
-        ``u1 + (i − i1)·(u1 − u0)/(i1 − i0)`` from the last two."""
+        ``u1 + (i − i1)·(u1 − u0)/(i1 − i0)`` from the last two.
+
+        The click mask and the first-frame latent reach the UNet as 5
+        channels beside the latents only when the UNet has
+        ``use_first_frame_mask_condition_concat`` (its 9-channel
+        ``conv_in``); otherwise it gets the bare latents, and
+        ``first_image_latents`` and ``mask`` are not read."""
         b, f, h, w, _ = latents.shape
         dt = latents.dtype
         sched = DDIMSchedule.create(self.config.noise_scheduler,
                                     spec.num_inference_steps)
-        ffl = self._on(first_image_latents, dt)
-        first_block = torch.zeros(b, f, h, w, 4, device=self.device,
-                                  dtype=dt)
-        first_block[:, 0] = ffl
-        if mask is not None:
-            mask_block = self._on(mask, dt).clamp(0.0, 1.0)[:, None].expand(
-                b, f, h, w, 1)
-        else:
-            mask_block = torch.zeros(b, f, h, w, 1, device=self.device,
-                                     dtype=dt)
-            mask_block[:, 0] = 1.0
-        cond_channels = torch.cat([mask_block, first_block], dim=-1)
+        cond_channels = None
+        if self.config.unet.use_first_frame_mask_condition_concat:
+            if first_image_latents is None:
+                raise ValueError(
+                    "unet.use_first_frame_mask_condition_concat is on: the "
+                    "first-frame latent is required")
+            first_block = torch.zeros(b, f, h, w, 4, device=self.device,
+                                      dtype=dt)
+            first_block[:, 0] = self._on(first_image_latents, dt)
+            if mask is not None:
+                mask_block = self._on(mask, dt).clamp(0.0, 1.0)[:, None] \
+                    .expand(b, f, h, w, 1)
+            else:
+                mask_block = torch.zeros(b, f, h, w, 1, device=self.device,
+                                         dtype=dt)
+                mask_block[:, 0] = 1.0
+            cond_channels = torch.cat([mask_block, first_block], dim=-1)
         fps = self._on(fps, torch.float32)
         motion_score = self._on(motion_score, torch.float32)
         cond = UNetConditioning(context=context, fps=fps,
@@ -292,7 +303,8 @@ class AnimationPipeline:
         i1 = i0 = -1
         for i, _, full, mode in step_plan(spec):
             t = sched.timesteps[i].to(self.device)
-            x = torch.cat([latents, cond_channels], dim=-1)
+            x = latents if cond_channels is None else torch.cat(
+                [latents, cond_channels], dim=-1)
             if full and mode is not None:
                 x = torch.cat([x, x], dim=0)
             out = self.unet(x, t.expand(x.shape[0]),
@@ -322,7 +334,8 @@ class AnimationPipeline:
 
     @torch.inference_mode()
     def sample(self, input_ids: torch.Tensor, neg_input_ids: torch.Tensor,
-               first_image_latents: torch.Tensor, mask: torch.Tensor,
+               first_image_latents: Optional[torch.Tensor],
+               mask: Optional[torch.Tensor],
                fps: torch.Tensor, motion_score: torch.Tensor,
                spec: SampleSpec = SampleSpec(),
                generator: Optional[torch.Generator] = None,
@@ -333,7 +346,9 @@ class AnimationPipeline:
         (B, h, w, 1) + fps and motion score (B,) → video (B, F, H, W, 3).
         ``noise`` (B, F, h, w, 4) replaces the draw from ``generator``;
         ``ip_pixel_values`` (B, 224, 224, 3) is the image prompt, required
-        when the UNet has ``use_ip_cross_attention``."""
+        when the UNet has ``use_ip_cross_attention``. The first-frame latent
+        and the mask may be None when the UNet has no
+        ``use_first_frame_mask_condition_concat``."""
         spec.check_ported()
         if ip_pixel_values is None and \
                 self.config.unet.use_ip_cross_attention:

@@ -36,18 +36,30 @@ from followyourclick_tpu_torch.ops.flash_attention import (
     flash_attention_ref,
 )
 from followyourclick_tpu_torch.ops.geglu import (
+    down_bf16,
+    down_stage,
     fused_geglu,
     fused_ln_geglu,
     geglu_ref,
+    layer_norm_cast,
     ln_geglu_ref,
+    ln_rows_bf16,
+    up_bf16,
+    up_stage,
 )
 from followyourclick_tpu_torch.ops.groupnorm import (
     fused_group_norm,
     group_norm_ref,
 )
 from followyourclick_tpu_torch.ops.motion_block import (
+    attention_bf16,
+    attention_stage,
     fused_motion_block,
+    ln_pe_stage,
     motion_block_ref,
+    qkv_bf16,
+    qkv_stage,
+    qkv_weights,
 )
 from followyourclick_tpu_torch.ops.temporal_attention import (
     fused_temporal_block,
@@ -166,6 +178,50 @@ def test_motion_block_bf16_at_1280(card):
     assert_close(got, ref, BF16_REL)
 
 
+# The bf16 block's launches one by one, each against its plain version on
+# the same inputs (the kernels' own outputs feed the next stage), at a small
+# shape and at the C = 640 path shape (head width 80), both gate forms; each
+# holds the bf16 tolerance above.
+@pytest.mark.parametrize("p,f,c,heads", [(13, 16, 64, 4), (2048, 16, 640, 8)])
+def test_motion_block_stages_match_plain(card, p, f, c, heads):
+    x, pe, params = motion_block_args(np.random.RandomState(c), p, f, c,
+                                      torch.bfloat16)
+    r, scale = p * f, (c // heads) ** -0.5
+    h = x.view(r, c)
+
+    def empty(width=c):
+        return torch.empty(r, width, dtype=x.dtype, device=x.device)
+
+    ls, lb, _, _, _, wo, bo = params[:7]
+    t = empty()
+    ln_rows_bf16(h, ls, lb, t, 1e-5, pe)
+    assert_close(t, ln_pe_stage(x, ls, lb, pe, 1e-5).view(r, c), BF16_REL)
+    wqkv = qkv_weights(params)[0]
+    q, k, v = empty(), empty(), empty()
+    qkv_bf16(t, wqkv, q, k, v)
+    for got, want in zip((q, k, v), qkv_stage(t, wqkv)):
+        assert_close(got, want, BF16_REL)
+    o = empty()
+    attention_bf16(q, k, v, o, f, heads, scale)
+    assert_close(o, attention_stage(q.view(p, f, c), k.view(p, f, c),
+                                    v.view(p, f, c), scale, heads).view(r, c),
+                 BF16_REL)
+    h1 = empty()
+    down_bf16(o, wo, bo, h, h1)
+    assert_close(h1, down_stage(o, wo, bo, h), BF16_REL)
+    lfs, lfb, w1, b1, w2, b2 = params[14:20]
+    tn = empty()
+    ln_rows_bf16(h1, lfs, lfb, tn, 1e-5)
+    assert_close(tn, layer_norm_cast(h1, lfs, lfb, 1e-5), BF16_REL)
+    for fast in (False, True):
+        y, out = empty(4 * c), empty()
+        up_bf16(tn, w1, b1, y, fast)
+        assert_close(y, up_stage(tn, w1, b1, fast), BF16_REL)
+        down_bf16(y, w2, b2, h1, out)
+        assert_close(out, down_stage(y, w2, b2, h1), BF16_REL)
+    torch.cuda.synchronize()
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(card):
     args = ln_geglu_args(np.random.RandomState(0), 8, 64, torch.float32)
     with pytest.raises(ValueError):
@@ -179,6 +235,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take(card):
                                       torch.float32)
     with pytest.raises(ValueError):                     # fp32 at 640 does
         fused_motion_block(x, pe, params, 0.1, 8)       # not fit on chip
+    x, pe, params = motion_block_args(np.random.RandomState(0), 4, 16, 36,
+                                      torch.bfloat16)
+    with pytest.raises(ValueError):                     # bf16 rows of TMA
+        fused_motion_block(x, pe, params, 0.5, 4)       # need C % 8 == 0
 
 
 @pytest.mark.parametrize("dtype", [F32, BF16])
@@ -252,7 +312,7 @@ def _counts():
     (1280, F32, None, [0, 0, 2, 1]),
     # blocks that fit take the whole-block kernel, unless the temporal
     # sites record or reuse
-    (640, BF16, None, [1, 0, 0, 0]),
+    (640, BF16, None, [1, 0, 0, 0]), (1280, BF16, None, [1, 0, 0, 0]),
     (320, F32, PabMode(record_temporal=True), [0, 2, 0, 1]),
     (1280, BF16, PabMode(record_temporal=True), [0, 0, 2, 1])])
 def test_motion_module_routes_on_the_card(card, c, dtype, pab, want):

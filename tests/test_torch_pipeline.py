@@ -9,8 +9,13 @@ the same random parameters (by ``load_jax_params``), and JAX's own initial
 noise injected into the port, since the two PRNGs differ. fp32 on the CPU.
 The video holds 1e-3 absolute: two UNet calls, the DDIM chain and a VAE
 decode amplify the 5e-4 of one UNet call slightly, on outputs in [0, 1].
+The same holds for a UNet without the click-mask concat (a 4-channel
+``conv_in``, no first-frame latent or mask passed), on the exact sampler
+and under a PAB serving schedule, whose pre-duplicated input is built
+apart from the exact path's.
 """
 
+import dataclasses
 import subprocess
 import sys
 import textwrap
@@ -26,6 +31,7 @@ from followyourclick_tpu.pipelines.animation import (
     AnimationPipeline as JPipeline,
 )
 from followyourclick_tpu.pipelines.animation import SampleSpec as JSpec
+from followyourclick_tpu.pipelines.serving_schedules import SCHEDULES
 from followyourclick_tpu_torch.models.clip_text import CLIPTextModel
 from followyourclick_tpu_torch.models.unet3d import UNet3DConditionModel
 from followyourclick_tpu_torch.models.vae import AutoencoderKL
@@ -45,6 +51,9 @@ from tests.test_torch_unet import (
 )
 
 CFG = InferenceConfig(unet=TINY_UNET, vae=TINY_VAE, clip_text=TINY_CLIP)
+# the same UNet with a 4-channel conv_in: no mask or first-frame channels
+NO_CONCAT = dataclasses.replace(CFG, unet=dataclasses.replace(
+    TINY_UNET, use_first_frame_mask_condition_concat=False))
 F, H, W, STEPS = 4, 64, 64, 2
 
 
@@ -62,33 +71,39 @@ def _request(seed, b=1):
         motion_score=np.array([20.0, 35.0][:b], np.float32))
 
 
-def sample_both(spec_kw, b=1, seed=0):
+def sample_both(spec_kw, b=1, seed=0, cfg=CFG):
     """One tiny request of ``b`` clips through the JAX ``_sample_jit`` and
-    the port's ``sample`` (the JAX initial noise injected), as numpy."""
-    trees = dict(unet=tiny_unet_tree(), vae=tiny_vae_tree(),
+    the port's ``sample`` (the JAX initial noise injected), as numpy. A
+    UNet without the click-mask concat gets no first-frame latent and no
+    mask (None on both sides)."""
+    trees = dict(unet=tiny_unet_tree(cfg.unet), vae=tiny_vae_tree(),
                  text_encoder=tiny_clip_tree())
     req = _request(seed, b)
+    if not cfg.unet.use_first_frame_mask_condition_concat:
+        req.update(first_image_latents=None, mask=None)
     key = jax.random.PRNGKey(7)
 
-    jpipe = JPipeline(CFG, trees["unet"], trees["vae"],
+    def on(v, wrap):
+        return None if v is None else wrap(np.asarray(v))
+
+    jpipe = JPipeline(cfg, trees["unet"], trees["vae"],
                       trees["text_encoder"])
     want = np.asarray(jpipe._sample_jit(
         jpipe.params, jnp.asarray(req["input_ids"]),
         jnp.asarray(req["neg_input_ids"]), key, JSpec(**spec_kw),
-        first_image_latents=jnp.asarray(req["first_image_latents"]),
-        mask=jnp.asarray(req["mask"]), fps=jnp.asarray(req["fps"]),
+        first_image_latents=on(req["first_image_latents"], jnp.asarray),
+        mask=on(req["mask"], jnp.asarray), fps=jnp.asarray(req["fps"]),
         motion_score=jnp.asarray(req["motion_score"])))
     # _sample_jit draws its initial noise from the key itself (eta == 0)
     noise = np.asarray(jax.random.normal(key, (b, F, H // 8, W // 8, 4)))
 
     pipe = AnimationPipeline(
-        CFG,
-        unet=load_jax_params(UNet3DConditionModel(CFG.unet), trees["unet"]),
-        vae=load_jax_params(AutoencoderKL(CFG.vae), trees["vae"]),
-        text_encoder=load_jax_params(CLIPTextModel(CFG.clip_text),
+        cfg,
+        unet=load_jax_params(UNet3DConditionModel(cfg.unet), trees["unet"]),
+        vae=load_jax_params(AutoencoderKL(cfg.vae), trees["vae"]),
+        text_encoder=load_jax_params(CLIPTextModel(cfg.clip_text),
                                      trees["text_encoder"]), device="cpu")
-    got = pipe.sample(**{k: torch.from_numpy(np.asarray(v))
-                         for k, v in req.items()},
+    got = pipe.sample(**{k: on(v, torch.from_numpy) for k, v in req.items()},
                       spec=SampleSpec(**spec_kw),
                       noise=torch.tensor(noise)).numpy()
     assert got.shape == want.shape == (b, F, H, W, 3)
@@ -112,6 +127,34 @@ def test_tiny_two_clip_sample_matches_jax():
     got, want = sample_both(EXACT, b=2)
     assert np.abs(got[0] - got[1]).mean() > 1e-3
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("spec_kw", [
+    EXACT,
+    # one period of 4 and the 2 final exact steps: the PAB path's
+    # pre-duplicated input (build_x)
+    dict(EXACT, num_inference_steps=6, **SCHEDULES["pab244_deep4_cfg4_ex"])],
+    ids=["exact", "pab244_deep4_cfg4_ex"])
+def test_tiny_sample_without_mask_concat_matches_jax(spec_kw):
+    """A UNet without ``use_first_frame_mask_condition_concat`` takes the
+    bare latents (4 channels), and the request carries no first-frame
+    latent and no mask."""
+    conv_in = UNet3DConditionModel(NO_CONCAT.unet).conv_in.conv
+    assert conv_in.weight.shape[1] == 4
+    got, want = sample_both(spec_kw, cfg=NO_CONCAT)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-3)
+
+
+def test_mask_concat_requires_the_first_frame_latent():
+    """With the click-mask concat on, a request without a first-frame
+    latent raises (the JAX sampler asserts it)."""
+    pipe = AnimationPipeline(CFG, device="cpu")
+    ids = torch.zeros(1, 77, dtype=torch.long)
+    with pytest.raises(ValueError, match="first-frame latent"):
+        pipe.sample(ids, ids, None, None, torch.tensor([8.0]),
+                    torch.tensor([20.0]),
+                    spec=SampleSpec(video_length=2, height=64, width=64,
+                                    num_inference_steps=1))
 
 
 @pytest.mark.parametrize("field,value", [("video_scale", 1.0),

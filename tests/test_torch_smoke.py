@@ -17,7 +17,7 @@ tree's.
 
 import dataclasses
 
-
+import numpy as np
 import pytest
 import torch
 
@@ -118,3 +118,61 @@ def test_group_norm_sites_are_the_module_tree(meta_unet):
     assert sites[(2, 65536, 320, 32, 1e-5, "silu")] == 6
     assert sites[(32, 4096, 320, 32, 1e-6, None)] == 9
     assert all(c <= 2560 and c % 8 == 0 for _, _, c, *_ in sites)
+
+
+def test_wrappers_replaced_reaches_every_call_site():
+    """The smoke's full-width evaluation phase runs the UNet once with every
+    routed wrapper replaced by its plain version: inside
+    ``wrappers_replaced`` each name the model modules call refers to the
+    replacement, the wrappers' own modules keep theirs, and all is restored
+    on exit."""
+    import followyourclick_tpu_torch.models.attention as attention
+    import followyourclick_tpu_torch.models.motion_module as motion_module
+    import followyourclick_tpu_torch.ops.attention as ops_attention
+    import followyourclick_tpu_torch.ops.motion_block as motion_block
+
+    sites = [(motion_module, "fused_motion_block"),
+             (motion_module, "fused_temporal_block"),
+             (attention, "fused_ln_geglu"),
+             (ops_attention, "flash_attention"),
+             (ops_attention, "temporal_attention")]
+    before = [getattr(mod, name) for mod, name in sites]
+    plain = chip_smoke.plain_versions()
+    assert sorted(plain) == sorted(chip_smoke.KERNELS)
+    with chip_smoke.wrappers_replaced(lambda name, _: plain[name]):
+        assert [getattr(mod, name) for mod, name in sites] == [
+            plain[name] for _, name in sites]
+        assert motion_block.fused_motion_block is before[0]
+    assert [getattr(mod, name) for mod, name in sites] == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plain_versions_are_the_cpu_wrappers(dtype):
+    """Called as the model calls the wrappers, the smoke's plain stand-ins
+    give what the wrappers give on a CPU tensor (their plain versions),
+    the default gate form included."""
+    rs = np.random.RandomState(0)
+
+    def mk(*shape, s=1.0, base=0.0):
+        return torch.from_numpy((base + s * rs.randn(*shape)).astype(
+            np.float32)).to(dtype)
+
+    c = 64
+    params = []
+    for _ in range(2):
+        params += [mk(c, s=0.05, base=1.0), mk(c, s=0.05)] + [
+            mk(c, c, s=c ** -0.5) for _ in range(4)] + [mk(c, s=0.02)]
+    params += [mk(c, s=0.05, base=1.0), mk(c, s=0.05),
+               mk(8 * c, c, s=c ** -0.5), mk(8 * c, s=0.02),
+               mk(c, 4 * c, s=0.25 / c ** 0.5), mk(c, s=0.02)]
+    x, pe = mk(3, 8, c), mk(8, c, s=0.5)
+    plain = chip_smoke.plain_versions()
+    wrappers = chip_smoke.kernel_wrappers()
+    args = (x, pe, params, 0.25, 4)
+    assert torch.equal(plain["fused_motion_block"](*args, qkv=None),
+                       wrappers["fused_motion_block"](*args))
+    rows = x.reshape(-1, c)
+    assert torch.equal(plain["fused_ln_geglu"](rows, *params[14:], eps=1e-5,
+                                               residual=True),
+                       wrappers["fused_ln_geglu"](rows, *params[14:],
+                                                  eps=1e-5, residual=True))

@@ -75,7 +75,8 @@ def tiny_unet_tree(cfg=TINY_UNET, seed=0):
     b, f, hw = 1, 4, 8
     cond = JCond(context=jnp.zeros((2 * b, 77, 768)),
                  fps=jnp.full((b,), 8.0), motion_score=jnp.full((b,), 20.0))
-    return random_tree(JUNet(cfg).init, jnp.zeros((b, f, hw, hw, 9)),
+    return random_tree(JUNet(cfg).init,
+                       jnp.zeros((b, f, hw, hw, cfg.conv_in_channels)),
                        jnp.zeros((b,), jnp.int32), cond, seed=seed)
 
 
