@@ -97,12 +97,12 @@ TINY_VIDEO_ATOL = 2e-3
 # prediction: max |kernels - plain| / max |plain| and ||kernels - plain|| /
 # ||plain||. Two bf16 evaluations that round in different places lie about
 # 1.4e-2 apart in relative L2 at random weights, whichever wrapper differs
-# (swapping the plain version in for LN-GEGLU alone gave 1.35e-2, for the
-# motion block alone 1.37e-2; NVIDIA H100 80GB HBM3, 700.00 W), while each
-# lies 1.24-1.25e-2 from the same evaluation in fp32: so the relative L2
-# limit is 2e-2, and the sharper test is against fp32. There the kernels'
-# relative L2 must be within EVAL_FP32_RATIO of the plain bf16 evaluation's:
-# the kernels add no error beyond bf16's own rounding.
+# (the phase prints what each wrapper alone moves), while each lies about
+# 1.25e-2 from the same evaluation in fp32 (NVIDIA H100 80GB HBM3, 700.00
+# W): so the relative L2 limit is 2e-2, and the sharper test is against
+# fp32. There the kernels' relative L2 must be within EVAL_FP32_RATIO of the
+# plain bf16 evaluation's: the kernels add no error beyond bf16's own
+# rounding.
 EVAL_NORM_MAX = 5e-2
 EVAL_REL_L2 = 2e-2
 EVAL_FP32_RATIO = 1.25
@@ -1077,6 +1077,13 @@ def phase_evaluation(pipe, seed):
             pipe.unet.to(pipe.dtype)
     norm_max, rel_l2 = rel(got, want)
     got_32, want_32 = rel(got, fp32)[1], rel(want, fp32)[1]
+    # what each wrapper alone moves: the kernels with only it swapped
+    for only in [n for n, c in counts.items() if c and n in plain]:
+        with wrappers_replaced(lambda name, fn: plain[name]
+                               if name == only else fn):
+            moved = rel(evaluate().float(), got)[1]
+        log(f"[evaluation] {only} alone on its plain version moves the "
+            f"noise prediction by relative L2 {moved:.3e}")
     log(f"[evaluation] one UNet evaluation, noise prediction "
         f"{tuple(got.shape)}: kernels {kernel_ms:.1f} ms (launches "
         f"{counts}), plain versions {plain_ms:.1f} ms; kernels vs plain: "
