@@ -18,8 +18,11 @@ result line:
    call's time; the bf16 motion block also launch by launch (LN + PE,
    q/k/v, attention, out-projection, feed-forward) and, at C < 1280, beside
    the modular kernels on the same block (two ``fused_temporal_block`` and
-   one LN-GEGLU). The three kernels no path routes (as in the JAX package)
-   run at the shapes their sites would give them: ``fused_geglu`` at the
+   one LN-GEGLU); the bf16 ``fused_temporal_block`` launch by launch (q/k/v,
+   attention, out-projection) with the host's time to enqueue a call; the
+   frame attention also at the motion block's stage (c) shapes. The three
+   kernels no path routes (as in the JAX package) run at the shapes their
+   sites would give them: ``fused_geglu`` at the
    LN-GEGLU rows, ``fused_group_norm`` at each of the 81 GroupNorm sites of
    one exact evaluation (listed from the module tree by hooks on a UNet on
    the meta device), ``fused_ln_cross_attention`` at the four attn2 shapes
@@ -30,14 +33,18 @@ result line:
    one on the exact sampler, one under ``pab244_deep4_cfg4_ex``, and with
    an IP-Adapter image prompt (a tiny CLIP vision tower): vanilla and Plus
    on the exact sampler, vanilla under ``pab244_deep4_cfg4_ex``;
-4. one UNet evaluation at full width (the default ``InferenceConfig``,
+4. two UNet evaluations at full width (the default ``InferenceConfig``,
    1.28 B UNet parameters, seeded random weights) in bf16 at 16 frames,
-   512², on the exact sampler's CFG batch, through the kernels and again
-   with every routed wrapper replaced by its plain version in the model
-   modules, in bf16 and in fp32: the kernels' noise prediction must agree
-   with the plain bf16 one within ``EVAL_NORM_MAX`` (normalised max error)
-   and ``EVAL_REL_L2`` (relative L2), and lie no farther from the fp32 one
-   than ``EVAL_FP32_RATIO`` times the plain bf16 one does;
+   512², on the CFG batch: one on the exact sampler's path (the
+   whole-block motion kernel), one on the modular motion path
+   (``PabMode(record_temporal=True)``, as a serving schedule's full step:
+   ``fused_temporal_block`` and ``temporal_attention``), each through the
+   kernels and again with every routed wrapper replaced by its plain
+   version in the model modules, in bf16 and in fp32: the kernels' noise
+   prediction must agree with the plain bf16 one within ``EVAL_NORM_MAX``
+   (normalised max error) and ``EVAL_REL_L2`` (relative L2), lie no
+   farther from the fp32 one than ``EVAL_FP32_RATIO`` times the plain
+   bf16 one does, and launch what ``expected_launches`` gives;
 5. two requests of one clip at full width on that pipeline at 16 frames,
    512², CFG 8, on the exact sampler (``--steps``);
 6. two such requests under the serving schedule ``pab488_deep4_cfg4_ex``
@@ -127,7 +134,11 @@ MOTION_SHAPES = [((8192, 16, 320), 5), ((2048, 16, 640), 5),
 TEMPORAL_BLOCK_SHAPES = [((8192, 16, 320), 10), ((2048, 16, 640), 10),
                          ((4096, 16, 320), 0), ((1024, 16, 640), 0)]
 TEMPORAL_ATTN_SHAPES = [((512, 16, 8, 160), 10), ((128, 16, 8, 160), 10),
-                        ((256, 16, 8, 160), 0), ((64, 16, 8, 160), 0)]
+                        ((256, 16, 8, 160), 0), ((64, 16, 8, 160), 0),
+                        # stage (c) of the bf16 motion block and of
+                        # fused_temporal_block at C = 320 and 640 (its time
+                        # counts under those wrappers)
+                        ((8192, 16, 8, 40), 0), ((2048, 16, 8, 80), 0)]
 # flash attention: (B, Sq, Sk, H, D), dtype and count per UNet evaluation.
 # The path shape is level-0 spatial self-attention of a 2-clip CFG batch
 # (2 clips x 2 x 16 frames, 64² tokens, 8 heads of 40), 4 calls in an exact
@@ -360,6 +371,29 @@ def motion_stages_ms(x, pe, params, qkv, scale, heads, fast):
     return {name: time_ms(run) for name, run in stages.items()}
 
 
+def temporal_block_stages_ms(x, qkv, wo, bo, scale, heads):
+    """Milliseconds of each device launch of one bf16
+    ``fused_temporal_block`` call, one by one: (b) the q/k/v product, (c)
+    the frame attention, (d) the out-projection with the bias."""
+    from followyourclick_tpu_torch.ops.geglu import down_bf16
+    from followyourclick_tpu_torch.ops.motion_block import (
+        attention_bf16,
+        qkv_bf16,
+    )
+
+    b, f, c = x.shape
+    rows = b * f
+    q, k, v = torch.empty(3, rows, c, dtype=x.dtype, device=x.device)
+    o, out = (torch.empty(rows, c, dtype=x.dtype, device=x.device)
+              for _ in range(2))
+    stages = {
+        "(b) q/k/v": lambda: qkv_bf16(x.view(rows, c), qkv, q, k, v),
+        "(c) attention": lambda: attention_bf16(q, k, v, o, f, heads, scale),
+        "(d) out": lambda: down_bf16(o, wo, bo, None, out),
+    }
+    return {name: time_ms(run) for name, run in stages.items()}
+
+
 def kernel_wrappers():
     """The wrappers of every routed kernel, by name; each counts its
     launches."""
@@ -417,8 +451,11 @@ def plain_versions():
         return ln_geglu_ref(x, *params, eps=eps, residual=residual,
                             fast_gating=fast_gating)
 
+    def temporal_block(x, *weights, scale=None, heads=8, qkv=None):
+        return temporal_block_ref(x, *weights, scale=scale, heads=heads)
+
     return {"fused_motion_block": motion_block, "fused_ln_geglu": ln_geglu,
-            "fused_temporal_block": temporal_block_ref,
+            "fused_temporal_block": temporal_block,
             "temporal_attention": temporal_attention_ref,
             "flash_attention": flash_attention_ref}
 
@@ -613,7 +650,7 @@ def phase_kernels(seed):
             # the modular kernels on the same block: two attention
             # sublayers without their LN, PE and residual, and the FF
             tb = time_ms(lambda: fused_temporal_block(
-                x, *params[2:7], scale=scale, heads=heads))
+                x, *params[2:7], scale=scale, heads=heads, qkv=qkv[0]))
             ff = time_ms(lambda: fused_ln_geglu(
                 x.view(rows, c), *params[14:20], fast_gating=default))
             ms = time_ms(lambda: fused_motion_block(
@@ -627,12 +664,25 @@ def phase_kernels(seed):
         args = (randn(gen, (b, f, c), 1.0, bf),
                 *[randn(gen, (c, c), c ** -0.5, bf) for _ in range(4)],
                 vec(c, 0.02))
-        rows = b * f
+        # built once per module on the path (TemporalAttention.qkv_weight)
+        wqkv = torch.cat(args[1:4])
+        rows, scale = b * f, (c // heads) ** -0.5
         check("fused_temporal_block",
               f"fused_temporal_block B={b} F={f} C={c}",
-              lambda: fused_temporal_block(*args, heads=heads),
+              lambda: fused_temporal_block(*args, heads=heads, qkv=wqkv),
               lambda: temporal_block_ref(*args, heads=heads), count,
               8 * rows * c * c + 4 * rows * f * c, args)
+        t = temporal_block_stages_ms(args[0], wqkv, args[4], args[5], scale,
+                                     heads)
+        ms = time_ms(lambda: fused_temporal_block(*args, heads=heads,
+                                                  qkv=wqkv))
+        host = host_ms(lambda: fused_temporal_block(*args, heads=heads,
+                                                    qkv=wqkv))
+        log("    stages: " + ", ".join(f"{k} {v:.3f} ms"
+                                       for k, v in t.items())
+            + f"; sum {sum(t.values()):.3f} ms against the call's "
+            f"{ms:.3f} ms; the host takes {host:.3f} ms a call to enqueue "
+            "its 3 launches")
     for (b, s, h, d), count in TEMPORAL_ATTN_SHAPES:
         qkv = [randn(gen, (b, s, h, d), 1.0, bf) for _ in range(3)]
         check("temporal_attention",
@@ -904,12 +954,13 @@ def flash_line(rows, tokens, heads):
     return tokens >= 1024 and rows * heads * tokens * tokens * 2 > 12 * 2 ** 30
 
 
-def expected_launches(unet, spec, dtype, batch=1):
+def expected_launches(unet, spec, dtype, batch=1, plan=None):
     """Each kernel's launches in one request of ``batch`` clips that follows
-    ``step_plan(spec)``, from the plan, the clip shape and the UNet's module
-    structure alone. A trunk-reuse step runs only level 0 (down block 0 and
-    the last up block). A motion block (all standard, two ``Temporal_Self``
-    attentions) takes the modular path when the step's mode records or
+    ``plan`` (default ``step_plan(spec)``), from the plan, the clip shape
+    and the UNet's module structure alone. A trunk-reuse step runs only
+    level 0 (down block 0 and the last up block). A motion block (all
+    standard, two ``Temporal_Self`` attentions) takes the modular path
+    when the step's mode records or
     reuses temporal sites or :func:`whole_block_fits` says no, else the
     whole-block kernel. On the modular path the FF is one LN-GEGLU launch
     and each attention that is not reused one launch of
@@ -943,7 +994,7 @@ def expected_launches(unet, spec, dtype, batch=1):
         return name.startswith("down_blocks.0.") or name.startswith(last_up)
 
     counts = dict.fromkeys(KERNELS, 0)
-    for step in step_plan(spec):
+    for step in step_plan(spec) if plan is None else plan:
         mode = step.mode
         trunk = (mode is None or not mode.reuse_deep
                  or len(unet.down_blocks) < 2)
@@ -1019,17 +1070,36 @@ def full_pipeline(seed, ip_plus=False):
 
 
 def phase_evaluation(pipe, seed):
-    """One bf16 UNet evaluation at 16 f / 512² on the exact sampler's CFG
-    batch (the latents and their 5 condition channels, the doubled
-    context), through the kernels, then with every routed wrapper replaced
-    by its plain version in the model modules, then that again with the
-    UNet in fp32 (cast there and back, which bf16 weights survive
-    exactly). The kernels' noise prediction must lie within
-    ``EVAL_NORM_MAX`` and ``EVAL_REL_L2`` of the plain bf16 one, and no
-    farther from the fp32 one than ``EVAL_FP32_RATIO`` times the plain bf16
-    one's distance. Prints the bf16 evaluations' times (CUDA events)."""
+    """Two bf16 UNet evaluations at 16 f / 512² on the full CFG batch,
+    each held by :func:`evaluation`: on the exact sampler's path (the
+    whole-block motion kernel) and on the modular motion path that a
+    serving schedule's full step takes when it records temporal attention
+    (``fused_temporal_block`` at C < 1280, ``temporal_attention`` at
+    1280)."""
+    from followyourclick_tpu_torch.models.pab import PabMode
+
+    evaluation(pipe, seed, "exact", None)
+    evaluation(pipe, seed, "modular", PabMode(record_temporal=True))
+
+
+def evaluation(pipe, seed, label, mode):
+    """One bf16 UNet evaluation at 16 f / 512² under the PAB ``mode`` (the
+    latents and their 5 condition channels, the doubled context; with a
+    mode the latents are doubled first, as the sampler's full steps do),
+    through the kernels, then with every routed wrapper replaced by its
+    plain version in the model modules, then that again with the UNet in
+    fp32 (cast there and back, which bf16 weights survive exactly). The
+    kernels' noise prediction must lie within ``EVAL_NORM_MAX`` and
+    ``EVAL_REL_L2`` of the plain bf16 one, and no farther from the fp32 one
+    than ``EVAL_FP32_RATIO`` times the plain bf16 one's distance; the
+    kernels' launches must be those :func:`expected_launches` gives for
+    one full step under ``mode``. Prints the bf16 evaluations' times (CUDA
+    events)."""
     from followyourclick_tpu_torch.models.unet3d import UNetConditioning
-    from followyourclick_tpu_torch.pipelines.animation import SampleSpec
+    from followyourclick_tpu_torch.pipelines.animation import (
+        PlanStep,
+        SampleSpec,
+    )
 
     spec = SampleSpec(num_inference_steps=1)
     cfg = pipe.config.unet
@@ -1038,8 +1108,11 @@ def phase_evaluation(pipe, seed):
                     cfg.conv_in_channels), 1.0, pipe.dtype)
     context = randn(gen, (2, TEXT_KEYS, cfg.cross_attention_dim), 1.0,
                     pipe.dtype)
-    t = torch.tensor([501], device="cuda")
+    if mode is not None:
+        x = torch.cat([x, x])
+    t = torch.tensor([501], device="cuda").expand(x.shape[0])
     wrappers = {**kernel_wrappers(), **unrouted_wrappers()}
+    tag = f"[evaluation, {label}]"
 
     def evaluate(dtype=pipe.dtype):
         cond = UNetConditioning(
@@ -1047,7 +1120,7 @@ def phase_evaluation(pipe, seed):
             fps=torch.tensor([8.0], device="cuda"),
             motion_score=torch.tensor([20.0], device="cuda"))
         with torch.inference_mode():
-            return pipe.unet(x.to(dtype), t, cond, None, {})
+            return pipe.unet(x.to(dtype), t, cond, mode, {})
 
     def launched(run):
         for fn in wrappers.values():
@@ -1063,7 +1136,7 @@ def phase_evaluation(pipe, seed):
                 float(d.norm() / b.norm()))
 
     want_launches = {**dict.fromkeys(wrappers, 0), **expected_launches(
-        pipe.unet, spec, pipe.dtype)}
+        pipe.unet, spec, pipe.dtype, plan=[PlanStep(0, 0, True, mode)])}
     got, counts = launched(evaluate)
     kernel_ms = time_ms(evaluate, reps=3)
     plain = plain_versions()
@@ -1082,9 +1155,9 @@ def phase_evaluation(pipe, seed):
         with wrappers_replaced(lambda name, fn: plain[name]
                                if name == only else fn):
             moved = rel(evaluate().float(), got)[1]
-        log(f"[evaluation] {only} alone on its plain version moves the "
+        log(f"{tag} {only} alone on its plain version moves the "
             f"noise prediction by relative L2 {moved:.3e}")
-    log(f"[evaluation] one UNet evaluation, noise prediction "
+    log(f"{tag} one UNet evaluation, noise prediction "
         f"{tuple(got.shape)}: kernels {kernel_ms:.1f} ms (launches "
         f"{counts}), plain versions {plain_ms:.1f} ms; kernels vs plain: "
         f"normalised max error {norm_max:.3e} (limit {EVAL_NORM_MAX}), "
@@ -1094,17 +1167,17 @@ def phase_evaluation(pipe, seed):
     shape = (2, spec.video_length, spec.height // 8, spec.width // 8, 4)
     if counts != want_launches or any(plain_counts.values()) \
             or any(fp32_counts.values()):
-        raise SystemExit(f"evaluation: launches {counts} (want "
+        raise SystemExit(f"evaluation, {label}: launches {counts} (want "
                          f"{want_launches}), with the plain versions "
                          f"{plain_counts} and {fp32_counts} (want none)")
     if got.shape != shape or not bool(torch.isfinite(got).all()) \
             or float(want.std()) <= 0.0:
-        raise SystemExit("evaluation: the noise prediction is not finite "
-                         "and non-constant of the expected shape")
+        raise SystemExit(f"evaluation, {label}: the noise prediction is "
+                         "not finite and non-constant of the expected shape")
     if norm_max > EVAL_NORM_MAX or rel_l2 > EVAL_REL_L2 \
             or got_32 > EVAL_FP32_RATIO * want_32:
-        raise SystemExit("evaluation: the kernels' noise prediction "
-                         "disagrees with the plain versions'")
+        raise SystemExit(f"evaluation, {label}: the kernels' noise "
+                         "prediction disagrees with the plain versions'")
 
 
 def phase_requests(pipe, spec, label, seed, by_hand=None, batch=1):

@@ -13,7 +13,7 @@
 // Products (block_gemm_nt, block_gemm_nt_acc): 256 threads per block, a
 // row tile of MC = 16, 32 or 64 rows, A in shared memory, B (an nn.Linear
 // weight, K contiguous) read from device memory / L2.
-//  - bf16 with 16-aligned shapes (block_gemm_nt, fused_temporal_block):
+//  - bf16 with 16-aligned shapes (block_gemm_nt, fused_ln_cross_attention):
 //    tensor cores through WMMA (16 x 16 x 16 bf16 fragments, fp32
 //    accumulators); each warp owns whole 16 x 16 output tiles and loads its
 //    B fragments straight from L2.
@@ -338,7 +338,8 @@ __device__ void block_gemm_nt_acc(const T* A, int lda, int M, const T* B,
 }
 
 // Frame-axis self-attention of a row tile of M / F whole positions, F frame
-// rows each (the attention of fused_motion_block and fused_temporal_block):
+// rows each (the attention of the fp32 fused_motion_block and
+// fused_temporal_block kernels):
 // q, k, v = xn . Wq^T, Wk^T, Wv^T for all heads at once (three full-width
 // products, each output cast to T after fp32 accumulation), then head by
 // head the F x F scores in fp32 times `scale`, the softmax (softmax_rows)

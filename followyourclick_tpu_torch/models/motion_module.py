@@ -13,10 +13,11 @@ Routes on a CUDA tensor, decided before any launch:
   width of 16-byte rows; fp32 where one position's block fits a thread
   block's shared memory, which C ≥ 640 does not);
 - every other block takes the modular path, each attention through a PAB
-  site: at C < 1280 one launch of ``ops/temporal_attention.
-  fused_temporal_block`` (the JAX package's condition), at C = 1280 the
-  q/k/v products and ``dot_product_attention``'s tiny-sequence kernel
-  ``temporal_attention``; its FF is ``ops/geglu.fused_ln_geglu``.
+  site: at C < 1280 one call of ``ops/temporal_attention.
+  fused_temporal_block`` (the JAX package's condition; in bf16 with the
+  module's cached ``[Wq; Wk; Wv]``), at C = 1280 the q/k/v products and
+  ``dot_product_attention``'s tiny-sequence kernel ``temporal_attention``;
+  its FF is ``ops/geglu.fused_ln_geglu``.
 
 The fit test is a deliberate route, not a recovery from a failed build or
 launch. On a CPU tensor the modular path runs with plain PyTorch, as the JAX
@@ -76,6 +77,17 @@ class TemporalAttention(nn.Module):
         self.to_k = nn.Linear(query_dim, inner, bias=False)
         self.to_v = nn.Linear(query_dim, inner, bias=False)
         self.to_out = nn.Linear(inner, query_dim)
+        self._qkv_key, self._qkv = None, None
+
+    def qkv_weight(self) -> torch.Tensor:
+        """``[Wq; Wk; Wv]`` of shape ``(3C, C)``, the operand of the bf16
+        block's q/k/v product, built once and again only when one of those
+        weights changes (another storage or an in-place write)."""
+        ws = (self.to_q.weight, self.to_k.weight, self.to_v.weight)
+        key = tuple((w.data_ptr(), w._version) for w in ws)
+        if key != self._qkv_key:
+            self._qkv, self._qkv_key = torch.cat(ws), key
+        return self._qkv
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bd, f, c = x.shape
@@ -86,7 +98,9 @@ class TemporalAttention(nn.Module):
             return fused_temporal_block(
                 x.contiguous(), self.to_q.weight, self.to_k.weight,
                 self.to_v.weight, self.to_out.weight, self.to_out.bias,
-                scale=self.dim_head ** -0.5, heads=self.heads)
+                scale=self.dim_head ** -0.5, heads=self.heads,
+                qkv=self.qkv_weight() if x.dtype == torch.bfloat16
+                else None)
 
         def split(t):
             return t.reshape(bd, f, self.heads, self.dim_head)
@@ -124,7 +138,6 @@ class TemporalTransformerBlock(nn.Module):
             for _ in attention_block_types)
         self.ff_norm = LayerNorm(dim)
         self.ff = GEGLUFeedForward(dim)
-        self._qkv_key, self._qkv = None, None
 
     def fused_params(self) -> tuple:
         """The kernel's 20 tensors, in ``fused_motion_block`` order."""
@@ -138,16 +151,9 @@ class TemporalTransformerBlock(nn.Module):
                              self.ff.out.weight, self.ff.out.bias)
 
     def qkv_weights(self) -> tuple:
-        """The bf16 kernel's ``[Wq; Wk; Wv]`` of both attentions, built once
-        and again only when one of those weights changes (another storage or
-        an in-place write)."""
-        ws = [w for a in self.attention_blocks
-              for w in (a.to_q.weight, a.to_k.weight, a.to_v.weight)]
-        key = tuple((w.data_ptr(), w._version) for w in ws)
-        if key != self._qkv_key:
-            self._qkv = motion_block.qkv_weights(self.fused_params())
-            self._qkv_key = key
-        return self._qkv
+        """The bf16 kernel's ``[Wq; Wk; Wv]`` of both attentions, each
+        module's cached :meth:`TemporalAttention.qkv_weight`."""
+        return tuple(a.qkv_weight() for a in self.attention_blocks)
 
     def whole_block_kernel(self, h: torch.Tensor,
                            pab: Optional[PabMode]) -> bool:

@@ -61,10 +61,10 @@ _SIGNATURES = {
     "fyc_motion_block_smem_bytes": (ctypes.c_longlong, [_I] * 3),
     "fyc_qkv_bf16": (_I, [_P] * 5 + [_I, _I, _P]),
     "fyc_temporal_attention": (_I, [_P] * 4 + [_I] * 4 + [_F, _I, _P]),
-    "fyc_temporal_attention_smem_bytes": (ctypes.c_longlong, [_I, _I]),
+    "fyc_temporal_attention_smem_bytes": (ctypes.c_longlong, [_I] * 3),
     "fyc_temporal_block": (_I, [_P, ctypes.POINTER(_P), _P] + [_I] * 5
-                           + [_F, _I, _P]),
-    "fyc_temporal_block_smem_bytes": (ctypes.c_longlong, [_I] * 4),
+                           + [_F, _P]),
+    "fyc_temporal_block_smem_bytes": (ctypes.c_longlong, [_I] * 3),
 }
 
 

@@ -241,10 +241,17 @@ def test_wrappers_reject_what_the_kernels_do_not_take(card):
         fused_motion_block(x, pe, params, 0.5, 4)       # need C % 8 == 0
 
 
+# every head width of the paths and tests (D) at frame counts on both sides
+# of the bf16 kernel's 16-row M tile (S); the head counts vary the heads a
+# block's tile takes (all 8, or a divisor of 6, 3 or 2 where the tile
+# would exceed its shared-memory aim)
+TA_HEADS = {8: 8, 16: 6, 40: 8, 64: 2, 80: 8, 160: 3}
+TA_SHAPES = [(3 + s % 4, s, TA_HEADS[d], d) for s in (1, 4, 5, 16, 17, 32)
+             for d in TA_HEADS]
+
+
 @pytest.mark.parametrize("dtype", [F32, BF16])
-@pytest.mark.parametrize("b,s,h,d", [(6, 16, 8, 40), (3, 16, 8, 160),
-                                     (5, 4, 4, 8), (7, 1, 8, 8),
-                                     (4, 32, 2, 64)])
+@pytest.mark.parametrize("b,s,h,d", TA_SHAPES)
 def test_temporal_attention_kernel_matches_plain(card, dtype, b, s, h, d):
     rs = np.random.RandomState(b * s + d)
     q, k, v = (_randn(rs, (b, s, h, d), 1.0, dtype) for _ in range(3))
@@ -252,6 +259,23 @@ def test_temporal_attention_kernel_matches_plain(card, dtype, b, s, h, d):
     got = temporal_attention(q, k, v)
     assert temporal_attention.launches == before + 1
     assert got.dtype == dtype and got.shape == q.shape
+    assert_close(got, temporal_attention_ref(q, k, v),
+                 FP32_REL if dtype == F32 else BF16_REL)
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("d", [4, 6, 8, 40])
+def test_temporal_attention_kernel_takes_odd_widths_and_offsets(card, dtype,
+                                                                d):
+    """Head rows that are not whole 16-byte chunks (D = 4, 6 in bf16; 6 in
+    fp32) and tensors that start off a 16-byte boundary take the kernel's
+    element loads; each agrees with the plain version."""
+    rs = np.random.RandomState(d)
+    shape = (9, 16, 4, d)
+    n = int(np.prod(shape))
+    q, k, v = (_randn(rs, (n + 1,), 1.0, dtype)[1:].view(shape)
+               for _ in range(3))
+    got = temporal_attention(q, k, v)
     assert_close(got, temporal_attention_ref(q, k, v),
                  FP32_REL if dtype == F32 else BF16_REL)
 
@@ -274,6 +298,36 @@ def test_temporal_block_kernel_matches_plain(card, dtype, b, f, c, heads):
     assert fused_temporal_block.launches == before + 1
     assert_close(got, temporal_block_ref(*args, heads=heads),
                  FP32_REL if dtype == F32 else BF16_REL)
+
+
+# The bf16 block's three launches one by one, each against its plain stage
+# on the same inputs (the kernels' own outputs feed the next stage), at a
+# small shape and at the C = 640 path shape (head width 80); the wrapper
+# with the module's concatenated weight against the plain block
+@pytest.mark.parametrize("p,f,c,heads", [(13, 16, 64, 4), (2048, 16, 640, 8)])
+def test_temporal_block_stages_match_plain(card, p, f, c, heads):
+    x, wq, wk, wv, wo, bo = temporal_block_args(
+        np.random.RandomState(c), p, f, c, torch.bfloat16)
+    r, scale = p * f, (c // heads) ** -0.5
+    wqkv = torch.cat((wq, wk, wv))
+    q, k, v = torch.empty(3, r, c, dtype=x.dtype, device=x.device)
+    qkv_bf16(x.view(r, c), wqkv, q, k, v)
+    for got, want in zip((q, k, v), qkv_stage(x.view(r, c), wqkv)):
+        assert_close(got, want, BF16_REL)
+    o = torch.empty_like(q)
+    attention_bf16(q, k, v, o, f, heads, scale)
+    assert_close(o, attention_stage(q.view(p, f, c), k.view(p, f, c),
+                                    v.view(p, f, c), scale, heads).view(r, c),
+                 BF16_REL)
+    out = torch.empty_like(q)
+    down_bf16(o, wo, bo, None, out)
+    assert_close(out, down_stage(o, wo, bo, None), BF16_REL)
+    before = fused_temporal_block.launches
+    got = fused_temporal_block(x, wq, wk, wv, wo, bo, heads=heads, qkv=wqkv)
+    assert fused_temporal_block.launches == before + 1
+    assert_close(got, temporal_block_ref(x, wq, wk, wv, wo, bo, heads=heads),
+                 BF16_REL)
+    torch.cuda.synchronize()
 
 
 def test_temporal_wrappers_reject_what_the_kernels_do_not_take(card):
@@ -299,6 +353,10 @@ def test_temporal_wrappers_reject_what_the_kernels_do_not_take(card):
     big = temporal_block_args(rs, 2, 16, 1280, torch.float32)
     with pytest.raises(ValueError):                     # fp32 at 1280 does
         fused_temporal_block(*big, heads=8)             # not fit on chip
+    odd = temporal_block_args(rs, 2, 16, 36, torch.bfloat16)
+    with pytest.raises(ValueError):                     # bf16 rows of the
+        fused_temporal_block(*odd, heads=4)             # GEMM core need
+                                                        # C % 8 == 0
 
 
 def _counts():

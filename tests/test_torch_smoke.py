@@ -176,3 +176,38 @@ def test_plain_versions_are_the_cpu_wrappers(dtype):
                                                residual=True),
                        wrappers["fused_ln_geglu"](rows, *params[14:],
                                                   eps=1e-5, residual=True))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_temporal_block_stand_in_takes_the_concatenated_weight(dtype):
+    """The modular path calls ``fused_temporal_block`` with ``qkv=``; the
+    smoke's plain stand-in takes it and gives the CPU wrapper's result."""
+    rs = np.random.RandomState(1)
+
+    def mk(*shape, s=1.0):
+        return torch.from_numpy((s * rs.randn(*shape)).astype(
+            np.float32)).to(dtype)
+
+    c = 64
+    x, ws, bo = mk(3, 8, c), [mk(c, c, s=c ** -0.5) for _ in range(4)], \
+        mk(c, s=0.02)
+    qkv = torch.cat(ws[:3])
+    plain = chip_smoke.plain_versions()["fused_temporal_block"]
+    wrapper = chip_smoke.kernel_wrappers()["fused_temporal_block"]
+    assert torch.equal(plain(x, *ws, bo, scale=0.25, heads=4, qkv=qkv),
+                       wrapper(x, *ws, bo, scale=0.25, heads=4, qkv=qkv))
+
+
+def test_modular_evaluation_launches(meta_unet):
+    """Phase 4's second evaluation: one full step under
+    ``PabMode(record_temporal=True)`` takes every motion block off the
+    whole-block kernel: 2 ``fused_temporal_block`` calls in each of the 10
+    blocks at C < 1280, 2 ``temporal_attention`` calls in each of the 10 at
+    1280, and one LN-GEGLU per block beside the 16 spatial ones."""
+    from followyourclick_tpu_torch.models.pab import PabMode
+    from followyourclick_tpu_torch.pipelines.animation import PlanStep
+
+    plan = [PlanStep(0, 0, True, PabMode(record_temporal=True))]
+    assert chip_smoke.expected_launches(
+        meta_unet, SampleSpec(num_inference_steps=1), torch.bfloat16,
+        plan=plan) == _counts(0, 36, 20, 20)
