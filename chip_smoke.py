@@ -25,8 +25,12 @@ result line:
    sites would give them: ``fused_geglu`` at the
    LN-GEGLU rows, ``fused_group_norm`` at each of the 81 GroupNorm sites of
    one exact evaluation (listed from the module tree by hooks on a UNet on
-   the meta device), ``fused_ln_cross_attention`` at the four attn2 shapes
-   over 77 keys, plus a ragged row count and fp32;
+   the meta device; each site's line names its path, one cluster launch
+   or two passes, and the times are summed per path with the host's
+   enqueue time), ``fused_ln_cross_attention`` at the four attn2 shapes
+   over 77 keys, launch by launch with the host's enqueue time and beside
+   the stock composition of the attn2 path's own ops (a yardstick), plus a
+   ragged row count and fp32;
 3. tiny-config requests on the card (kernels, fp32) against the same
    requests through the port on the CPU (plain versions), at 64², where
    spatial self-attention of ≤ 32 tokens takes the tiny-sequence kernel:
@@ -232,6 +236,32 @@ def time_ms(fn, reps=5):
     return float(np.median(times))
 
 
+def graph_ms(fn, reps=20):
+    """Device milliseconds per call of ``fn``: ``reps`` calls captured in
+    one CUDA graph and replayed (median of 5 replays), so the host's time to
+    enqueue each call drops out."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            for _ in range(reps):
+                fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return float(np.median(times))
+
+
 def host_ms(fn, calls=10):
     """Host milliseconds per call of ``fn`` to enqueue its work (the card
     still busy with earlier calls: no synchronisation inside)."""
@@ -390,6 +420,46 @@ def temporal_block_stages_ms(x, qkv, wo, bo, scale, heads):
         "(b) q/k/v": lambda: qkv_bf16(x.view(rows, c), qkv, q, k, v),
         "(c) attention": lambda: attention_bf16(q, k, v, o, f, heads, scale),
         "(d) out": lambda: down_bf16(o, wo, bo, None, out),
+    }
+    return {name: time_ms(run) for name, run in stages.items()}
+
+
+def cross_stages_ms(x, ctx, params, heads):
+    """Milliseconds of each device launch of one bf16
+    ``fused_ln_cross_attention`` call, one by one -- (a) the LN pass, (b) the
+    q product, (c) the short-kv attention, (d) the out-projection with the
+    bias -- and of the stock composition of the routed attn2 path's own ops
+    (``F.layer_norm``, the q/k/v ``F.linear``, ``F.scaled_dot_product_
+    attention``, the out ``F.linear``): four kinds of call, so a yardstick
+    and not ``library_ms``, used nowhere in the port."""
+    import torch.nn.functional as F
+
+    from followyourclick_tpu_torch.ops import cross_attention as ca
+    from followyourclick_tpu_torch.ops.geglu import down_bf16, ln_rows_bf16
+
+    ls, lb, wq, wk, wv, wo, bo = params
+    b, s, c = x.shape
+    rows, d = b * s, c // heads
+    scale = d ** -0.5
+    k, v = ca.project_kv(ctx, wk, wv)
+    xn, q, o, out = (torch.empty_like(x) for _ in range(4))
+
+    def stock():
+        t = F.layer_norm(x, (c,), ls, lb, 1e-5)
+        qh, kh, vh = (F.linear(u, w).view(b, -1, heads, d).transpose(1, 2)
+                      for u, w in ((t, wq), (ctx, wk), (ctx, wv)))
+        a = F.scaled_dot_product_attention(qh, kh, vh)
+        return F.linear(a.transpose(1, 2).reshape(b, s, c), wo, bo)
+
+    stages = {
+        "(a) LN": lambda: ln_rows_bf16(x.view(rows, c), ls, lb,
+                                       xn.view(rows, c), 1e-5),
+        "(b) q": lambda: ca.linear_bf16(xn.view(rows, c), wq,
+                                        q.view(rows, c)),
+        "(c) attention": lambda: ca.attention_bf16(q, k, v, o, heads, scale),
+        "(d) out": lambda: down_bf16(o.view(rows, c), wo, bo, None,
+                                     out.view(rows, c)),
+        "stock": stock,
     }
     return {name: time_ms(run) for name, run in stages.items()}
 
@@ -590,6 +660,7 @@ def phase_kernels(seed):
         st["ops_ms"] += count * ops_ms
         st["bytes_ms"] += count * bytes_ms
         st["bound_ms"] += count * max(ops_ms, bytes_ms)
+        return ms, max(ops_ms, bytes_ms)
 
     for (rows, c), count in GEGLU_SHAPES:
         inner = 4 * c
@@ -735,13 +806,17 @@ def phase_unrouted_kernels(gen, check, vec):
         ln_cross_attention_ref,
     )
     from followyourclick_tpu_torch.ops.geglu import fused_geglu, geglu_ref
+    from followyourclick_tpu_torch.ops import _build
     from followyourclick_tpu_torch.ops.groupnorm import (
+        cluster_smem,
         fused_group_norm,
+        group_norm_path,
         group_norm_ref,
     )
     from followyourclick_tpu_torch.pipelines.animation import SampleSpec
 
     bf = torch.bfloat16
+    yardstick = {}
     for (rows, c), count in GEGLU_SHAPES:
         inner = 4 * c
         args = (randn(gen, (rows, c), 1.0, bf),
@@ -758,19 +833,52 @@ def phase_unrouted_kernels(gen, check, vec):
     sites = group_norm_sites(InferenceConfig().unet, SampleSpec())
     log(f"[kernels] {sum(sites.values())} GroupNorm sites in one exact "
         f"evaluation, {len(sites)} shapes")
+    lib = _build.load_library()
+    big = randn(gen, (32, 4096, 320), 1.0, bf)
+    copy = torch.empty_like(big)
+    copy_ms = graph_ms(lambda: copy.copy_(big))
+    log(f"[kernels] a PyTorch copy of {big.numel() * 2 / 1e6:.1f} MB of bf16 "
+        f"takes {copy_ms:.4f} ms on the device "
+        f"({2 * big.numel() * 2 / copy_ms / 1e9:.2f} TB/s read + write): the "
+        "streaming rate the GroupNorm sites' bound is read against")
+    del big, copy
+    paths = collections.defaultdict(lambda: dict(sites=0, ms=0.0, bound=0.0,
+                                                 device=0.0, host=[]))
     for (b, n, c, groups, eps, act), count in sorted(
             sites.items(), key=lambda kv: str(kv[0])):
         x = randn(gen, (b, n, c), 1.0, bf) + 0.5
         params = (vec(c, base=1.0), vec(c))
-        check("fused_group_norm",
-              f"fused_group_norm B={b} N={n} C={c} G={groups} act={act} "
-              f"x{count}",
-              lambda: fused_group_norm(x, *params, groups, eps, act),
-              lambda: group_norm_ref(x, *params, groups, eps, act), count,
-              10 * x.numel(), [x, *params],
-              run_library=(None if act else lambda: F.group_norm(
-                  x.transpose(1, 2), groups, *params, eps)),
-              peak_ops=PEAK_FP32_OPS)
+        path, blocks, rows = group_norm_path(b, n, c, bf)
+        where = (f"cluster of {blocks} x {rows} rows, "
+                 f"{cluster_smem(rows, c, bf)} B a block, "
+                 f"{lib.fyc_group_norm_max_clusters(c, blocks, rows, 1)} "
+                 "clusters at once" if path == "cluster" else
+                 f"two passes, {blocks} chunks of {rows} rows")
+        ms, bound = check(
+            "fused_group_norm",
+            f"fused_group_norm B={b} N={n} C={c} G={groups} act={act} "
+            f"x{count} [{where}]",
+            lambda: fused_group_norm(x, *params, groups, eps, act),
+            lambda: group_norm_ref(x, *params, groups, eps, act), count,
+            10 * x.numel(), [x, *params],
+            run_library=(None if act else lambda: F.group_norm(
+                x.transpose(1, 2), groups, *params, eps)),
+            peak_ops=PEAK_FP32_OPS)
+        device = graph_ms(lambda: fused_group_norm(x, *params, groups, eps,
+                                                   act))
+        log(f"    device {device:.4f} ms a call (CUDA graph of 20 calls)")
+        st = paths[path]
+        st["sites"] += count
+        st["ms"] += count * ms
+        st["bound"] += count * bound
+        st["device"] += count * device
+        st["host"].append(host_ms(
+            lambda: fused_group_norm(x, *params, groups, eps, act)))
+    for path, st in sorted(paths.items()):
+        log(f"[kernels] fused_group_norm, {path}: {st['sites']} sites take "
+            f"{st['ms']:.3f} ms ({st['device']:.3f} ms on the device), bound "
+            f"{st['bound']:.3f} ms; the host takes {min(st['host']):.3f}-"
+            f"{max(st['host']):.3f} ms a call to enqueue")
 
     heads = 8
     for (b, sq, c), dtype, count in CROSS_SHAPES:
@@ -791,6 +899,27 @@ def phase_unrouted_kernels(gen, check, vec):
               lambda: ln_cross_attention_ref(x, ctx, *params, heads=heads),
               count, ops, [x, ctx, *params],
               tol=BF16_REL if dtype == bf else FP32_REL, timed=count > 0)
+        if count == 0:
+            continue
+        t = cross_stages_ms(x, ctx, params, heads)
+        stock = t.pop("stock")
+        def call():
+            return fused_ln_cross_attention(x, ctx, *params, heads=heads)
+
+        ms, device, host = time_ms(call), graph_ms(call), host_ms(call)
+        log("    stages: " + ", ".join(f"{k} {v:.3f} ms"
+                                       for k, v in t.items())
+            + f"; sum {sum(t.values()):.3f} ms against the call's {ms:.3f} "
+            f"ms (k/v F.linear included; {device:.3f} ms on the device); "
+            f"the host takes {host:.3f} ms a call to enqueue its launches; "
+            f"stock composition (F.layer_norm, F.linear, SDPA, F.linear) "
+            f"{stock:.3f} ms (a yardstick, not library_ms: four kinds of "
+            "call)")
+        yardstick["fused_ln_cross_attention"] = \
+            yardstick.get("fused_ln_cross_attention", 0.0) + count * stock
+    for name, ms in yardstick.items():
+        log(f"[kernels] {name}: the stock composition of one evaluation's "
+            f"calls takes {ms:.2f} ms")
 
 
 def unzero_(module, gen, std=0.02):

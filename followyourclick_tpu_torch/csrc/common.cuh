@@ -10,24 +10,18 @@
 // are rounded to the storage type exactly where the Pallas kernels cast
 // (`rnd<T>`), so the bf16 kernels reproduce the TPU kernels' numerics.
 //
-// Products (block_gemm_nt, block_gemm_nt_acc): 256 threads per block, a
-// row tile of MC = 16, 32 or 64 rows, A in shared memory, B (an nn.Linear
-// weight, K contiguous) read from device memory / L2.
-//  - bf16 with 16-aligned shapes (block_gemm_nt, fused_ln_cross_attention):
-//    tensor cores through WMMA (16 x 16 x 16 bf16 fragments, fp32
-//    accumulators); each warp owns whole 16 x 16 output tiles and loads its
-//    B fragments straight from L2.
-//  - otherwise (fp32, odd widths): fp32 FMA on shared-memory tiles, B staged
-//    k-major in k-slices of 32, a pass width of 64, 128 or 256 columns
-//    chosen per call, TM = MC * width / 1024 rows x 4 columns per thread.
+// Products (block_gemm_nt, block_gemm_nt_acc) of the fp32 all-on-chip
+// kernels: 256 threads per block, a row tile of MC = 16, 32 or 64 rows, A in
+// shared memory, B (an nn.Linear weight, K contiguous) read from device
+// memory / L2; fp32 FMA on shared-memory tiles, B staged k-major in k-slices
+// of 32, a pass width of 64, 128 or 256 columns chosen per call, TM = MC *
+// width / 1024 rows x 4 columns per thread. (The bf16 products run on the
+// wgmma GEMM core of gemm.cuh.)
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 namespace fyc {
 
@@ -40,11 +34,9 @@ constexpr int kBsPad = 4;   // keeps the k-major rows 16-byte aligned
 constexpr int kBsElems = kKS * (kBNMax + kBsPad);  // staging tile, elements
 constexpr int kJC = 64;     // chunk of the FF inner dimension
 
-// bytes of the per-block work buffer of the products: the FMA path's
-// staging tile, or the WMMA path's per-warp 16 x 16 fp32 tiles
+// bytes of the per-block work buffer of the products: the staging tile
 __host__ __device__ constexpr size_t work_bytes(size_t tsize) {
-  return kBsElems * tsize > kWarps * 256 * 4 ? kBsElems * tsize
-                                             : kWarps * 256 * 4;
+  return kBsElems * tsize;
 }
 
 // rows a buffer needs for an M-row tile: whole 16-row fragments
@@ -243,61 +235,6 @@ __device__ void gemm_nt_fma(const T* A, int lda, int M, const T* Blo,
 }
 
 using bf16 = __nv_bfloat16;
-namespace wmma = nvcuda::wmma;
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-// shapes and pointers the WMMA path takes: 16-element multiples, 32-byte
-// aligned fragment starts
-static __device__ __forceinline__ bool wmma_ok(const void* A, int lda,
-                                               const void* Blo,
-                                               const void* Bhi, int split,
-                                               int ldb, int N, int K) {
-  return N % 16 == 0 && K % 16 == 0 && lda % 8 == 0 && ldb % 8 == 0 &&
-         split % 16 == 0 && (((uintptr_t)A | (uintptr_t)Blo | (uintptr_t)Bhi)
-                             & 31) == 0;
-}
-
-// c += A[16 rows at a] . B[16 rows at b]^T over K
-static __device__ __forceinline__ void wmma_tile(FragC& c, const bf16* a,
-                                                 int lda, const bf16* b,
-                                                 int ldb, int K) {
-  for (int k = 0; k < K; k += 16) {
-    FragA fa;
-    FragB fb;
-    wmma::load_matrix_sync(fa, a + k, lda);
-    wmma::load_matrix_sync(fb, b + k, ldb);
-    wmma::mma_sync(c, fa, fb, c);
-  }
-}
-
-// WMMA path: each warp takes whole 16 x 16 output tiles; the tile goes
-// through the warp's 16 x 16 fp32 slice of `work` to the epilogue. Rows of
-// the last fragment past M read (and compute) scratch rows and are dropped.
-template <typename Epi>
-__device__ void gemm_nt_wmma(const bf16* A, int lda, int M, const bf16* Blo,
-                             const bf16* Bhi, int split, int ldb, int N,
-                             int K, float* work, Epi& epi) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int mt = (M + 15) / 16, nt = N / 16;
-  float* tile = work + warp * 256;
-  for (int t = warp; t < mt * nt; t += kWarps) {
-    const int fm = t % mt, n0 = t / mt * 16;
-    const bf16* b = n0 < split ? Blo + (size_t)n0 * ldb
-                               : Bhi + (size_t)(n0 - split) * ldb;
-    FragC c;
-    wmma::fill_fragment(c, 0.f);
-    wmma_tile(c, A + (size_t)fm * 16 * lda, lda, b, ldb, K);
-    wmma::store_matrix_sync(tile, c, 16, wmma::mem_row_major);
-    __syncwarp();
-    for (int e = lane; e < 256; e += 32) {
-      const int m = fm * 16 + e / 16;
-      if (m < M) epi(m, n0 + e % 16, tile[e]);
-    }
-    __syncwarp();
-  }
-}
 
 // out[m, n] = sum_k A[m * lda + k] * B[n, k] for m < M <= MC, n < N, fp32
 // accumulation; calls epi(m, n, value) once per output. B row n is
@@ -310,13 +247,6 @@ __device__ void block_gemm_nt(const T* A, int lda, int M, const T* Blo,
                               const T* Bhi, int split, int ldb, int N, int K,
                               void* work, Epi epi) {
   __syncthreads();
-  if constexpr (std::is_same<T, bf16>::value) {
-    if (wmma_ok(A, lda, Blo, Bhi, split, ldb, N, K)) {
-      gemm_nt_wmma(A, lda, M, Blo, Bhi, split, ldb, N, K, (float*)work, epi);
-      __syncthreads();
-      return;
-    }
-  }
   gemm_nt_fma<T, MC>(A, lda, M, Blo, Bhi, split, ldb, N, K, (T*)work, epi);
   __syncthreads();
 }
@@ -421,7 +351,6 @@ __device__ void ff_accumulate(const T* xn, int M, int C, int inner,
 }
 
 // bump allocator over the dynamic shared-memory buffer, 128-byte aligned
-// (WMMA fragment loads need 32)
 struct SmemCursor {
   size_t off = 0;
   template <typename U> __host__ __device__ size_t take(size_t count) {

@@ -55,18 +55,7 @@ namespace fyc {
 constexpr float kFaMask = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
-static __device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // ---- bf16: wgmma, TMA, warp-specialised ------------------------------------
-
-static __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
 
 template <int R>
 static __device__ __forceinline__ void fence_u32(uint32_t (&a)[R][4]) {

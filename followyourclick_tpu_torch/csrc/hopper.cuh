@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks of the port's wgmma kernels
-// (flash_attention.cu, gemm.cuh), in raw PTX:
+// (flash_attention.cu, gemm.cuh) and of the mma.sync kernels, in raw PTX:
 //  - mbarrier: init, arrive, arrive with an expected transaction count,
 //    wait on a phase parity;
 //  - TMA: tiled loads (cp.async.bulk.tensor, 2-D and 4-D) from a
@@ -8,7 +8,11 @@
 //  - wgmma: shared-memory matrix descriptors for the 128-byte swizzle, the
 //    fence / commit / wait of the async groups, and m64nNk16 bf16 products
 //    with fp32 accumulators (A from shared memory or from registers);
-//  - setmaxnreg and named barriers for warp-specialised blocks.
+//  - setmaxnreg and named barriers for warp-specialised blocks;
+//  - warp-level pieces of the mma.sync kernels (temporal_attention.cu,
+//    cross_attention.cu, groupnorm.cu): 16-byte cp.async with zero fill,
+//    ldmatrix, m16n8k16 bf16 products, bf16 packing, and the softmax
+//    attention of one head's query rows on one warp built from them.
 //
 // Layout convention (all tiles): rows of 64 bf16 = 128 bytes, written by
 // TMA with CU_TENSOR_MAP_SWIZZLE_128B, so the 16-byte chunk c of row r sits
@@ -25,6 +29,7 @@
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace fyc {
@@ -374,6 +379,167 @@ template <> struct Wgmma<96> {
           "n"(TB));
   }
 };
+
+// ---- warp-level: cp.async and mma.sync ------------------------------------
+
+// 16 bytes global -> shared, or 16 zero bytes when !live (src unread)
+static __device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                                  bool live) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(live ? 16 : 0)
+               : "memory");
+}
+
+static __device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                   : "memory");
+}
+
+// close the group of this thread's cp.async copies issued since the last
+static __device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed groups are in flight
+template <int N> static __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+static __device__ __forceinline__ void ldsm_x4(uint32_t* r, uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+static __device__ __forceinline__ void ldsm_x2_trans(uint32_t* r,
+                                                     uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(addr)
+      : "memory");
+}
+
+// d += a . b, m16n8k16, bf16 operands, fp32 accumulators
+static __device__ __forceinline__ void mma16816(float* d, const uint32_t* a,
+                                                uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x on the special-function unit (about 2 ulp; -inf gives 0)
+static __device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+static __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Softmax attention of Sq query rows against Skv <= SP keys of one head on
+// one warp, bf16 on the tensor cores (mma.sync m16n8k16). qs: Sq rows
+// rounded up to 16, ks, vs: SP rows, each of `ls` elements (an odd multiple
+// of 16 bytes), columns [D, cols) zero, k and v rows [Skv, SP) zero. The
+// logits in fp32 times `scale`, keys at or beyond Skv masked; the softmax in
+// fp32, each exponential taken once as 2^((x - max) log2 e) on the
+// special-function unit (the scale and log2 e folded into one multiply),
+// the weights the exponentials times the reciprocal of their sum; p rounded
+// to bf16; o = p . v accumulated in fp32, rounded to bf16, overwrites q's
+// rows.
+template <int SP>
+__device__ void mma_attention(__nv_bfloat16* qs, const __nv_bfloat16* ks,
+                              const __nv_bfloat16* vs, int ls, int Sq,
+                              int Skv, int D, int cols, float scale) {
+  constexpr int NT = SP / 8;  // key tiles of the score product
+  constexpr int KT = SP / 16;  // key steps of p . v
+  const int lane = threadIdx.x % 32, g = lane / 4, tq = lane % 4;
+  const uint32_t qa = smem_u32(qs), ka = smem_u32(ks), va = smem_u32(vs);
+  const float sl = scale * 1.4426950408889634f;  // scale * log2 e
+  for (int m0 = 0; m0 < Sq; m0 += 16) {
+    // scores of query rows m0 + g (s[.][0..1]) and m0 + g + 8 (s[.][2..3])
+    // against keys nt * 8 + 2 * tq + {0, 1}
+    float s[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+    for (int k0 = 0; k0 < cols; k0 += 16) {
+      uint32_t a[4];
+      ldsm_x4(a, qa + 2 * ((m0 + (lane & 15)) * ls + k0 + (lane >> 4) * 8));
+#pragma unroll
+      for (int nt = 0; nt < NT; nt += 2) {
+        uint32_t b[4];
+        ldsm_x4(b, ka + 2 * ((nt * 8 + (lane >> 4) * 8 + (lane & 7)) * ls +
+                             k0 + ((lane >> 3) & 1) * 8));
+        mma16816(s[nt], a, b[0], b[1]);
+        mma16816(s[nt + 1], a, b[2], b[3]);
+      }
+    }
+    // fp32 softmax over the Skv live keys; a row's values lie in one quad
+    float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = nt * 8 + 2 * tq + (e & 1);
+        s[nt][e] = key < Skv ? s[nt][e] * sl : -INFINITY;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[nt][e] = ex2(s[nt][e] - mx[e >> 1]);
+        sum[e >> 1] += s[nt][e];
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
+    }
+    // p rounded to bf16: key tiles 2 kk and 2 kk + 1 as the A operand of
+    // key step kk
+    const float inv0 = 1.f / sum[0], inv1 = 1.f / sum[1];
+    uint32_t p[KT][4];
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int nt = 2 * kk + h;
+        p[kk][2 * h] = pack_bf16(s[nt][0] * inv0, s[nt][1] * inv0);
+        p[kk][2 * h + 1] = pack_bf16(s[nt][2] * inv1, s[nt][3] * inv1);
+      }
+    __syncwarp();  // q's rows m0.. are read; o may overwrite them
+    for (int n0 = 0; n0 < D; n0 += 8) {
+      float o[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int kk = 0; kk < KT; ++kk) {
+        uint32_t b[2];
+        ldsm_x2_trans(b, va + 2 * ((kk * 16 + (lane & 15)) * ls + n0));
+        mma16816(o, p[kk], b[0], b[1]);
+      }
+      __nv_bfloat16* row = qs + (m0 + g) * ls + n0 + 2 * tq;
+      *reinterpret_cast<__nv_bfloat162*>(row) =
+          __floats2bfloat162_rn(o[0], o[1]);
+      *reinterpret_cast<__nv_bfloat162*>(row + 8 * ls) =
+          __floats2bfloat162_rn(o[2], o[3]);
+    }
+  }
+}
 
 }  // namespace hopper
 }  // namespace fyc

@@ -30,7 +30,8 @@
 //    shared-memory stages measured no faster: PERF.md, PR 8.)
 //  - each (position, head) is one warp's: no block-wide barrier between
 //    the two products and the softmax.
-//  - bf16 runs both products on the tensor cores with mma.sync m16n8k16:
+//  - bf16 runs both products on the tensor cores with mma.sync m16n8k16
+//    (hopper.cuh's mma_attention, shared with cross_attention.cu):
 //    S padded to 16 or 32 rows (one or two M tiles; padded keys masked to
 //    -inf, padded query rows discarded), D padded to a multiple of 16 with
 //    zeros for the score product. The scores stay in fp32 accumulators; the
@@ -99,145 +100,14 @@ static int ta_heads_per_tile(int S, int H, int D, int tsize) {
   return best;
 }
 
-using hopper::smem_u32;
-
-// 16 bytes global -> shared, or 16 zero bytes when !live (src unread)
-static __device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                                  bool live) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(live ? 16 : 0)
-               : "memory");
-}
-
-static __device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
-                   : "memory");
-}
-
-static __device__ __forceinline__ void ldsm_x4(uint32_t* r, uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-
-static __device__ __forceinline__ void ldsm_x2_trans(uint32_t* r,
-                                                     uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-      : "=r"(r[0]), "=r"(r[1])
-      : "r"(addr)
-      : "memory");
-}
-
-// d += a . b, m16n8k16, bf16 operands, fp32 accumulators
-static __device__ __forceinline__ void mma16816(float* d, const uint32_t* a,
-                                                uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-static __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
+using hopper::cp_async16;
+using hopper::cp_async_wait_all;
 
 static __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
-}
-
-// One (position, head) on one warp, bf16 on the tensor cores. qs, ks, vs:
-// SP rows of `ls` elements, columns [D, cols) and rows [S, SP) zero. o
-// overwrites q's rows.
-template <int SP>
-__device__ void head_attention(bf16* qs, const bf16* ks, const bf16* vs,
-                               int ls, int S, int D, int cols, float scale) {
-  constexpr int NT = SP / 8;  // key tiles of the score product
-  constexpr int KT = SP / 16;  // key steps of p . v
-  const int lane = threadIdx.x % 32, g = lane / 4, tq = lane % 4;
-  const uint32_t qa = smem_u32(qs), ka = smem_u32(ks), va = smem_u32(vs);
-  for (int m0 = 0; m0 < S; m0 += 16) {
-    // scores of query rows m0 + g (s[.][0..1]) and m0 + g + 8 (s[.][2..3])
-    // against keys nt * 8 + 2 * tq + {0, 1}
-    float s[NT][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-    for (int k0 = 0; k0 < cols; k0 += 16) {
-      uint32_t a[4];
-      ldsm_x4(a, qa + 2 * ((m0 + (lane & 15)) * ls + k0 + (lane >> 4) * 8));
-#pragma unroll
-      for (int nt = 0; nt < NT; nt += 2) {
-        uint32_t b[4];
-        ldsm_x4(b, ka + 2 * ((nt * 8 + (lane >> 4) * 8 + (lane & 7)) * ls +
-                             k0 + ((lane >> 3) & 1) * 8));
-        mma16816(s[nt], a, b[0], b[1]);
-        mma16816(s[nt + 1], a, b[2], b[3]);
-      }
-    }
-    // fp32 softmax over the S live keys; a row's values lie in one quad
-    float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = nt * 8 + 2 * tq + (e & 1);
-        s[nt][e] = key < S ? s[nt][e] * scale : -INFINITY;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
-      }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-    }
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[nt][e] = expf(s[nt][e] - mx[e >> 1]);
-        sum[e >> 1] += s[nt][e];
-      }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
-      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
-    }
-    // p rounded to bf16: key tiles 2 kk and 2 kk + 1 as the A operand of
-    // key step kk
-    uint32_t p[KT][4];
-#pragma unroll
-    for (int kk = 0; kk < KT; ++kk)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int nt = 2 * kk + h;
-        p[kk][2 * h] = pack_bf16(s[nt][0] / sum[0], s[nt][1] / sum[0]);
-        p[kk][2 * h + 1] = pack_bf16(s[nt][2] / sum[1], s[nt][3] / sum[1]);
-      }
-    __syncwarp();  // q's rows m0.. are read; o may overwrite them
-    for (int n0 = 0; n0 < D; n0 += 8) {
-      float o[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int kk = 0; kk < KT; ++kk) {
-        uint32_t b[2];
-        ldsm_x2_trans(b, va + 2 * ((kk * 16 + (lane & 15)) * ls + n0));
-        mma16816(o, p[kk], b[0], b[1]);
-      }
-      bf16* row = qs + (m0 + g) * ls + n0 + 2 * tq;
-      *reinterpret_cast<__nv_bfloat162*>(row) =
-          __floats2bfloat162_rn(o[0], o[1]);
-      *reinterpret_cast<__nv_bfloat162*>(row + 8 * ls) =
-          __floats2bfloat162_rn(o[2], o[3]);
-    }
-  }
 }
 
 // One (position, head) on one warp, fp32 on FMA. qs, ks, vs: S rows of `ls`
@@ -325,8 +195,8 @@ frame_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int hh = warp; hh < hpt; hh += nw) {
     T* qs = smem + hh * per_head;
     if constexpr (kTs == 2)
-      head_attention<SP>(qs, qs + per_tensor, qs + 2 * per_tensor, ls, S, D,
-                         cols, scale);
+      hopper::mma_attention<SP>(qs, qs + per_tensor, qs + 2 * per_tensor,
+                                ls, S, S, D, cols, scale);
     else
       head_attention(qs, qs + per_tensor, qs + 2 * per_tensor, ls, S, D,
                      scale);

@@ -15,6 +15,7 @@ maps come from the driver's ``cuTensorMapEncodeTiled``, which
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -45,16 +46,20 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
+    "fyc_cross_attention_bf16": (_I, [_P] * 4 + [_I] * 5 + [_F, _P]),
     "fyc_flash_attention": (_I, [_P] * 4 + [_I] * 5 + [_F, _I, _P]),
     "fyc_geglu": (_I, [_P] * 6 + [_I] * 5 + [_P]),
     "fyc_geglu_down_bf16": (_I, [_P] * 5 + [_I] * 3 + [_P]),
     "fyc_geglu_up_bf16": (_I, [_P] * 4 + [_I] * 4 + [_P]),
     "fyc_group_norm": (_I, [_P] * 5 + [_I] * 5 + [_F, _I, _I, _P]),
+    "fyc_group_norm_cluster": (_I, [_P] * 4 + [_I] * 6 + [_F, _I, _I, _P]),
+    "fyc_group_norm_max_clusters": (_I, [_I] * 4),
     "fyc_ln_cross_attention": (_I, [_P] * 9 + [_I] * 6 + [_F, _F, _I, _I,
                                                           _P]),
     "fyc_ln_cross_attention_smem_bytes": (ctypes.c_longlong, [_I] * 6),
     "fyc_ln_geglu": (_I, [_P] * 8 + [_I, _I, _I, _F, _I, _I, _I, _P]),
     "fyc_ln_geglu_smem_bytes": (ctypes.c_longlong, [_I, _I]),
+    "fyc_linear_bf16": (_I, [_P] * 3 + [_I] * 3 + [_P]),
     "fyc_ln_rows_bf16": (_I, [_P] * 5 + [_I, _I, _I, _F, _P]),
     "fyc_motion_block": (_I, [_P, _P, ctypes.POINTER(_P), _P]
                          + [_I] * 5 + [_F, _F, _I, _P]),
@@ -148,6 +153,22 @@ def load_library() -> ctypes.CDLL:
         fn.restype = restype
         fn.argtypes = argtypes
     return lib
+
+
+def stream(t: torch.Tensor) -> int:
+    """The handle of the current CUDA stream of ``t``'s device, as
+    ``torch.cuda.current_stream(t.device).cuda_stream`` gives it, without
+    building a ``Stream`` object on every launch."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
+def on_device(t: torch.Tensor):
+    """A context that makes ``t``'s card the current device (a no-op where
+    it already is)."""
+    idx = t.get_device()
+    if idx == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(idx)
 
 
 def check(err: int, what: str) -> None:

@@ -169,7 +169,7 @@ def _check(what, x, ln_params, ff_params) -> None:
 
 
 def _stream(x: torch.Tensor) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
+    return _build.stream(x)
 
 
 # One device launch of a bf16 stage each, on (R, ·) row-major CUDA tensors,

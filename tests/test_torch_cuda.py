@@ -27,6 +27,8 @@ from followyourclick_tpu_torch.models.motion_module import MotionModule
 from followyourclick_tpu_torch.models.pab import PabMode
 from followyourclick_tpu_torch.models.attention import GEGLUFeedForward
 from followyourclick_tpu_torch.ops.attention import dot_product_attention
+from followyourclick_tpu_torch.ops import _build
+from followyourclick_tpu_torch.ops import cross_attention as ca
 from followyourclick_tpu_torch.ops.cross_attention import (
     fused_ln_cross_attention,
     ln_cross_attention_ref,
@@ -49,7 +51,10 @@ from followyourclick_tpu_torch.ops.geglu import (
 )
 from followyourclick_tpu_torch.ops.groupnorm import (
     fused_group_norm,
+    group_norm_path,
     group_norm_ref,
+    launch_cluster,
+    launch_two_pass,
 )
 from followyourclick_tpu_torch.ops.motion_block import (
     attention_bf16,
@@ -566,6 +571,107 @@ def test_cross_attention_kernel_matches_plain(card, dtype, b, s, c, heads,
     assert fused_ln_cross_attention.launches == before + 1
     assert got.dtype == dtype and got.shape == (b, s, c)
     assert_close(got, ln_cross_attention_ref(*args, heads=heads),
+                 FP32_REL if dtype == F32 else BF16_REL)
+
+
+# The bf16 call's four launches one by one, each against its plain stage on
+# the same inputs (the kernels' own outputs feed the next stage), then the
+# wrapper against the plain call twice, bit for bit: D = 40, 80, 160 and 16,
+# Skv = 77, 128, 1 and 7, S off the 128-row tiles; at 32 x 2000 an
+# attention block walks several query tiles (two buffers), the last ragged
+@pytest.mark.parametrize("b,s,c,heads,skv", [(2, 333, 320, 8, 77),
+                                             (2, 256, 640, 8, 128),
+                                             (2, 200, 1280, 8, 1),
+                                             (3, 100, 64, 4, 7),
+                                             (32, 2000, 320, 8, 77)])
+def test_cross_attention_stages_match_plain(card, b, s, c, heads, skv):
+    args = cross_args(np.random.RandomState(c + skv), b, s, c, skv, BF16)
+    x, ctx, ls, lb, wq, wk, wv, wo, bo = args
+    r, scale = b * s, (c // heads) ** -0.5
+    k, v = ca.project_kv(ctx, wk, wv)
+    xn = torch.empty_like(x)
+    ln_rows_bf16(x.view(r, c), ls, lb, xn.view(r, c), 1e-5)
+    assert_close(xn, layer_norm_cast(x, ls, lb, 1e-5), BF16_REL)
+    q = torch.empty_like(x)
+    ca.linear_bf16(xn.view(r, c), wq, q.view(r, c))
+    assert_close(q, ca.q_stage(xn, wq), BF16_REL)
+    o = torch.empty_like(q)
+    ca.attention_bf16(q, k, v, o, heads, scale)
+    assert_close(o, ca.attention_stage(q, k, v, heads, scale), BF16_REL)
+    out = torch.empty_like(x)
+    down_bf16(o.view(r, c), wo, bo, None, out.view(r, c))
+    assert_close(out, down_stage(o, wo, bo, None), BF16_REL)
+    before = fused_ln_cross_attention.launches
+    got = fused_ln_cross_attention(*args, heads=heads)
+    again = fused_ln_cross_attention(*args, heads=heads)
+    assert fused_ln_cross_attention.launches == before + 2
+    assert torch.equal(got, again)
+    assert_close(got, ln_cross_attention_ref(*args, heads=heads), BF16_REL)
+    torch.cuda.synchronize()
+
+
+# the four attn2 shapes of the 16-frame 512² CFG step: 32 rows of 64², 32²,
+# 16² and 8² tokens over 77 keys of 768 channels, 8 heads
+@pytest.mark.parametrize("s,c", [(4096, 320), (1024, 640), (256, 1280),
+                                 (64, 1280)])
+def test_cross_attention_at_the_attn2_shapes(card, s, c):
+    args = cross_args(np.random.RandomState(s), 32, s, c, 77, BF16)
+    before = fused_ln_cross_attention.launches
+    got = fused_ln_cross_attention(*args, heads=8)
+    assert fused_ln_cross_attention.launches == before + 1
+    assert_close(got, ln_cross_attention_ref(*args, heads=8), BF16_REL)
+
+
+def _group_norm_args(rs, b, n, c, dtype):
+    return (_randn(rs, (b, n, c), 1.0, dtype) + 2.0,
+            1.0 + _randn(rs, (c,), 0.05, dtype), _randn(rs, (c,), 0.05, dtype))
+
+
+# Each path forced, on (B, N, C, groups): C = 320, 960, 2560 with 10 and 80
+# channels a group, N = 1, and N off every chunk and row tile; the cluster
+# path takes 16 blocks of rows (1 at N = 1), the two-pass path 24 chunks
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("path", ["cluster", "two_pass"])
+@pytest.mark.parametrize("b,n,c,groups,act", [
+    (2, 1, 320, 32, None), (3, 333, 320, 32, "silu"),
+    (2, 37, 960, 12, "silu"), (1, 700, 960, 96, None),
+    (2, 201, 2560, 32, "silu"), (2, 77, 2560, 256, None)])
+def test_group_norm_paths_match_plain(card, dtype, path, b, n, c, groups,
+                                      act):
+    x, scale, bias = _group_norm_args(np.random.RandomState(n + c), b, n, c,
+                                      dtype)
+    outs = [torch.empty_like(x) for _ in range(2)]
+    for out in outs:
+        if path == "cluster":
+            cs = 16 if n >= 16 else 1
+            launch_cluster(x, scale, bias, groups, 1e-5, act, cs, -(-n // cs),
+                           out)
+        else:
+            launch_two_pass(x, scale, bias, groups, 1e-5, act,
+                            max(1, -(-n // 24)), out)
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])  # no float atomics: bit for bit
+    assert_close(outs[0], group_norm_ref(x, scale, bias, groups, 1e-5, act),
+                 FP32_REL if dtype == F32 else BF16_REL)
+
+
+# the slabs just inside and just outside the cluster path's limit (16 blocks
+# of 227 KB), through the wrapper, which counts one launch a call
+@pytest.mark.parametrize("n,c,dtype,want", [
+    (5264, 320, BF16, "cluster"), (5265, 320, BF16, "two_pass"),
+    (1152, 1280, BF16, "cluster"), (1153, 1280, BF16, "two_pass"),
+    (2624, 320, F32, "cluster"), (2625, 320, F32, "two_pass")])
+def test_group_norm_at_the_on_chip_limit(card, n, c, dtype, want):
+    x, scale, bias = _group_norm_args(np.random.RandomState(n), 2, n, c, dtype)
+    path = group_norm_path(2, n, c, dtype)
+    assert path[0] == want
+    if want == "cluster":  # the card places such a cluster
+        assert _build.load_library().fyc_group_norm_max_clusters(
+            c, path[1], path[2], _build.DTYPE_CODES[dtype]) >= 1
+    before = fused_group_norm.launches
+    got = fused_group_norm(x, scale, bias, 32, 1e-6, None)
+    assert fused_group_norm.launches == before + 1
+    assert_close(got, group_norm_ref(x, scale, bias, 32, 1e-6, None),
                  FP32_REL if dtype == F32 else BF16_REL)
 
 

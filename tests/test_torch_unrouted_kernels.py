@@ -27,6 +27,8 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
+
 from followyourclick_tpu.models import attention as jatt
 from followyourclick_tpu.ops import cross_attention as jca
 from followyourclick_tpu.ops import geglu as jgeglu
@@ -38,9 +40,14 @@ from followyourclick_tpu_torch.ops.cross_attention import (
 )
 from followyourclick_tpu_torch.ops.geglu import fused_geglu, geglu_ref
 from followyourclick_tpu_torch.ops.groupnorm import (
+    cluster_smem,
     fused_group_norm,
+    group_norm_path,
     group_norm_ref,
+    two_pass_chunks,
 )
+from followyourclick_tpu_torch.config import InferenceConfig
+from followyourclick_tpu_torch.pipelines.animation import SampleSpec
 from followyourclick_tpu_torch.utils.convert import load_jax_params
 from tests.test_torch_unet import random_tree
 
@@ -164,6 +171,88 @@ def test_group_norm_cpu_wrapper_is_the_plain_version():
     torch.testing.assert_close(got, group_norm_ref(*t, groups=8, act="silu"),
                                rtol=0, atol=0)
     assert fused_group_norm.launches == before
+
+
+# (B, N, C) of the 20 GroupNorm site shapes of one exact evaluation at 16 f
+# / 512² with CFG (chip_smoke.group_norm_sites) and the path each takes in
+# bf16 and in fp32: every per-frame site (B = 16, 32) and the resnet sites
+# at (2, 1024, 1280), batch rows of at most 2.62 MB in bf16, run on the
+# cluster path in bf16, each in the fewest blocks (a power of two) that
+# hold it, at least 2 a row at B = 32; fp32 keeps only the per-frame rows
+# of at most 1.31 MB there
+GN_SITE_PATHS = {
+    (1, 65536, 320): ("two_pass", "two_pass"),
+    (16, 4096, 320): (("cluster", 16), "two_pass"),
+    (2, 1024, 1280): (("cluster", 16), "two_pass"),
+    (2, 1024, 2560): ("two_pass", "two_pass"),
+    (2, 16384, 1280): ("two_pass", "two_pass"),
+    (2, 16384, 1920): ("two_pass", "two_pass"),
+    (2, 16384, 320): ("two_pass", "two_pass"),
+    (2, 16384, 640): ("two_pass", "two_pass"),
+    (2, 16384, 960): ("two_pass", "two_pass"),
+    (2, 4096, 1280): ("two_pass", "two_pass"),
+    (2, 4096, 1920): ("two_pass", "two_pass"),
+    (2, 4096, 2560): ("two_pass", "two_pass"),
+    (2, 4096, 640): ("two_pass", "two_pass"),
+    (2, 65536, 320): ("two_pass", "two_pass"),
+    (2, 65536, 640): ("two_pass", "two_pass"),
+    (2, 65536, 960): ("two_pass", "two_pass"),
+    (32, 1024, 640): (("cluster", 8), ("cluster", 16)),
+    (32, 256, 1280): (("cluster", 4), ("cluster", 8)),
+    (32, 4096, 320): (("cluster", 16), "two_pass"),
+    (32, 64, 1280): (("cluster", 2), ("cluster", 2)),
+}
+
+
+def test_group_norm_site_table_is_the_models():
+    sites = chip_smoke.group_norm_sites(InferenceConfig().unet, SampleSpec())
+    assert sum(sites.values()) == 81
+    assert {key[:3] for key in sites} == set(GN_SITE_PATHS)
+
+
+def _check_path(path, want, b, n, c, dtype):
+    kind, count, rows = path
+    if want == "two_pass":
+        assert kind == "two_pass"
+        assert count == two_pass_chunks(n, rows) and count % 8 == 0
+        assert (count - 8) * rows < n <= count * rows
+    else:
+        assert (kind, count) == want
+        assert rows == -(-n // count)
+        assert cluster_smem(rows, c, dtype) <= 232448
+
+
+@pytest.mark.parametrize("b,n,c", sorted(GN_SITE_PATHS))
+def test_group_norm_path_at_every_site(b, n, c):
+    """The path is a function of (B, N, C, dtype) alone."""
+    for dtype, want in zip((torch.bfloat16, torch.float32),
+                           GN_SITE_PATHS[(b, n, c)]):
+        _check_path(group_norm_path(b, n, c, dtype), want, b, n, c, dtype)
+
+
+# the largest N whose batch row 16 blocks hold: rows · C · bytes plus the
+# scratch, (2 · row groups + 5) · C fp32 words (row groups 6 at C =
+# 320, 2 at 1280, 1 at 2560), within the 232,448 bytes of a block
+@pytest.mark.parametrize("c,dtype,n", [(320, torch.bfloat16, 5264),
+                                       (1280, torch.bfloat16, 1152),
+                                       (2560, torch.bfloat16, 496),
+                                       (320, torch.float32, 2624)])
+def test_group_norm_path_at_the_on_chip_limit(c, dtype, n):
+    rows = n // 16
+    assert cluster_smem(rows, c, dtype) <= 232448
+    assert cluster_smem(rows + 1, c, dtype) > 232448
+    assert group_norm_path(2, n, c, dtype) == ("cluster", 16, rows)
+    _check_path(group_norm_path(2, n + 1, c, dtype), "two_pass", 2, n + 1, c,
+                dtype)
+
+
+def test_group_norm_path_spreads_small_calls():
+    """Rows that fit one block still spread over a cluster until the call
+    spans 64 blocks, as far as N allows; N = 1 takes one block."""
+    assert group_norm_path(2, 64, 320, torch.bfloat16) == ("cluster", 16, 4)
+    assert group_norm_path(32, 37, 64, torch.bfloat16) == ("cluster", 2, 19)
+    assert group_norm_path(64, 37, 64, torch.bfloat16) == ("cluster", 1, 37)
+    assert group_norm_path(3, 1, 2560, torch.float32) == ("cluster", 1, 1)
 
 
 # -------------------------------------------------- LN → cross-attention
