@@ -5,8 +5,9 @@
 
 Builds the kernels and the default ``InferenceConfig`` pipeline as
 ``chip_smoke.py`` does (bf16, seeded random weights, 16 frames, 512², CFG 8)
-and, for ``pab488_deep4_cfg4_ex`` at 10 steps, the exact sampler at 4 steps
-and the exact sampler at 4 steps with two clips per request (batched
+and, for ``pab488_deep4_cfg4_ex`` at 10 steps, the exact sampler at 4 steps,
+the exact sampler at 4 steps with ``video_scale = 1.5`` (its per-frame
+pass), and the exact sampler at 4 steps with two clips per request (batched
 serving, whose level-0 self-attention takes the flash-attention kernel),
 then, with that pipeline freed, for the IP-Adapter Plus configuration
 (``chip_smoke.full_pipeline(ip_plus=True)``: ViT-H/14 tower, Resampler, 16
@@ -25,6 +26,7 @@ toolkit; imports no JAX.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import gc
 import json
 import os
@@ -137,6 +139,8 @@ def main() -> int:
             SampleSpec(num_inference_steps=chip_smoke.SERVING_STEPS),
             chip_smoke.SERVING_SCHEDULE), 1, False),
         "exact": (exact, 1, False),
+        "exact_video_scale": (dataclasses.replace(exact, video_scale=1.5), 1,
+                              False),
         f"exact_{chip_smoke.BATCH}clips": (exact, chip_smoke.BATCH, False),
         "exact_ip_plus": (exact, 1, True),
     }

@@ -20,7 +20,9 @@ result line:
    the modular kernels on the same block (two ``fused_temporal_block`` and
    one LN-GEGLU); the bf16 ``fused_temporal_block`` launch by launch (q/k/v,
    attention, out-projection) with the host's time to enqueue a call; the
-   frame attention also at the motion block's stage (c) shapes. The three
+   frame attention also at the motion block's stage (c) shapes; the motion
+   block also at one frame (F = 1), in bf16 and fp32, at the positions and
+   widths of the ``video_scale`` per-frame pass. The three
    kernels no path routes (as in the JAX package) run at the shapes their
    sites would give them: ``fused_geglu`` at the
    LN-GEGLU rows, ``fused_group_norm`` at each of the 81 GroupNorm sites of
@@ -36,7 +38,10 @@ result line:
    spatial self-attention of ≤ 32 tokens takes the tiny-sequence kernel:
    one on the exact sampler, one under ``pab244_deep4_cfg4_ex``, and with
    an IP-Adapter image prompt (a tiny CLIP vision tower): vanilla and Plus
-   on the exact sampler, vanilla under ``pab244_deep4_cfg4_ex``;
+   on the exact sampler, vanilla under ``pab244_deep4_cfg4_ex``; a
+   camera-conditioned UNet with a merged motion LoRA; DPM-Solver++;
+   Euler-A with the same injected step noise on both devices; and
+   ``video_scale = 1.5``;
 4. two UNet evaluations at full width (the default ``InferenceConfig``,
    1.28 B UNet parameters, seeded random weights) in bf16 at 16 frames,
    512², on the CFG batch: one on the exact sampler's path (the
@@ -58,18 +63,33 @@ result line:
    sampler and under ``pab488_deep4_cfg4_ex``; level-0 spatial
    self-attention of the doubled CFG batch (16 GiB of bf16 scores) takes the
    flash-attention kernel;
-8. IP-Adapter Plus (BASELINE config 3), built after the earlier pipeline
+8. sampler options, one one-clip request each on that pipeline: every
+   solver but DDIM at ``SOLVER_STEPS``, DDIM at ``eta = 1``, no CFG, the
+   unshared CFG prefix (held to the shared-prefix request with the same
+   noise), ``video_scale = 1.5`` (the per-frame pass: 20 more motion-block
+   calls a step at F = 1), the init image with residual noise and a
+   partial mask; then the chunked decode (``frame_chunk = 4``) against the
+   one-batch decode;
+9. camera LoRA (BASELINE config 4), built after the earlier pipeline is
+   freed: the default widths with the camera-motion embedding, one bf16
+   evaluation (which builds the motion modules' ``[Wq; Wk; Wv]`` caches),
+   a merged synthetic motion LoRA in the reference key format, the caches
+   checked rebuilt, phase 4's check of the merged UNet, then two one-clip
+   requests on the exact sampler that differ only in the camera type
+   (``pan_left``, ``zoom_in``) and must give different videos;
+10. IP-Adapter Plus (BASELINE config 3), built after the earlier pipeline
    is freed: the default widths with ``use_ip_cross_attention`` and 16 ip
    tokens, the CLIP ViT-H/14 tower (32 layers, 1280 wide) and the
    Resampler (depth 4, 12 heads, 16 queries); two one-clip requests with
    different images on the exact sampler (``--steps``), and the ip encode
    alone (tower and Resampler, condition and black image) by CUDA events.
 
-Phases 5 to 8 are the main paths: each sets every kernel's launch count to
+Phases 5 to 10 are the main paths: each sets every kernel's launch count to
 0 before each request and checks the request's counts against those its
-``step_plan`` gives at its batch and against the counts worked out by hand
-(the three unrouted kernels: 0), and prints time, video statistics per clip
-and peak memory. The
+:func:`expected_launches` gives at its batch (from ``request_plan``: the
+solver's calls, CFG or not, the per-frame pass) and, where given, against
+the counts worked out by hand (the three unrouted kernels: 0), and prints
+time, video statistics per clip and peak memory. The
 second-to-last line is the JSON kernel table, the last line
 ``{"ok": true, "device": {...}}``. The script needs torch with CUDA, numpy
 and the CUDA toolkit; it imports no JAX.
@@ -130,6 +150,10 @@ GEGLU_SHAPES = [((131072, 320), 5), ((32768, 640), 5), ((8192, 1280), 5),
                 ((2048, 1280), 1)]
 MOTION_SHAPES = [((8192, 16, 320), 5), ((2048, 16, 640), 5),
                  ((512, 16, 1280), 5), ((128, 16, 1280), 5)]
+# the video_scale per-frame pass of one clip: the 16 frames folded into the
+# batch, one frame per position, 20 motion-block calls a step (positions, C)
+FRAME_PASS_MOTION_SHAPES = [((65536, 320), 5), ((16384, 640), 5),
+                            ((4096, 1280), 5), ((1024, 1280), 5)]
 # the modular path's frame-axis attention, per UNet evaluation that runs
 # the temporal sites on the full CFG batch (10 calls per shape; 0 on the
 # cond-only rows, which a schedule refreshing temporal attention on a
@@ -194,6 +218,26 @@ TINY_VISION = dict(hidden_size=32, intermediate_size=64, num_hidden_layers=2,
                    num_attention_heads=4, image_size=32, patch_size=16,
                    projection_dim=1024)
 IP_TOKENS = 16  # the Plus configuration's Resampler queries
+# the synthetic camera-motion LoRA (BASELINE config 4): rank, and the scale
+# of its up factor, which makes each merged delta about half as large as
+# the weight it lands on, so a kernel reading unmerged weights would fail
+# the evaluation bounds
+CAMERA_LORA_RANK = 8
+CAMERA_LORA_SCALE = 0.3
+# camera types of the two config-4 requests: pan_left and zoom_in
+CAMERA_TYPES = (0, 4)
+# steps of each solver's request in the sampler-options phase
+SOLVER_STEPS = 4
+# a full-width bf16 video against the same request through another batch
+# layout, on the [0, 1] video. The unshared CFG prefix rounds its stem at
+# another batch and 4 steps of CFG 8 amplify that: it must lie within
+# UNSHARED_SPREAD_RATIO times the relative L2 between the shared-prefix
+# request through the kernels and through their plain versions (two bf16
+# requests that round in different places, measured in the same run); a
+# wrong CFG layout would move it by order 1. The chunked decode (no
+# denoise) within EVAL_REL_L2, the phase-4 bound of two bf16 evaluations
+# that round in different places.
+UNSHARED_SPREAD_RATIO = 2.0
 SERVING_SCHEDULE = "pab488_deep4_cfg4_ex"
 SERVING_STEPS = 10
 # launches per serving request, worked out by hand from the schedule: the
@@ -611,6 +655,7 @@ def phase_kernels(seed):
         ln_geglu_ref,
     )
     from followyourclick_tpu_torch.ops.motion_block import (
+        fits,
         fused_motion_block,
         motion_block_ref,
         qkv_weights,
@@ -682,8 +727,7 @@ def phase_kernels(seed):
             f"{t['matmul (c)']:.3f} ms (a yardstick, not library_ms: no one "
             "call computes LN-GEGLU)")
 
-    for (p, f, c), count in MOTION_SHAPES:
-        heads = 8
+    def motion_params(c, dtype=bf):
         params = []
         for _ in range(2):
             params += [vec(c, base=1.0), vec(c)] + [
@@ -692,6 +736,11 @@ def phase_kernels(seed):
         params += [vec(c, base=1.0), vec(c),
                    randn(gen, (8 * c, c), c ** -0.5, bf), vec(8 * c, 0.02),
                    randn(gen, (c, 4 * c), (4 * c) ** -0.5, bf), vec(c, 0.02)]
+        return [t.to(dtype) for t in params]
+
+    for (p, f, c), count in MOTION_SHAPES:
+        heads = 8
+        params = motion_params(c)
         x = randn(gen, (p, f, c), 1.0, bf)
         pe = randn(gen, (f, c), 0.5, bf)
         scale = (c // heads) ** -0.5
@@ -729,6 +778,42 @@ def phase_kernels(seed):
             log(f"    modular yardstick: 2 x fused_temporal_block {tb:.3f} "
                 f"+ fused_ln_geglu {ff:.3f} = {2 * tb + ff:.3f} ms against "
                 f"the block's {ms:.3f} ms")
+    # the per-frame pass at F = 1, bf16 (its path) and fp32 where the
+    # all-on-chip kernel takes the width (C = 320; at 640 and 1280 one
+    # position's block overflows its shared memory even at one frame, and
+    # the model routes fp32 there to the modular path); timed, not summed
+    # into the exact evaluation's calls
+    frame_pass = {bf: 0.0, torch.float32: 0.0}
+    for (p, c), count in FRAME_PASS_MOTION_SHAPES:
+        heads, rows = 8, p
+        for dtype in (bf, torch.float32):
+            if not fits(1, c, heads, dtype):
+                log(f"  fused_motion_block P={p} F=1 C={c} "
+                    f"{str(dtype).split('.')[-1]}: not taken (fits() says "
+                    "no; the modular path's route)")
+                continue
+            params = motion_params(c, dtype)
+            x = randn(gen, (p, 1, c), 1.0, dtype)
+            pe = randn(gen, (1, c), 0.5, dtype)
+            fast = dtype == bf and c <= 640
+            qkv = qkv_weights(params) if dtype == bf else None
+            scale = (c // heads) ** -0.5
+            ms, _ = check(
+                "fused_motion_block",
+                f"fused_motion_block P={p} F=1 C={c} "
+                f"{str(dtype).split('.')[-1]} {'tanh' if fast else 'erf'} "
+                "(video_scale per-frame pass)",
+                lambda: fused_motion_block(x, pe, params, scale, heads,
+                                           fast_gating=fast, qkv=qkv),
+                lambda: motion_block_ref(x, pe, params, scale, heads,
+                                         fast_gating=fast),
+                0, 40 * rows * c * c + 8 * rows * c, [x, pe, *params],
+                tol=BF16_REL if dtype == bf else FP32_REL,
+                peak_ops=PEAK_BF16_OPS if dtype == bf else PEAK_FP32_OPS)
+            frame_pass[dtype] += count * ms
+    log(f"[kernels] fused_motion_block at F = 1: the 20 calls of one "
+        f"per-frame pass take {frame_pass[bf]:.1f} ms in bf16 (fp32: "
+        f"{frame_pass[torch.float32]:.1f} ms for the 5 calls at C = 320)")
 
     heads = 8
     for (b, f, c), count in TEMPORAL_BLOCK_SHAPES:
@@ -923,9 +1008,9 @@ def phase_unrouted_kernels(gen, check, vec):
 
 
 def unzero_(module, gen, std=0.02):
-    """Give the layers that start at zero (motion-module proj_out, fps and
-    motion-score embedding outputs) small random weights, so the motion
-    blocks and the embeddings reach the video."""
+    """Give the layers that start at zero (motion-module proj_out, the fps,
+    motion-score and camera-motion embedding outputs) small random weights,
+    so the motion blocks and the embeddings reach the video."""
     from followyourclick_tpu_torch.models.layers import TimestepEmbedding
     from followyourclick_tpu_torch.models.motion_module import MotionModule
 
@@ -991,10 +1076,42 @@ def make_request(pipe, spec, seed, vocab, batch=1):
     return req
 
 
-def tiny_pipelines(cfg, seed, ip_plus=None):
+def motion_lora(unet, rank, gen):
+    """A camera-motion LoRA in the reference key format
+    (``...motion_modules.N.temporal_transformer.transformer_blocks.0.
+    attention_blocks.M.processor.to_{q,k,v,out}_lora.{down,up}.weight``)
+    over every motion module's attention projections: down N(0, 1/C), up
+    N(0, CAMERA_LORA_SCALE²/rank), from the CPU generator ``gen``."""
+    import re
+
+    from followyourclick_tpu_torch.models.motion_module import (
+        TemporalAttention,
+    )
+
+    lora = {}
+    for name, m in unet.named_modules():
+        if not isinstance(m, TemporalAttention):
+            continue
+        base = re.sub(r"(motion_modules\.\d+\.)", r"\1temporal_transformer.",
+                      name)
+        c = m.to_q.in_features
+        for proj in ("to_q", "to_k", "to_v", "to_out"):
+            key = f"{base}.processor.{proj}_lora"
+            lora[f"{key}.down.weight"] = torch.randn(
+                rank, c, generator=gen) / c ** 0.5
+            lora[f"{key}.up.weight"] = torch.randn(
+                c, rank, generator=gen) * CAMERA_LORA_SCALE / rank ** 0.5
+    return lora
+
+
+def tiny_pipelines(cfg, seed, ip_plus=None, camera_lora=False):
     """The tiny config's pipeline on the CPU (plain versions) and a copy of
     it on the card; with ``ip_plus`` set, an IP-Adapter over
-    ``TINY_VISION`` (vanilla or Plus) and ip tokens in the UNet."""
+    ``TINY_VISION`` (vanilla or Plus) and ip tokens in the UNet; with
+    ``camera_lora``, the camera-motion embedding and a merged
+    :func:`motion_lora`."""
+    from followyourclick_tpu_torch.utils.lora import merge_motion_lora
+
     from followyourclick_tpu_torch.models.ip_adapter import (
         CLIPVisionConfig,
         IPAdapter,
@@ -1010,8 +1127,14 @@ def tiny_pipelines(cfg, seed, ip_plus=None):
             cfg.unet, use_ip_cross_attention=True, ip_num_tokens=4))
         ip = IPAdapter(CLIPVisionConfig(**TINY_VISION),
                        cfg.unet.cross_attention_dim, 4, ip_plus)
+    if camera_lora:
+        cfg = dataclasses.replace(cfg, unet=dataclasses.replace(
+            cfg.unet, use_camera_motion_condition=True))
     cpu = AnimationPipeline(cfg, device="cpu", ip_adapter=ip)
     unzero_(cpu.unet, torch.Generator().manual_seed(seed))
+    if camera_lora:
+        merge_motion_lora(cpu.unet, motion_lora(
+            cpu.unet, 4, torch.Generator().manual_seed(seed + 1)))
     card = AnimationPipeline(cfg, copy.deepcopy(cpu.unet),
                              copy.deepcopy(cpu.vae),
                              copy.deepcopy(cpu.text_encoder), device="cuda",
@@ -1035,14 +1158,28 @@ def phase_tiny(seed):
     wrappers = kernel_wrappers()
     plain, vanilla, plus = (tiny_pipelines(cfg, seed, ip)
                             for ip in (None, False, True))
-    runs = [("exact", plain, exact),
-            ("pab244_deep4_cfg4_ex", plain, serving),
-            ("exact, IP-Adapter", vanilla, exact),
-            ("exact, IP-Adapter Plus", plus, exact),
-            ("pab244_deep4_cfg4_ex, IP-Adapter", vanilla, serving)]
-    for label, (cpu, card), spec in runs:
+    camera = tiny_pipelines(cfg, seed, camera_lora=True)
+    dpm = dataclasses.replace(exact, scheduler="dpm++", num_inference_steps=4)
+    euler_a = dataclasses.replace(exact, scheduler="euler_a")
+    # Euler-A's fresh noise, the same on both devices
+    step_noise = torch.randn(
+        (euler_a.num_inference_steps, 1, euler_a.video_length,
+         euler_a.height // 8, euler_a.width // 8, 4),
+        generator=torch.Generator().manual_seed(seed + 2))
+    runs = [("exact", plain, exact, {}),
+            ("pab244_deep4_cfg4_ex", plain, serving, {}),
+            ("exact, IP-Adapter", vanilla, exact, {}),
+            ("exact, IP-Adapter Plus", plus, exact, {}),
+            ("pab244_deep4_cfg4_ex, IP-Adapter", vanilla, serving, {}),
+            ("exact, camera + motion LoRA", camera, exact,
+             dict(camera_motion_type=torch.tensor([4.0]))),
+            ("dpm++", plain, dpm, {}),
+            ("euler_a", plain, euler_a, dict(step_noise=step_noise)),
+            ("exact, video_scale 1.5", plain,
+             dataclasses.replace(exact, video_scale=1.5), {})]
+    for label, (cpu, card), spec, extra in runs:
         with torch.inference_mode():
-            req = make_request(cpu, spec, seed + 1, 1000)
+            req = {**make_request(cpu, spec, seed + 1, 1000), **extra}
         t0 = time.perf_counter()
         want = cpu.sample(spec=spec, **req)
         t_cpu = time.perf_counter() - t0
@@ -1068,12 +1205,16 @@ def phase_tiny(seed):
                              "kernel")
 
 
-def whole_block_fits(c, dtype):
-    """The whole-block motion kernel's route rule at 16 frames, written out
-    from its shared-memory size rather than asked of the model: bf16 at
-    every width to 1280, fp32 only below 640."""
-    return c <= 1280 and (dtype == torch.bfloat16
-                          or (dtype == torch.float32 and c < 640))
+def whole_block_fits(c, dtype, frames=16):
+    """The whole-block motion kernel's route rule, written out from its
+    shared-memory size rather than asked of the model: bf16 at every width
+    to 1280 and up to 32 frames; fp32 at 16 frames only below 640 (other
+    frame counts in fp32 are not counted here)."""
+    if dtype == torch.bfloat16:
+        return c <= 1280 and frames <= 32
+    if frames != 16:
+        raise ValueError("fp32 route counted at 16 frames only")
+    return c < 640
 
 
 def flash_line(rows, tokens, heads):
@@ -1085,31 +1226,41 @@ def flash_line(rows, tokens, heads):
 
 def expected_launches(unet, spec, dtype, batch=1, plan=None):
     """Each kernel's launches in one request of ``batch`` clips that follows
-    ``plan`` (default ``step_plan(spec)``), from the plan, the clip shape
-    and the UNet's module structure alone. A trunk-reuse step runs only
-    level 0 (down block 0 and the last up block). A motion block (all
-    standard, two ``Temporal_Self`` attentions) takes the modular path
-    when the step's mode records or
-    reuses temporal sites or :func:`whole_block_fits` says no, else the
-    whole-block kernel. On the modular path the FF is one LN-GEGLU launch
-    and each attention that is not reused one launch of
-    fused_temporal_block (C < 1280) or temporal_attention (C = 1280); every
-    spatial transformer block runs one LN-GEGLU. A spatial self-attention
-    that is not reused launches flash attention when :func:`flash_line`
-    holds for its rows (clips × frames, doubled for CFG after the
-    duplication: on an exact step only from the second transformer block
-    on, since the first duplicates at its cross-attention; on a full
+    ``plan`` (default the request's :func:`request_plan`: ``step_plan`` on
+    DDIM, the solver's ``n_calls`` full steps otherwise), from the plan, the
+    clip shape and the UNet's module structure alone. A trunk-reuse step
+    runs only level 0 (down block 0 and the last up block). A motion block
+    (all standard, two ``Temporal_Self`` attentions) takes the modular path
+    when the step's mode records or reuses temporal sites or
+    :func:`whole_block_fits` says no, else the whole-block kernel. On the
+    modular path the FF is one LN-GEGLU launch and each attention that is
+    not reused one launch of fused_temporal_block (C < 1280) or
+    temporal_attention (C = 1280); every spatial transformer block runs one
+    LN-GEGLU. A spatial self-attention that is not reused launches flash
+    attention when :func:`flash_line` holds for its rows (clips × frames,
+    doubled for CFG after the duplication: with a shared CFG prefix on an
+    exact step only from the second transformer block on, since the first
+    duplicates at its cross-attention; with an unshared prefix or on a full
     serving step everywhere, the input being pre-duplicated; never on a
-    cond-only step). Spatial self-attention is assumed above 32 tokens (no
+    cond-only step or without CFG). Under ``video_scale`` (with CFG) every
+    full step adds the per-frame pass, the exact UNet at clips × frames rows
+    of one frame: every motion block on the whole-block kernel (bf16 takes
+    up to 32 frames). Spatial self-attention is assumed above 32 tokens (no
     tiny-sequence launches), as at 512²."""
+    from followyourclick_tpu_torch.config import NoiseScheduleConfig
     from followyourclick_tpu_torch.models.attention import (
         BasicTransformerBlock,
     )
     from followyourclick_tpu_torch.models.motion_module import (
         TemporalTransformerBlock,
     )
-    from followyourclick_tpu_torch.pipelines.animation import step_plan
+    from followyourclick_tpu_torch.pipelines.animation import request_plan
+    from followyourclick_tpu_torch.schedulers.dispatch import make_solver
 
+    if plan is None:  # a solver's calls depend on its name and steps only
+        plan = request_plan(spec, make_solver(
+            spec.scheduler, NoiseScheduleConfig(),
+            spec.num_inference_steps).n_calls)
     levels = len(unet.down_blocks)
     last_up = f"up_blocks.{levels - 1}."
 
@@ -1123,27 +1274,27 @@ def expected_launches(unet, spec, dtype, batch=1, plan=None):
         return name.startswith("down_blocks.0.") or name.startswith(last_up)
 
     counts = dict.fromkeys(KERNELS, 0)
-    for step in step_plan(spec) if plan is None else plan:
-        mode = step.mode
+
+    def evaluation(mode, full, rows, doubled, frames):
         trunk = (mode is None or not mode.reuse_deep
                  or len(unet.down_blocks) < 2)
         temporal_sites = mode is not None and (mode.record_temporal
                                                or mode.reuse_temporal)
-        doubled = step.full and mode is not None  # pre-duplicated input
         for name, m in unet.named_modules():
             if not (trunk or level0(name)):
                 continue
             if isinstance(m, BasicTransformerBlock):
                 counts["fused_ln_geglu"] += 1
-                rows = batch * spec.video_length * (2 if doubled else 1)
-                doubled = doubled or step.full  # the first block duplicates
+                r = rows * (2 if doubled else 1)
+                doubled = doubled or (spec.do_cfg and full)
                 tokens = ((spec.height // 8 >> level(name))
                           * (spec.width // 8 >> level(name)))
                 if (mode is None or not mode.reuse_spatial) and flash_line(
-                        rows, tokens, m.attn1.heads):
+                        r, tokens, m.attn1.heads):
                     counts["flash_attention"] += 1
             elif isinstance(m, TemporalTransformerBlock):
-                if not temporal_sites and whole_block_fits(m.dim, dtype):
+                if not temporal_sites and whole_block_fits(m.dim, dtype,
+                                                           frames):
                     counts["fused_motion_block"] += 1
                     continue
                 counts["fused_ln_geglu"] += 1
@@ -1151,14 +1302,23 @@ def expected_launches(unet, spec, dtype, batch=1, plan=None):
                     kernel = ("fused_temporal_block" if m.dim < 1280
                               else "temporal_attention")
                     counts[kernel] += len(m.attention_blocks)
+
+    for step in plan:
+        rows = batch * spec.video_length
+        evaluation(step.mode, step.full, rows, spec.do_cfg and step.full and (
+            step.mode is not None or not spec.share_cfg_prefix),
+            spec.video_length)
+        if spec.do_cfg and spec.video_scale > 0 and step.full:
+            evaluation(None, False, rows, False, 1)
     return counts
 
 
-def full_pipeline(seed, ip_plus=False):
+def full_pipeline(seed, ip_plus=False, camera=False):
     """The default InferenceConfig's models with seeded random weights, in
     bf16 on the card. ``ip_plus``: the IP-Adapter Plus configuration, ip
     tokens in the UNet (``IP_TOKENS``), the CLIP ViT-H/14 tower and the
-    Resampler (depth 4, 12 heads)."""
+    Resampler (depth 4, 12 heads). ``camera``: the UNet with the
+    camera-motion embedding (BASELINE config 4)."""
     from followyourclick_tpu_torch.config import InferenceConfig
     from followyourclick_tpu_torch.models.clip_text import CLIPTextModel
     from followyourclick_tpu_torch.models.ip_adapter import (
@@ -1175,6 +1335,9 @@ def full_pipeline(seed, ip_plus=False):
     if ip_plus:
         cfg = dataclasses.replace(cfg, unet=dataclasses.replace(
             cfg.unet, use_ip_cross_attention=True, ip_num_tokens=IP_TOKENS))
+    if camera:
+        cfg = dataclasses.replace(cfg, unet=dataclasses.replace(
+            cfg.unet, use_camera_motion_condition=True))
     t0 = time.perf_counter()
     torch.manual_seed(seed)
     ip = None
@@ -1211,7 +1374,7 @@ def phase_evaluation(pipe, seed):
     evaluation(pipe, seed, "modular", PabMode(record_temporal=True))
 
 
-def evaluation(pipe, seed, label, mode):
+def evaluation(pipe, seed, label, mode, camera=None):
     """One bf16 UNet evaluation at 16 f / 512² under the PAB ``mode`` (the
     latents and their 5 condition channels, the doubled context; with a
     mode the latents are doubled first, as the sampler's full steps do),
@@ -1223,7 +1386,8 @@ def evaluation(pipe, seed, label, mode):
     than ``EVAL_FP32_RATIO`` times the plain bf16 one's distance; the
     kernels' launches must be those :func:`expected_launches` gives for
     one full step under ``mode``. Prints the bf16 evaluations' times (CUDA
-    events)."""
+    events). ``camera``: the camera-motion type of a UNet with that
+    embedding."""
     from followyourclick_tpu_torch.models.unet3d import UNetConditioning
     from followyourclick_tpu_torch.pipelines.animation import (
         PlanStep,
@@ -1247,7 +1411,9 @@ def evaluation(pipe, seed, label, mode):
         cond = UNetConditioning(
             context=context.to(dtype),
             fps=torch.tensor([8.0], device="cuda"),
-            motion_score=torch.tensor([20.0], device="cuda"))
+            motion_score=torch.tensor([20.0], device="cuda"),
+            camera_motion_type=(None if camera is None else
+                                torch.tensor([float(camera)], device="cuda")))
         with torch.inference_mode():
             return pipe.unet(x.to(dtype), t, cond, mode, {})
 
@@ -1309,57 +1475,77 @@ def evaluation(pipe, seed, label, mode):
                          "prediction disagrees with the plain versions'")
 
 
-def phase_requests(pipe, spec, label, seed, by_hand=None, batch=1):
-    """Two full-width requests of ``batch`` clips on one path: the counts
-    are set to 0 before and read after each; each must equal what
-    ``step_plan`` gives, and that must equal ``by_hand`` where it is given.
-    Every clip must be finite and non-constant, the clips of a request must
-    differ, and so must the two requests. Returns the path's launches by
-    kernel and the seconds per request."""
+def run_request(pipe, spec, label, seed, by_hand=None, batch=1,
+                generator=None, kernels=True, **extra):
+    """One full-width request of ``batch`` clips (``make_request`` from
+    ``seed``, then ``extra`` keyword arguments of ``sample``) with every
+    launch count set to 0 before and read after: each routed kernel's must
+    equal what :func:`expected_launches` gives for the request, and that
+    must equal ``by_hand`` where it is given; the unrouted kernels' must be
+    0. With ``kernels=False`` every routed wrapper is replaced by its plain
+    version (:func:`wrappers_replaced`) and no kernel may launch. Every clip must be finite and non-constant, and the clips of a
+    request must differ. Logs time, launches, video statistics per clip
+    and peak memory. Returns the launches by kernel, the video and the
+    seconds."""
     wrappers = kernel_wrappers()
     unrouted = unrouted_wrappers()
     want = expected_launches(pipe.unet, spec, pipe.dtype, batch)
     if by_hand is not None and want != by_hand:
         raise SystemExit(f"{label}: step_plan gives {want} launches, the "
                          f"hand count {by_hand}")
+    plain = plain_versions()
+    if not kernels:
+        want = dict.fromkeys(want, 0)
+    torch.cuda.reset_peak_memory_stats()
+    for fn in (*wrappers.values(), *unrouted.values()):
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode(), (
+            contextlib.nullcontext() if kernels else
+            wrappers_replaced(lambda name, _: plain[name])):
+        req = {**make_request(pipe, spec, seed,
+                              pipe.config.clip_text.vocab_size, batch),
+               **extra}
+        video = pipe.sample(spec=spec, generator=generator, **req)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    got = {name: fn.launches for name, fn in wrappers.items()}
+    off_path = {name: fn.launches for name, fn in unrouted.items()}
+    v = video.float()
+    log(f"[{label}] {dt:.2f} s for {batch} clip(s), video {tuple(v.shape)}; "
+        f"launches {got} (want {want}); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    for i, clip in enumerate(v):
+        log(f"[{label}]   clip {i}: min {float(clip.min()):.4f} max "
+            f"{float(clip.max()):.4f} mean {float(clip.mean()):.4f} std "
+            f"{float(clip.std()):.4f}")
+    if got != want or any(off_path.values()):
+        raise SystemExit(f"{label}: the kernels were not launched the "
+                         "number of times the step plan gives (the "
+                         f"unrouted ones: {off_path})")
+    shape = (batch, spec.video_length, spec.height, spec.width, 3)
+    if v.shape != shape or not bool(torch.isfinite(v).all()) \
+            or min(float(clip.std()) for clip in v) <= 0.0:
+        raise SystemExit(f"{label}: a clip is not finite and non-constant")
+    for i in range(1, batch):
+        if float((v[i] - v[0]).abs().mean()) <= 0.0:
+            raise SystemExit(f"{label}: two clips of one request are the "
+                             "same video")
+    return {**got, **off_path}, v, dt
+
+
+def phase_requests(pipe, spec, label, seed, by_hand=None, batch=1):
+    """Two full-width requests of ``batch`` clips on one path, each held by
+    :func:`run_request`; the two must differ. Returns the path's launches
+    by kernel and the seconds per request."""
     total = dict.fromkeys({**KERNELS, **UNROUTED}, 0)
     videos, seconds = [], []
-    torch.cuda.reset_peak_memory_stats()
     for r in range(2):
-        for fn in (*wrappers.values(), *unrouted.values()):
-            fn.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with torch.inference_mode():
-            req = make_request(pipe, spec, seed + 100 + r,
-                               pipe.config.clip_text.vocab_size, batch)
-            video = pipe.sample(spec=spec, **req)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        got = {name: fn.launches for name, fn in wrappers.items()}
-        off_path = {name: fn.launches for name, fn in unrouted.items()}
-        for name, n in {**got, **off_path}.items():
+        got, v, dt = run_request(pipe, spec, f"{label}, request {r}",
+                                 seed + 100 + r, by_hand, batch)
+        for name, n in got.items():
             total[name] += n
-        v = video.float()
-        log(f"[{label}] request {r}: {dt:.2f} s for {batch} clip(s), video "
-            f"{tuple(v.shape)}; launches {got} (want {want})")
-        for i, clip in enumerate(v):
-            log(f"[{label}]   clip {i}: min {float(clip.min()):.4f} max "
-                f"{float(clip.max()):.4f} mean {float(clip.mean()):.4f} std "
-                f"{float(clip.std()):.4f}")
-        if got != want or any(off_path.values()):
-            raise SystemExit(f"{label}: the kernels were not launched the "
-                             "number of times the step plan gives (the "
-                             f"unrouted ones: {off_path})")
-        shape = (batch, spec.video_length, spec.height, spec.width, 3)
-        if v.shape != shape or not bool(torch.isfinite(v).all()) \
-                or min(float(clip.std()) for clip in v) <= 0.0:
-            raise SystemExit(f"{label}: a clip is not finite and "
-                             "non-constant")
-        for i in range(1, batch):
-            if float((v[i] - v[0]).abs().mean()) <= 0.0:
-                raise SystemExit(f"{label}: two clips of one request are "
-                                 "the same video")
         videos.append(v)
         seconds.append(dt)
     diff = float((videos[0] - videos[1]).abs().mean())
@@ -1367,9 +1553,163 @@ def phase_requests(pipe, spec, label, seed, by_hand=None, batch=1):
     if diff <= 0.0:
         raise SystemExit(f"{label}: two different requests gave the same "
                          "video")
-    log(f"[{label}] peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     return total, seconds
+
+
+def rel_l2(a, b):
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def phase_sampler_options(pipe, seed):
+    """One-clip full-width requests for every other option of the sampler,
+    each run twice (cold, then warm) and held by :func:`run_request`: every
+    solver but DDIM at ``SOLVER_STEPS`` (Euler-A drawing its noise from a
+    seeded generator), DDIM at ``eta = 1``, no CFG, the unshared CFG prefix,
+    ``video_scale = 1.5`` (20 motion-block calls a step at F = 1 on top of
+    the 20 at 16 frames), and the init image with residual noise and a
+    partial mask. The unshared prefix is held to the shared-prefix request
+    with the same noise (``UNSHARED_SPREAD_RATIO``); then the chunked decode
+    (``frame_chunk = 4``) of seeded latents against their one-batch decode.
+    Returns the launches by path."""
+    from followyourclick_tpu_torch.pipelines.animation import SampleSpec
+    from followyourclick_tpu_torch.schedulers.dispatch import SCHEDULERS
+
+    base = SampleSpec(num_inference_steps=SOLVER_STEPS)
+    n = SOLVER_STEPS
+    per_call = {"fused_motion_block": 20, "fused_ln_geglu": 16,
+                "fused_temporal_block": 0, "temporal_attention": 0,
+                "flash_attention": 0}
+    calls = {"pndm": n + 1, "pndm_prk": n + 9}
+    h, w = base.height // 8, base.width // 8
+    partial = (torch.rand(1, h, w, 1, generator=torch.Generator()
+                          .manual_seed(seed + 9)) > 0.3).float()
+    options = [(f"solver_{name}", dataclasses.replace(base, scheduler=name),
+                {kk: v * calls.get(name, n) for kk, v in per_call.items()})
+               for name in SCHEDULERS[1:]]
+    options += [
+        ("ddim_eta1", dataclasses.replace(base, eta=1.0), None),
+        ("no_cfg", dataclasses.replace(base, guidance_scale=1.0), None),
+        ("unshared_prefix", dataclasses.replace(base, share_cfg_prefix=False),
+         None),
+        ("video_scale", dataclasses.replace(base, video_scale=1.5),
+         {kk: 2 * v * n for kk, v in per_call.items()}),
+        ("init_residual_partial", dataclasses.replace(
+            base, use_first_image_as_init_latents=True,
+            use_residual_noise=True), None)]
+    paths = {}
+    for name, spec, by_hand in options:
+        extra = ({"partial_mask": partial}
+                 if name == "init_residual_partial" else {})
+        # twice: the first request of a new batch layout warms it up
+        for r in ("cold", "warm"):
+            gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+            got, video, _ = run_request(
+                pipe, spec, f"{name}, {r}", seed + 200, by_hand,
+                generator=gen, **extra)
+            paths[name] = {k: paths.get(name, {}).get(k, 0) + v
+                           for k, v in got.items()}
+        if name == "unshared_prefix":
+            unshared = video
+        del video
+    _, shared, _ = run_request(pipe, base, "shared prefix", seed + 200)
+    _, shared_plain, _ = run_request(pipe, base,
+                                     "shared prefix, plain versions",
+                                     seed + 200, kernels=False)
+    spread = rel_l2(shared, shared_plain)
+    err = rel_l2(unshared, shared)
+    log(f"[unshared prefix] against the shared-prefix request: relative L2 "
+        f"{err:.3e}, max abs {float((unshared - shared).abs().max()):.3e}; "
+        f"the shared request through the kernels against their plain "
+        f"versions: {spread:.3e} (limit {UNSHARED_SPREAD_RATIO} x that)")
+    if err > UNSHARED_SPREAD_RATIO * spread:
+        raise SystemExit("the unshared CFG prefix disagrees with the shared")
+    latents = randn(torch.Generator(device="cuda").manual_seed(seed + 11),
+                    (1, base.video_length, h, w, 4), 1.0, pipe.dtype)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        whole = pipe.decode_latents(latents)
+        chunked = pipe.decode_latents(latents, frame_chunk=4)
+        whole_ms = time_ms(lambda: pipe.decode_latents(latents), reps=3)
+        chunked_ms = time_ms(lambda: pipe.decode_latents(
+            latents, frame_chunk=4), reps=3)
+    err = rel_l2(chunked, whole)
+    log(f"[decode] frame_chunk=4: {chunked_ms:.1f} ms against one batch "
+        f"{whole_ms:.1f} ms (16 frames, 512², bf16); relative L2 {err:.3e}, "
+        f"max abs {float((chunked - whole).abs().max()):.3e} (limit "
+        f"{EVAL_REL_L2}); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    if chunked.shape != whole.shape or err > EVAL_REL_L2:
+        raise SystemExit("the chunked decode disagrees with the one-batch "
+                         "decode")
+    return paths
+
+
+def phase_camera(seed, spec, by_hand):
+    """BASELINE config 4 at full width: the default widths with the
+    camera-motion embedding (unzeroed), one bf16 UNet evaluation that
+    builds the motion modules' ``[Wq; Wk; Wv]`` caches, then a merged
+    synthetic motion LoRA (:func:`motion_lora`) and phase 4's check of the
+    merged UNet (a kernel reading a stale cache fails it), then two
+    one-clip requests on ``spec`` that differ only in the camera type.
+    Returns the path's launches."""
+    from followyourclick_tpu_torch.data.camera_motion import MOTION_TYPES
+    from followyourclick_tpu_torch.models.motion_module import (
+        TemporalAttention,
+    )
+    from followyourclick_tpu_torch.models.unet3d import UNetConditioning
+    from followyourclick_tpu_torch.utils.lora import merge_motion_lora
+
+    pipe = full_pipeline(seed, camera=True)
+    cfg = pipe.config.unet
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    x = randn(gen, (1, spec.video_length, spec.height // 8, spec.width // 8,
+                    cfg.conv_in_channels), 1.0, pipe.dtype)
+    context = randn(gen, (2, TEXT_KEYS, cfg.cross_attention_dim), 1.0,
+                    pipe.dtype)
+    cond = UNetConditioning(context, torch.tensor([8.0], device="cuda"),
+                            torch.tensor([20.0], device="cuda"),
+                            torch.tensor([4.0], device="cuda"))
+    t = torch.tensor([501], device="cuda")
+    with torch.inference_mode():
+        pipe.unet(x, t, cond)
+    attns = [m for m in pipe.unet.modules()
+             if isinstance(m, TemporalAttention)]
+    stale = [a.qkv_weight() for a in attns]
+    lora = motion_lora(pipe.unet, CAMERA_LORA_RANK,
+                       torch.Generator().manual_seed(seed + 4))
+    t0 = time.perf_counter()
+    merge_motion_lora(pipe.unet, lora)
+    torch.cuda.synchronize()
+    log(f"[camera lora] merged a rank-{CAMERA_LORA_RANK} motion LoRA ("
+        f"{len(lora) // 2} pairs over {len(attns)} temporal attentions) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    with torch.inference_mode():
+        rebuilt = [a.qkv_weight() for a in attns]
+        stale_left = sum(
+            new is old or not torch.equal(new, torch.cat(
+                [a.to_q.weight, a.to_k.weight, a.to_v.weight]))
+            for a, new, old in zip(attns, rebuilt, stale))
+    log(f"[camera lora] [Wq; Wk; Wv] caches rebuilt after the merge: "
+        f"{len(attns) - stale_left} of {len(attns)}")
+    if stale_left:
+        raise SystemExit("camera lora: a [Wq; Wk; Wv] cache kept the "
+                         "unmerged weights")
+    evaluation(pipe, seed, "camera LoRA", None, camera=4)
+    total = dict.fromkeys({**KERNELS, **UNROUTED}, 0)
+    videos = []
+    for cam in CAMERA_TYPES:
+        got, v, _ = run_request(
+            pipe, spec, f"camera lora, {MOTION_TYPES[cam]}", seed + 300,
+            by_hand, camera_motion_type=torch.tensor([float(cam)]))
+        for name, n in got.items():
+            total[name] += n
+        videos.append(v)
+    diff = float((videos[0] - videos[1]).abs().mean())
+    log(f"[camera lora] mean |{MOTION_TYPES[CAMERA_TYPES[0]]} - "
+        f"{MOTION_TYPES[CAMERA_TYPES[1]]}| = {diff:.4f}")
+    if diff <= 0.0:
+        raise SystemExit("camera lora: two camera types gave the same video")
+    return total
 
 
 def phase_ip(seed, spec, by_hand):
@@ -1438,8 +1778,13 @@ def main(argv=None) -> int:
             pipe, serving, "batched serving", args.seed,
             BATCHED_SERVING_LAUNCHES, BATCH)[0],
     }
+    paths.update(phase_sampler_options(pipe, args.seed))
     # one full-width pipeline at a time
     del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["camera_lora_exact"] = phase_camera(args.seed, exact,
+                                              exact_by_hand)
     gc.collect()
     torch.cuda.empty_cache()
     paths["exact_ip_plus"] = phase_ip(args.seed, exact, exact_by_hand)

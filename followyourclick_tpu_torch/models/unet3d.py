@@ -1,13 +1,14 @@
 """UNet3DConditionModel: the SD-1.5 UNet inflated to video with motion modules.
 
-Port of ``followyourclick_tpu/models/unet3d.py``: time, fps and
-motion-score embeddings, the 9-channel ``conv_in`` (noisy latent, click
-mask, first-frame latent), the down / mid / up topology, ``conv_norm_out``
-with SiLU over the whole clip, ``conv_out``, and the PAB sites of the serving
-schedules (``models/pab.py``), the DeepCache trunk site among them, and
-the IP-Adapter's decoupled cross-attention (``use_ip_cross_attention``: the
-context ends in ``ip_num_tokens`` image tokens). Camera motion, T5, class
-embeddings, PseudoConv3d and temporal convs are not ported yet and raise.
+Port of ``followyourclick_tpu/models/unet3d.py``: time, camera-motion,
+fps and motion-score embeddings, the 9-channel ``conv_in`` (noisy latent,
+click mask, first-frame latent), the down / mid / up topology,
+``conv_norm_out`` with SiLU over the whole clip, ``conv_out``, and the PAB
+sites of the serving schedules (``models/pab.py``), the DeepCache trunk site
+among them, and the IP-Adapter's decoupled cross-attention
+(``use_ip_cross_attention``: the context ends in ``ip_num_tokens`` image
+tokens). T5, class embeddings, PseudoConv3d and temporal convs are not
+ported yet and raise.
 
 Tensors are ``(B, F, H, W, C)``. CFG prefix sharing (exact): when
 ``cond.context`` has twice the sample's batch, the stem runs once and the
@@ -16,6 +17,7 @@ hidden states duplicate at the first cross-attention.
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Optional
 
@@ -23,6 +25,7 @@ import torch
 from torch import nn
 
 from followyourclick_tpu_torch.config import UNet3DConfig
+from followyourclick_tpu_torch.models.attention import CrossAttention
 from followyourclick_tpu_torch.models.layers import (
     GroupNorm,
     TimestepEmbedding,
@@ -38,8 +41,8 @@ from followyourclick_tpu_torch.models.unet_blocks import (
     UpBlock3D,
 )
 
-_NOT_PORTED = ("center_input_sample", "use_camera_motion_condition",
-               "use_text_encoder_2", "use_pseudo_conv3d", "use_temporal_conv",
+_NOT_PORTED = ("center_input_sample", "use_text_encoder_2",
+               "use_pseudo_conv3d", "use_temporal_conv",
                "use_first_frame_condition_concat",
                "unet_use_cross_frame_attention",
                "unet_use_temporal_attention", "motion_module_decoder_only",
@@ -49,12 +52,14 @@ _NOT_PORTED = ("center_input_sample", "use_camera_motion_condition",
 @dataclass
 class UNetConditioning:
     """Conditioning of one denoise step. ``context`` carries the CFG layout
-    ([uncond; cond] when doubled); ``fps`` and ``motion_score`` may be at the
-    sample's batch or the context's."""
+    ([uncond; cond] when doubled); ``fps``, ``motion_score`` and
+    ``camera_motion_type`` (an index of ``data/camera_motion.MOTION_TYPES``)
+    may be at the sample's batch or the context's."""
 
     context: torch.Tensor                       # (B, 77 [+ ip tokens], 768)
     fps: Optional[torch.Tensor] = None          # (B,)
     motion_score: Optional[torch.Tensor] = None  # (B,)
+    camera_motion_type: Optional[torch.Tensor] = None  # (B,)
 
 
 class UNet3DConditionModel(nn.Module):
@@ -72,6 +77,9 @@ class UNet3DConditionModel(nn.Module):
         boc = list(cfg.block_out_channels)
         c0, temb = boc[0], cfg.time_embed_dim
         self.time_embedding = TimestepEmbedding(c0, temb)
+        if cfg.use_camera_motion_condition:
+            self.camera_motion_embedding = TimestepEmbedding(
+                c0, temb, zero_init_output=True)
         if cfg.use_fps_condition:
             self.fps_embedding = TimestepEmbedding(c0, temb,
                                                    zero_init_output=True)
@@ -123,11 +131,37 @@ class UNet3DConditionModel(nn.Module):
         self.conv_out = InflatedConv(c0, cfg.out_channels, 3)
         name_sites(self)
 
+    @contextlib.contextmanager
+    def _ip_off(self):
+        """Within the block every cross-attention treats the whole context
+        as text, as a UNet built without ``use_ip_cross_attention``."""
+        mods = [m for m in self.modules()
+                if isinstance(m, CrossAttention) and m.ip_num_tokens]
+        for m in mods:
+            m.ip_num_tokens = 0
+        try:
+            yield
+        finally:
+            for m in mods:
+                m.ip_num_tokens = self.config.ip_num_tokens
+
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
                 cond: UNetConditioning, pab: Optional[PabMode] = None,
-                cache: Optional[dict] = None) -> torch.Tensor:
+                cache: Optional[dict] = None,
+                plain: bool = False) -> torch.Tensor:
         """``pab``: the step's reuse / record flags (None: exact); ``cache``:
-        the sampler's PAB cache, updated in place."""
+        the sampler's PAB cache, updated in place. ``plain``: the
+        ``video_scale`` per-frame pass, which runs these parameters as a
+        UNet whose config has ``use_fps_condition`` and
+        ``use_ip_cross_attention`` off (the JAX pipeline's ``unet_plain``):
+        no fps or motion-score embedding, no ip tokens in the context."""
+        if plain and self.config.use_ip_cross_attention:
+            with self._ip_off():
+                return self._forward(sample, timesteps, cond, pab, cache,
+                                     True)
+        return self._forward(sample, timesteps, cond, pab, cache, plain)
+
+    def _forward(self, sample, timesteps, cond, pab, cache, plain):
         cfg = self.config
         b, f = sample.shape[:2]
         dtype = self.conv_in.conv.weight.dtype
@@ -145,7 +179,11 @@ class UNet3DConditionModel(nn.Module):
             return tile_to_batch(a, b) if a.ndim else a.expand(b)
 
         emb = self.time_embedding(sin_emb(timesteps))
-        if cfg.use_fps_condition:
+        if cfg.use_camera_motion_condition \
+                and cond.camera_motion_type is not None:
+            emb = emb + self.camera_motion_embedding(
+                sin_emb(aux(cond.camera_motion_type)))
+        if cfg.use_fps_condition and not plain:
             if cond.fps is None or cond.motion_score is None:
                 raise ValueError("use_fps_condition requires cond.fps and "
                                  "cond.motion_score")

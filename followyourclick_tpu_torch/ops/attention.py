@@ -15,8 +15,9 @@ the shapes alone:
   kernels).
 
 ``impl`` is the JAX argument: "auto" routes as above, "flash" takes the
-flash route whenever there is no bias, "xla" the plain route. "packed" (the
-JAX head-packed tiny-sequence formulation) is not ported and raises. Under
+flash route whenever there is no bias, "xla" the plain route, "packed" the
+JAX head-packed tiny-sequence formulation (:func:`packed_small_seq_attention`,
+plain PyTorch, bias included, since the JAX one is no Pallas kernel). Under
 "auto" the kernel routes apply on a CUDA tensor, and a CPU tensor takes the
 plain route, as the JAX package does off the TPU; "flash" asked for by name
 runs ``flash_attention`` on either, which on a CPU tensor is its plain
@@ -36,19 +37,17 @@ from followyourclick_tpu_torch.ops.temporal_attention import (
 )
 
 FLASH_SCORE_BYTES = 12 * 1024 ** 3
-IMPLS = ("auto", "flash", "xla")
+IMPLS = ("auto", "flash", "xla", "packed")
 
 
 def route(query_shape, key_shape, has_bias: bool,
           impl: str = "auto") -> str:
-    """"tiny", "flash" or "plain" for ``(B, Sq, H, D)`` q and
+    """"tiny", "flash", "plain" or "packed" for ``(B, Sq, H, D)`` q and
     ``(B, Sk, H, D)`` k on the card."""
-    if impl == "packed":
-        raise NotImplementedError(
-            "impl='packed' (the JAX head-packed tiny-sequence attention) is "
-            "not ported")
     if impl not in IMPLS:
         raise ValueError(f"impl={impl!r}; expected one of {IMPLS}")
+    if impl == "packed":
+        return "packed"
     if has_bias or impl == "xla":
         return "plain"
     if impl == "flash":
@@ -60,6 +59,31 @@ def route(query_shape, key_shape, has_bias: bool,
     if sk >= 1024 and b * h * sq * sk * 2 > FLASH_SCORE_BYTES:
         return "flash"
     return "plain"
+
+
+def packed_small_seq_attention(query: torch.Tensor, key: torch.Tensor,
+                               value: torch.Tensor,
+                               bias: Optional[torch.Tensor],
+                               scale: float) -> torch.Tensor:
+    """Block-diagonal head packing for tiny self-attention (the frame
+    axis): (frame, head) packed into one axis of S·H, cross-head logits
+    masked to -1e9, one fp32-accumulated product each way (JAX
+    ``ops/attention.py::_packed_small_seq_attention``). ``bias`` broadcasts
+    to ``(B, H, S, S)``."""
+    b, s, h, d = query.shape
+    m = s * h
+    qp, kp, vp = (t.reshape(b, m, d) for t in (query, key, value))
+    logits = torch.einsum("bmd,bnd->bmn", qp.float(), kp.float()) * scale
+    idx = torch.arange(m, device=query.device)
+    head, frame = idx % h, idx // h
+    if bias is not None:
+        bias = bias.reshape((1,) * (4 - bias.ndim) + tuple(bias.shape))
+        bias = bias.expand(bias.shape[0], h, s, s)
+        packed = bias[:, head[:, None], frame[:, None], frame[None, :]]
+        logits = logits + packed.float()
+    logits = logits.masked_fill(head[:, None] != head[None, :], -1e9)
+    weights = torch.softmax(logits, dim=-1).to(query.dtype)
+    return torch.einsum("bmn,bnd->bmd", weights, vp).reshape(b, s, h, d)
 
 
 def _plain_attention(query, key, value, bias, scale):
@@ -80,6 +104,8 @@ def dot_product_attention(query: torch.Tensor, key: torch.Tensor,
     if scale is None:
         scale = query.shape[-1] ** -0.5
     kind = route(query.shape, key.shape, bias is not None, impl)
+    if kind == "packed":
+        return packed_small_seq_attention(query, key, value, bias, scale)
     if kind == "flash" and (impl == "flash" or query.device.type == "cuda"):
         return flash_attention(query, key, value, scale)
     if kind == "tiny" and query.device.type == "cuda":

@@ -1,19 +1,26 @@
-"""The Follow-Your-Click sampler: the exact path and the serving schedules.
+"""The Follow-Your-Click sampler: every solver, guidance mode and serving
+schedule of the JAX sampler.
 
 Port of ``followyourclick_tpu/pipelines/animation.py``: CLIP text encode
-([uncond; cond]), the DDIM v-prediction CFG denoise over the UNet3D with the
-click mask and the first-frame latent concatenated on the channel axis, and
-one batched VAE decode. PyTorch runs the loop eagerly; the parameters live in
-the modules. ``sample`` is the counterpart of ``_sample_jit``.
+([uncond; cond], the cond rows alone without CFG), the denoise over the
+UNet3D with the click mask and the first-frame latent concatenated on the
+channel axis, and the VAE decode (one batch, or ``frame_chunk`` frames a
+batch). PyTorch runs the loop eagerly; the parameters live in the modules.
+``sample`` is the counterpart of ``_sample_jit``.
 
-The serving schedules (``pipelines/serving_schedules.py``) are ported: the
-CFG-uncond cache with its first-order forecast, PAB attention reuse and the
-DeepCache trunk reuse with its forecast (``models/pab.py``), warm-up steps
-and final exact steps. :func:`step_plan` is their static schedule. Every
-other field off its default raises ``NotImplementedError``, except
-``video_length``, ``height``, ``width``, ``num_inference_steps`` and
-``guidance_scale`` (> 1). The tokenizer needs vocabulary files the
-repository does not ship, so requests carry token ids.
+Every ``SampleSpec`` field is ported: the solvers of
+``schedulers/dispatch.SCHEDULERS`` (DDIM with ``eta``, Euler-A with fresh
+noise every step, PNDM's PRK grid with more calls than steps), no CFG
+(``guidance_scale <= 1``), the duplicated (unshared) CFG prefix, the 3-term
+``video_scale`` guidance with its per-frame pass, the init-image and
+residual noise, and the serving schedules (``pipelines/serving_schedules.
+py``): the CFG-uncond cache with its first-order forecast, PAB attention
+reuse and the DeepCache trunk reuse with its forecast (``models/pab.py``),
+warm-up steps and final exact steps. :func:`step_plan` is their static
+schedule, :func:`request_plan` a request's UNet calls. Only the combinations
+the JAX sampler refuses raise (:meth:`SampleSpec.check_ported`). The
+tokenizer needs vocabulary files the repository does not ship, so requests
+carry token ids.
 
 IP-Adapter image prompts (BASELINE config 3): a pipeline built with an
 ``ip_adapter`` (``models/ip_adapter.IPAdapter``) over a UNet with
@@ -41,12 +48,13 @@ from followyourclick_tpu_torch.models.unet3d import (
     UNetConditioning,
 )
 from followyourclick_tpu_torch.models.vae import AutoencoderKL
-from followyourclick_tpu_torch.schedulers.ddim import DDIMSchedule, ddim_step
+from followyourclick_tpu_torch.schedulers.dispatch import (
+    SCHEDULERS,
+    make_solver,
+)
 
 VAE_SCALE = 0.18215
 
-_FREE_FIELDS = ("video_length", "height", "width", "num_inference_steps",
-                "guidance_scale")
 SERVING_FIELDS = ("cfg_cache_interval", "pab_spatial_interval",
                   "pab_cross_interval", "pab_temporal_interval",
                   "deep_cache_interval", "pab_warmup_steps",
@@ -82,21 +90,37 @@ class SampleSpec:
     cfg_cache_extrapolate: bool = False
     deep_cache_extrapolate: bool = False
 
+    @property
+    def do_cfg(self) -> bool:
+        return self.guidance_scale > 1.0
+
+    @property
+    def pab_on(self) -> bool:
+        return (self.pab_spatial_interval > 1 or self.pab_cross_interval > 1
+                or self.pab_temporal_interval > 1
+                or self.deep_cache_interval > 1)
+
+    @property
+    def cfg_cache(self) -> bool:
+        """The CFG-uncond cache is on: CFG, no ``video_scale``, k > 1."""
+        return (self.do_cfg and self.video_scale == 0
+                and self.cfg_cache_interval > 1)
+
     def check_ported(self) -> None:
-        """Raise ``NotImplementedError`` on a field the port does not run:
-        anything off its default but the clip shape, the steps, the
-        guidance scale (> 1) and the serving fields."""
-        default = SampleSpec()
-        for f in dataclasses.fields(self):
-            if f.name in _FREE_FIELDS or f.name in SERVING_FIELDS:
-                continue
-            if getattr(self, f.name) != getattr(default, f.name):
-                raise NotImplementedError(
-                    f"SampleSpec.{f.name}={getattr(self, f.name)!r}: not "
-                    "ported (only the exact sampler and the serving "
-                    "schedules are)")
-        if self.guidance_scale <= 1.0:
-            raise NotImplementedError("guidance_scale <= 1 (no CFG)")
+        """Raise ``ValueError`` on what the JAX sampler refuses: an unknown
+        scheduler, ``eta > 0`` on another solver than DDIM, PAB or the CFG
+        cache on another solver than DDIM, PAB with ``video_scale``."""
+        if self.scheduler not in SCHEDULERS:
+            raise ValueError(f"unknown scheduler {self.scheduler!r}; "
+                             f"expected one of {SCHEDULERS}")
+        if self.eta > 0 and self.scheduler != "ddim":
+            raise ValueError("eta is a DDIM knob")
+        if (self.pab_on or self.cfg_cache) and self.scheduler != "ddim":
+            raise ValueError("the PAB / cfg-cache serving approximations run "
+                             "on the DDIM scan only")
+        if self.pab_on and self.video_scale != 0:
+            raise ValueError("pab_*_interval composes with plain CFG only "
+                             "(no video_scale 3-term guidance)")
 
 
 class PlanStep(NamedTuple):
@@ -155,6 +179,18 @@ def step_plan(spec: SampleSpec) -> list[PlanStep]:
     plan += [at(warmup + k, k % period) for k in range(body)]
     plan += [at(i, 0) for i in range(warmup + body, n)]
     return plan
+
+
+def request_plan(spec: SampleSpec, n_calls: int) -> list[PlanStep]:
+    """The UNet calls of a request, in order, for a solver of ``n_calls``
+    calls: :func:`step_plan` on DDIM, with the CFG cache off where the JAX
+    sampler turns it off (no CFG, ``video_scale``); on the other solvers
+    (no serving schedule) ``n_calls`` full steps."""
+    if spec.scheduler != "ddim":
+        return [PlanStep(i, 0, True, None) for i in range(n_calls)]
+    if not (spec.cfg_cache or (spec.pab_on and spec.do_cfg)):
+        spec = dataclasses.replace(spec, cfg_cache_interval=1)
+    return step_plan(spec)
 
 
 class AnimationPipeline:
@@ -251,38 +287,63 @@ class AnimationPipeline:
 
     def denoise(self, latents: torch.Tensor, context: torch.Tensor,
                 spec: SampleSpec, first_image_latents: Optional[torch.Tensor],
-                mask: Optional[torch.Tensor], fps: torch.Tensor,
-                motion_score: torch.Tensor) -> torch.Tensor:
-        """The CFG DDIM loop over :func:`step_plan`.
+                mask: Optional[torch.Tensor], fps: Optional[torch.Tensor],
+                motion_score: Optional[torch.Tensor],
+                camera_motion_type: Optional[torch.Tensor] = None,
+                partial_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None,
+                step_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The denoise loop over :func:`request_plan`; ``context`` is
+        ``[uncond; cond]`` under CFG, the cond rows alone without.
 
-        Without PAB sites the UNet gets the un-duplicated latents with the
-        doubled context and duplicates at its first cross-attention (CFG
-        prefix sharing). With them, full steps feed it the pre-duplicated
-        input, as the JAX sampler's ``build_x``, and the PAB cache (a dict
-        this loop owns) passes down to every site. A step on the cond half
-        runs the UNet on the cond rows with the cond context and takes the
-        uncond prediction from the last full step, or under
+        The solver (``spec.scheduler``) scales the initial latents by its
+        ``init_noise_sigma``, each UNet input by ``scale_model_input``, and
+        carries its state from call to call. Under CFG with a shared prefix
+        the UNet gets the un-duplicated latents with the doubled context and
+        duplicates at its first cross-attention; with
+        ``share_cfg_prefix=False``, and on the full steps of a PAB schedule
+        (the JAX sampler's ``build_x``), it gets them duplicated. The PAB
+        cache is a dict this loop owns and passes to every site. A step on
+        the cond half runs the UNet on the cond rows with the cond context
+        and takes the uncond prediction from the last full step, or under
         ``cfg_cache_extrapolate`` its first-order forecast
-        ``u1 + (i − i1)·(u1 − u0)/(i1 − i0)`` from the last two.
+        ``u1 + (i − i1)·(u1 − u0)/(i1 − i0)`` from the last two. With
+        ``video_scale > 0`` (and CFG) a per-frame pass of the same UNet
+        (frames folded into the batch, F = 1, no fps, motion or ip
+        conditioning; the context tiled ``[uncond; cond; …][:b·f]`` as the
+        reference pairs it) gives ``frame``, and the guidance is
+        ``frame + video_scale·(uncond − frame)
+        + guidance·(text − uncond)``.
 
-        The click mask and the first-frame latent reach the UNet as 5
-        channels beside the latents only when the UNet has
-        ``use_first_frame_mask_condition_concat`` (its 9-channel
-        ``conv_in``); otherwise it gets the bare latents, and
-        ``first_image_latents`` and ``mask`` are not read."""
+        The click mask and the first-frame latent (times ``partial_mask``
+        where given) reach the UNet as 5 channels beside the latents only
+        when the UNet has ``use_first_frame_mask_condition_concat`` (its
+        9-channel ``conv_in``); otherwise it gets the bare latents, and
+        ``first_image_latents``, ``mask`` and ``partial_mask`` are not read.
+
+        DDIM at ``eta > 0`` and Euler-A add fresh standard-normal noise each
+        step: ``step_noise[i]`` (``(n_calls, B, F, h, w, 4)``) where given,
+        else a draw from ``generator``."""
         b, f, h, w, _ = latents.shape
         dt = latents.dtype
-        sched = DDIMSchedule.create(self.config.noise_scheduler,
-                                    spec.num_inference_steps)
+        solver = make_solver(spec.scheduler, self.config.noise_scheduler,
+                             spec.num_inference_steps)
+        if solver.init_noise_sigma != 1.0:
+            latents = latents * solver.init_noise_sigma
+        do_cfg = spec.do_cfg
+        share = spec.share_cfg_prefix and do_cfg
         cond_channels = None
         if self.config.unet.use_first_frame_mask_condition_concat:
             if first_image_latents is None:
                 raise ValueError(
                     "unet.use_first_frame_mask_condition_concat is on: the "
                     "first-frame latent is required")
+            ffl = self._on(first_image_latents, dt)
+            if partial_mask is not None:
+                ffl = ffl * self._on(partial_mask, dt)
             first_block = torch.zeros(b, f, h, w, 4, device=self.device,
                                       dtype=dt)
-            first_block[:, 0] = self._on(first_image_latents, dt)
+            first_block[:, 0] = ffl
             if mask is not None:
                 mask_block = self._on(mask, dt).clamp(0.0, 1.0)[:, None] \
                     .expand(b, f, h, w, 1)
@@ -291,64 +352,122 @@ class AnimationPipeline:
                                          dtype=dt)
                 mask_block[:, 0] = 1.0
             cond_channels = torch.cat([mask_block, first_block], dim=-1)
-        fps = self._on(fps, torch.float32)
-        motion_score = self._on(motion_score, torch.float32)
-        cond = UNetConditioning(context=context, fps=fps,
-                                motion_score=motion_score)
-        cond_half = UNetConditioning(context=context[b:], fps=fps,
-                                     motion_score=motion_score)
+        aux = dict(fps=self._on(fps, torch.float32),
+                   motion_score=self._on(motion_score, torch.float32),
+                   camera_motion_type=self._on(camera_motion_type,
+                                               torch.float32))
+        cond = UNetConditioning(context=context, **aux)
+        cond_half = UNetConditioning(context=context[b:], **aux)
+        frame_ctx = None
+        if do_cfg and spec.video_scale > 0:
+            ucfg = self.config.unet
+            base = context[:, :context.shape[1] - ucfg.ip_num_tokens] \
+                if ucfg.use_ip_cross_attention else context
+            frame_ctx = UNetConditioning(
+                context=base.repeat(f, 1, 1)[:b * f])
+        stochastic = spec.eta > 0 or solver.needs_step_noise
+        if stochastic and step_noise is not None and tuple(
+                step_noise.shape) != (solver.n_calls, b, f, h, w, 4):
+            raise ValueError(f"step_noise {tuple(step_noise.shape)}, "
+                             f"expected {(solver.n_calls, b, f, h, w, 4)}")
+
+        def noise_at(i):
+            if not stochastic:
+                return None
+            if step_noise is not None:
+                return self._on(step_noise[i], torch.float32)
+            gdev = generator.device if generator is not None else self.device
+            return self._on(torch.randn((b, f, h, w, 4), generator=generator,
+                                        device=gdev, dtype=torch.float32))
+
         extrap = spec.cfg_cache_extrapolate and spec.cfg_cache_interval > 1
+        state = solver.init_state((b, f, h, w, 4), self.device)
         cache: dict = {}
         u1 = u0 = None
         i1 = i0 = -1
-        for i, _, full, mode in step_plan(spec):
-            t = sched.timesteps[i].to(self.device)
-            x = latents if cond_channels is None else torch.cat(
-                [latents, cond_channels], dim=-1)
-            if full and mode is not None:
+        for i, _, full, mode in request_plan(spec, solver.n_calls):
+            t = solver.timestep(i).to(self.device)
+            x = solver.scale_model_input(latents, i)
+            if cond_channels is not None:
+                x = torch.cat([x, cond_channels], dim=-1)
+            frame_x = x
+            if do_cfg and full and (mode is not None or not share):
                 x = torch.cat([x, x], dim=0)
             out = self.unet(x, t.expand(x.shape[0]),
                             cond if full else cond_half, mode, cache)
-            if full:
+            if not do_cfg:
+                noise_pred = out
+            elif full:
                 uncond, text = out.chunk(2, dim=0)
                 u0, i0 = (uncond, i) if i1 < 0 else (u1, i1)
                 u1, i1 = uncond, i
+                noise_pred = uncond + spec.guidance_scale * (text - uncond)
+                if frame_ctx is not None:
+                    frame = self.unet(
+                        frame_x.reshape(b * f, 1, h, w, frame_x.shape[-1]),
+                        t.expand(b * f), frame_ctx, plain=True).reshape(
+                            b, f, h, w, 4)
+                    noise_pred = (frame + spec.video_scale * (uncond - frame)
+                                  + spec.guidance_scale * (text - uncond))
             else:
                 text, uncond = out, u1
                 if extrap:
                     slope = (i - i1) / max(i1 - i0, 1)
                     uncond = (u1.float() + (u1.float() - u0.float()) * slope
                               ).to(u1.dtype)
-            noise_pred = uncond + spec.guidance_scale * (text - uncond)
-            latents, _ = ddim_step(sched, noise_pred, i, latents)
+                noise_pred = uncond + spec.guidance_scale * (text - uncond)
+            latents, state = solver.step(noise_pred, i, latents, state,
+                                         eta=spec.eta, noise=noise_at(i))
         return latents
 
-    def decode_latents(self, latents: torch.Tensor) -> torch.Tensor:
-        """(B, F, h, w, 4) → video (B, F, H, W, 3) fp32 in [0, 1], all
-        frames decoded as one batch."""
+    def decode_latents(self, latents: torch.Tensor,
+                       frame_chunk: int = 0) -> torch.Tensor:
+        """(B, F, h, w, 4) → video (B, F, H, W, 3) fp32 in [0, 1]. All B·F
+        frames decode as one batch, or, with ``frame_chunk > 0``, ``chunk·B``
+        frames a batch in (F, B) order, the last batch padded with the
+        leading frames (the JAX package's frame-scanned decode)."""
         b, f = latents.shape[:2]
         z = latents.to(self.dtype) / VAE_SCALE
-        img = self.vae.decode(z.reshape(b * f, *z.shape[2:]))
-        video = img.reshape(b, f, *img.shape[1:])
+        if frame_chunk <= 0:
+            img = self.vae.decode(z.reshape(b * f, *z.shape[2:]))
+            video = img.reshape(b, f, *img.shape[1:])
+        else:
+            chunk = max(1, min(frame_chunk, f))
+            zf = z.transpose(0, 1)  # (F, B, h, w, 4)
+            pad = (-f) % chunk
+            if pad:
+                zf = torch.cat([zf, zf[:pad]], dim=0)
+            zc = zf.reshape(-1, chunk * b, *zf.shape[2:])
+            frames = torch.stack([self.vae.decode(z_c) for z_c in zc])
+            video = frames.reshape(-1, b, *frames.shape[2:])[:f] \
+                .transpose(0, 1)
         return (video / 2.0 + 0.5).clamp(0.0, 1.0).float()
 
     @torch.inference_mode()
     def sample(self, input_ids: torch.Tensor, neg_input_ids: torch.Tensor,
                first_image_latents: Optional[torch.Tensor],
                mask: Optional[torch.Tensor],
-               fps: torch.Tensor, motion_score: torch.Tensor,
+               fps: Optional[torch.Tensor],
+               motion_score: Optional[torch.Tensor],
                spec: SampleSpec = SampleSpec(),
                generator: Optional[torch.Generator] = None,
                noise: Optional[torch.Tensor] = None,
-               ip_pixel_values: Optional[torch.Tensor] = None
-               ) -> torch.Tensor:
+               ip_pixel_values: Optional[torch.Tensor] = None,
+               camera_motion_type: Optional[torch.Tensor] = None,
+               partial_mask: Optional[torch.Tensor] = None,
+               step_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Token ids (B, 77) + first-frame latent (B, h, w, 4) + click mask
         (B, h, w, 1) + fps and motion score (B,) → video (B, F, H, W, 3).
-        ``noise`` (B, F, h, w, 4) replaces the draw from ``generator``;
-        ``ip_pixel_values`` (B, 224, 224, 3) is the image prompt, required
-        when the UNet has ``use_ip_cross_attention``. The first-frame latent
+        ``noise`` (B, F, h, w, 4) replaces the initial draw from
+        ``generator``, ``step_noise`` (n_calls, B, F, h, w, 4) the draws of a
+        stochastic solver (DDIM at ``eta > 0``, Euler-A); ``ip_pixel_values``
+        (B, 224, 224, 3) is the image prompt, required when the UNet has
+        ``use_ip_cross_attention``; ``camera_motion_type`` (B,) reaches the
+        UNet when it has ``use_camera_motion_condition``; ``partial_mask``
+        multiplies the first-frame latent channels. The first-frame latent
         and the mask may be None when the UNet has no
-        ``use_first_frame_mask_condition_concat``."""
+        ``use_first_frame_mask_condition_concat``; the first-frame latent is
+        also the init image of ``use_first_image_as_init_latents``."""
         spec.check_ported()
         if ip_pixel_values is None and \
                 self.config.unet.use_ip_cross_attention:
@@ -356,13 +475,21 @@ class AnimationPipeline:
                 "unet.use_ip_cross_attention is on: the attention layers "
                 "treat the last ip_num_tokens of the context as image tokens, "
                 "so ip_pixel_values (CLIP pixel values) are required")
+        b = int(input_ids.shape[0])
         context = self.encode_prompt(input_ids, neg_input_ids)
         if ip_pixel_values is not None:
             ip_tokens = self.encode_image_prompt(ip_pixel_values)
             context = torch.cat([context, ip_tokens.to(context.dtype)],
                                 dim=1)
-        latents = self.prepare_latents(int(input_ids.shape[0]), spec,
-                                       generator=generator, noise=noise)
+        if not spec.do_cfg:
+            context = context[b:]
+        if not self.config.unet.use_camera_motion_condition:
+            camera_motion_type = None
+        latents = self.prepare_latents(
+            b, spec, generator=generator, noise=noise,
+            init_latents=(first_image_latents
+                          if spec.use_first_image_as_init_latents else None))
         latents = self.denoise(latents, context, spec, first_image_latents,
-                               mask, fps, motion_score)
+                               mask, fps, motion_score, camera_motion_type,
+                               partial_mask, generator, step_noise)
         return self.decode_latents(latents)

@@ -22,6 +22,9 @@ the torch side (``models/ip_adapter.py``), so it maps to itself; a
 
 Real checkpoints go reference ``.ckpt`` → ``followyourclick_tpu.utils.
 convert.convert_*_state_dict`` (numpy, no JAX) → :func:`load_jax_params`.
+:func:`_map_unet_key` and :func:`_to_numpy` are the port's own copies of
+that module's reference-name rule, which ``utils/lora.py`` resolves LoRA
+keys through.
 """
 
 from __future__ import annotations
@@ -32,6 +35,52 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 from torch import nn
+
+
+def _to_numpy(t) -> np.ndarray:
+    """A torch tensor (as fp32) or an array-like as a numpy array."""
+    if hasattr(t, "detach"):
+        t = t.detach().cpu().float().numpy()
+    return np.asarray(t)
+
+
+_LIST_MODULES = (
+    "down_blocks|up_blocks|resnets|attentions|motion_modules|"
+    "transformer_blocks|attention_blocks|norms|downsamplers|upsamplers"
+)
+# buffers the modules recompute
+_SKIP_PATTERNS = (
+    re.compile(r"pos_encoder\.pe$"),
+    re.compile(r"rope\."),
+    re.compile(r"position_ids$"),
+)
+# convs that wrap an inner conv named "conv"
+_INFLATED_CONVS = re.compile(
+    r"(^|\.)(conv_in|conv_out|conv1|conv2|conv_shortcut)$")
+
+
+def _map_unet_key(key: str) -> tuple | None:
+    """A reference UNet3D state-dict name → its flax path, leaf name last
+    (``weight`` / ``bias`` as in the reference); None for a recomputed
+    buffer. The reference's ``temporal_transformer`` level is dropped,
+    ``to_out.0`` is ``to_out``, ``ff.net.0.proj`` / ``ff.net.2`` are
+    ``ff.proj`` / ``ff.out``, list indices fold into the module name, and an
+    inflated conv gains its inner ``conv``."""
+    for pat in _SKIP_PATTERNS:
+        if pat.search(key):
+            return None
+    parts = key.split(".")
+    leaf = parts.pop()
+    name = ".".join(parts)
+    name = name.replace(".temporal_transformer.", ".")
+    name = re.sub(r"\.to_out\.0$", ".to_out", name)
+    name = re.sub(r"\.ff\.net\.0\.proj$", ".ff.proj", name)
+    name = re.sub(r"\.ff\.net\.2$", ".ff.out", name)
+    name = re.sub(rf"\b({_LIST_MODULES})\.(\d+)", r"\1_\2", name)
+    parts = name.split(".")
+    if _INFLATED_CONVS.search(parts[-1]):
+        parts = parts + ["conv"]
+    return tuple(parts) + (leaf,)
 
 
 def _flatten(tree: Mapping[str, Any], prefix: tuple = ()) -> dict:

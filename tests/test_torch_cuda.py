@@ -183,6 +183,79 @@ def test_motion_block_bf16_at_1280(card):
     assert_close(got, ref, BF16_REL)
 
 
+# The video_scale per-frame pass: one frame per position (F = 1, the frame
+# attention's keys padded to a 16-key step and masked past the first), at
+# its position counts and widths (16 frames of 64², 32², 16², 8² folded into
+# the positions). bf16 takes every width; fp32 only C = 320: at 640 and
+# 1280 one position's block overflows the all-on-chip kernel's shared
+# memory even at one frame, so the route says no and the wrapper refuses
+# (the model's modular path takes those blocks).
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("p,c", [(65536, 320), (16384, 640), (4096, 1280),
+                                 (1024, 1280)])
+def test_motion_block_at_one_frame(card, dtype, p, c):
+    from followyourclick_tpu_torch.ops.motion_block import fits
+
+    heads = 8
+    x, pe, params = motion_block_args(np.random.RandomState(c), p, 1, c,
+                                      dtype)
+    if dtype == F32 and c >= 640:
+        assert not fits(1, c, heads, dtype)
+        with pytest.raises(ValueError, match="not taken"):
+            fused_motion_block(x, pe, params, (c // heads) ** -0.5, heads)
+        return
+    assert fits(1, c, heads, dtype)
+    fast = dtype == BF16 and c <= 640
+    before = fused_motion_block.launches
+    got = fused_motion_block(x, pe, params, (c // heads) ** -0.5, heads,
+                             fast_gating=fast).float()
+    assert fused_motion_block.launches == before + 1
+    ref = motion_block_ref(x, pe, params, (c // heads) ** -0.5, heads,
+                           fast_gating=fast).float()
+    assert_close(got, ref, _bound(dtype, fast))
+
+
+def test_merged_lora_reaches_the_bf16_kernel(card):
+    """A motion LoRA merged after a bf16 evaluation built the modules'
+    ``[Wq; Wk; Wv]`` caches: the next evaluation launches the whole-block
+    kernel on rebuilt caches and gives what a copy of the merged module,
+    with no cache, gives, bit for bit."""
+    from followyourclick_tpu_torch.utils.lora import merge_motion_lora
+
+    torch.manual_seed(2)
+    mm = MotionModule(320, MotionModuleConfig(zero_initialize=False)).to(
+        "cuda", BF16)
+    x = _randn(np.random.RandomState(2), (1, 16, 8, 8, 320), 1.0, BF16)
+    rs = np.random.RandomState(3)
+    lora = {}
+    for i in range(2):
+        for proj in ("to_q", "to_k", "to_v", "to_out"):
+            key = (f"transformer_blocks.0.attention_blocks.{i}.processor."
+                   f"{proj}_lora")
+            lora[f"{key}.down.weight"] = rs.randn(4, 320).astype(
+                np.float32) / 18
+            lora[f"{key}.up.weight"] = rs.randn(320, 4).astype(np.float32)
+    block = mm.transformer_blocks[0]
+    with torch.no_grad():
+        before_merge = mm(x)
+        stale = block.qkv_weights()
+        merge_motion_lora(mm, lora)
+        fresh = copy.deepcopy(mm)
+        for a in fresh.transformer_blocks[0].attention_blocks:
+            a._qkv_key = a._qkv = None
+        launches = fused_motion_block.launches
+        got, want = mm(x), fresh(x)
+        torch.cuda.synchronize()
+    assert fused_motion_block.launches == launches + 2
+    for a, old in zip(block.attention_blocks, stale):
+        new = a.qkv_weight()
+        assert not torch.equal(new, old)
+        assert torch.equal(new, torch.cat([a.to_q.weight, a.to_k.weight,
+                                           a.to_v.weight]))
+    assert torch.equal(got, want)
+    assert float((got - before_merge).abs().max()) > 1e-2
+
+
 # The bf16 block's launches one by one, each against its plain version on
 # the same inputs (the kernels' own outputs feed the next stage), at a small
 # shape and at the C = 640 path shape (head width 80), both gate forms; each

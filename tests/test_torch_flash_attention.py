@@ -122,8 +122,13 @@ def test_route(q_shape, k_shape, bias, impl, want):
 
 
 def test_route_rejects_unported_and_unknown_impls():
-    with pytest.raises(NotImplementedError, match="packed"):
-        tops.route((2, 16, 8, 40), (2, 16, 8, 40), False, "packed")
+    """"packed" (the JAX head-packed formulation, ported as plain PyTorch)
+    takes its own route, bias or not; an impl the JAX package does not know
+    raises."""
+    assert tops.route((2, 16, 8, 40), (2, 16, 8, 40), False,
+                      "packed") == "packed"
+    assert tops.route((2, 16, 8, 40), (2, 16, 8, 40), True,
+                      "packed") == "packed"
     with pytest.raises(ValueError):
         tops.route((2, 16, 8, 40), (2, 16, 8, 40), False, "cudnn")
 

@@ -40,6 +40,7 @@ from followyourclick_tpu_torch.pipelines.animation import (
     AnimationPipeline,
     SampleSpec,
 )
+from followyourclick_tpu_torch.schedulers.dispatch import SCHEDULERS
 from followyourclick_tpu_torch.utils.convert import load_jax_params
 from tests.test_torch_unet import (
     TINY_CLIP,
@@ -157,15 +158,24 @@ def test_mask_concat_requires_the_first_frame_latent():
                                     num_inference_steps=1))
 
 
-@pytest.mark.parametrize("field,value", [("video_scale", 1.0),
-                                         ("share_cfg_prefix", False),
-                                         ("scheduler", "euler"),
-                                         ("eta", 0.5),
-                                         ("guidance_scale", 1.0)])
-def test_sample_rejects_specs_off_the_exact_path(field, value):
-    """Fields the port does not run raise; the serving fields do not."""
-    with pytest.raises(NotImplementedError):
-        SampleSpec(**{field: value}).check_ported()
+@pytest.mark.parametrize("spec_kw,match", [
+    (dict(scheduler="euler", pab_spatial_interval=2), "DDIM scan only"),
+    (dict(scheduler="dpm++", cfg_cache_interval=3), "DDIM scan only"),
+    (dict(pab_temporal_interval=2, video_scale=1.5), "plain CFG only"),
+    (dict(scheduler="euler", eta=0.5), "eta is a DDIM knob"),
+    (dict(scheduler="heun"), "unknown scheduler")],
+    ids=["pab_euler", "cfg_cache_dpm++", "pab_video_scale", "eta_euler",
+         "unknown_scheduler"])
+def test_sample_rejects_specs_off_the_exact_path(spec_kw, match):
+    """Every field is ported; what raises are the combinations the JAX
+    sampler refuses (a serving approximation or eta on another solver than
+    DDIM, PAB with the 3-term video_scale guidance) and an unknown
+    scheduler, with the JAX messages. The same fields alone pass."""
+    with pytest.raises(ValueError, match=match):
+        SampleSpec(**spec_kw).check_ported()
+    for field, value in spec_kw.items():
+        if field != "scheduler" or value in SCHEDULERS:
+            SampleSpec(**{field: value}).check_ported()
 
 
 def test_sample_accepts_every_serving_field():
@@ -193,7 +203,8 @@ def test_prepare_latents_interpolates_first_frame_noise():
 
 def test_port_runs_without_jax():
     """In a fresh interpreter: import every module of the port, run its tiny
-    sampler on the CPU, exact and under a serving schedule, and find no
+    sampler on the CPU, exact, under a serving schedule and on DPM-Solver++,
+    and a camera-conditioned UNet with a merged motion LoRA, and find no
     module of jax, flax or the JAX package loaded."""
     code = textwrap.dedent("""
         import importlib
@@ -230,13 +241,42 @@ def test_port_runs_without_jax():
         serving = apply_schedule(SampleSpec(
             video_length=2, height=64, width=64, num_inference_steps=4),
             "pab244_deep4_cfg4_ex")
-        for spec in (exact, serving):
+        solver = SampleSpec(video_length=2, height=64, width=64,
+                            num_inference_steps=3, scheduler="dpm++")
+        for spec in (exact, serving, solver):
             video = pipe.sample(ids, ids, torch.randn(1, 8, 8, 4),
                                 torch.ones(1, 8, 8, 1), torch.tensor([8.0]),
                                 torch.tensor([20.0]), spec,
                                 generator=torch.Generator().manual_seed(0))
             assert video.shape == (1, 2, 64, 64, 3), video.shape
             assert bool(torch.isfinite(video).all())
+        # BASELINE config 4: the camera embedding and a merged motion LoRA
+        import dataclasses
+        from followyourclick_tpu_torch.models.motion_module import (
+            TemporalAttention)
+        from followyourclick_tpu_torch.utils.lora import merge_motion_lora
+        cam = dataclasses.replace(cfg, unet=dataclasses.replace(
+            cfg.unet, use_camera_motion_condition=True))
+        pipe = AnimationPipeline(cam, device="cpu")
+        lora = {}
+        for name, m in pipe.unet.named_modules():
+            if isinstance(m, TemporalAttention):
+                base = name.replace(
+                    ".transformer_blocks.",
+                    ".temporal_transformer.transformer_blocks.")
+                c = m.to_q.in_features
+                for p in ("to_q", "to_k", "to_v", "to_out"):
+                    key = base + ".processor." + p + "_lora"
+                    lora[key + ".down.weight"] = torch.randn(4, c)
+                    lora[key + ".up.weight"] = torch.randn(c, 4)
+        merge_motion_lora(pipe.unet, lora)
+        video = pipe.sample(ids, ids, torch.randn(1, 8, 8, 4),
+                            torch.ones(1, 8, 8, 1), torch.tensor([8.0]),
+                            torch.tensor([20.0]), exact,
+                            generator=torch.Generator().manual_seed(0),
+                            camera_motion_type=torch.tensor([4.0]))
+        assert video.shape == (1, 2, 64, 64, 3), video.shape
+        assert bool(torch.isfinite(video).all())
         print("LOADED", sorted(m for m in sys.modules
                                if m.split(".")[0] in ("jax", "flax",
                                                       "followyourclick_tpu")))

@@ -9,7 +9,9 @@ counts worked out by hand: on the serving path the smoke's own
 ``SERVING_LAUNCHES``, on the exact path 20 whole-block motion kernels and
 16 LN-GEGLU feed-forwards per step, in fp32 the modular route for the
 blocks at C ≥ 640, and at two clips per request 4 flash launches per exact
-step and 20 per 10-step ``pab488_deep4_cfg4_ex`` request. The IP-Adapter
+step and 20 per 10-step ``pab488_deep4_cfg4_ex`` request; the
+``video_scale`` per-frame pass (20 motion blocks at F = 1 a step), every
+solver's UNet calls, no CFG and the unshared prefix. The IP-Adapter
 Plus UNet (16 ip tokens) launches as the exact path does. The smoke's
 GroupNorm sites, read by hooks from a meta-device run, are the module
 tree's.
@@ -68,8 +70,35 @@ def _counts(motion, geglu, block, attn, flash=0):
     # still stays below the line
     (SampleSpec(num_inference_steps=1), torch.bfloat16, 3,
      _counts(20, 16, 0, 0, 4)),
+    # video_scale: each step adds the per-frame pass (F = 1), 20 more
+    # whole-block motion calls and 16 more LN-GEGLU; its 32 rows at 2 clips
+    # (8 GiB of scores) stay below the flash line
+    (SampleSpec(num_inference_steps=4, video_scale=1.5), torch.bfloat16, 1,
+     _counts(160, 128, 0, 0)),
+    (SampleSpec(num_inference_steps=1, video_scale=1.5), torch.bfloat16, 2,
+     _counts(40, 32, 0, 0, 4)),
+    # the solvers' calls: PNDM's PLMS grid S+1, its PRK grid S+9, the
+    # others S
+    (SampleSpec(num_inference_steps=4, scheduler="pndm"), torch.bfloat16, 1,
+     _counts(100, 80, 0, 0)),
+    (SampleSpec(num_inference_steps=4, scheduler="pndm_prk"),
+     torch.bfloat16, 1, _counts(260, 208, 0, 0)),
+    (SampleSpec(num_inference_steps=4, scheduler="euler_a"),
+     torch.bfloat16, 1, _counts(80, 64, 0, 0)),
+    # no CFG: the 32 rows of 2 clips are never doubled, no flash; the
+    # unshared prefix doubles before the first block: 5 flash a step
+    (SampleSpec(num_inference_steps=1, guidance_scale=1.0), torch.bfloat16,
+     2, _counts(20, 16, 0, 0, 0)),
+    (SampleSpec(num_inference_steps=1, share_cfg_prefix=False),
+     torch.bfloat16, 2, _counts(20, 16, 0, 0, 5)),
+    # the CFG cache is off under video_scale and without CFG, as in JAX
+    (apply_schedule(SampleSpec(num_inference_steps=6, video_scale=1.5),
+                    "cfg_cache3"), torch.bfloat16, 1,
+     _counts(240, 192, 0, 0)),
 ], ids=["serving", "exact-bf16", "exact-fp32", "serving-2clips",
-        "exact-2clips", "cfg_cache3-2clips", "exact-3clips"])
+        "exact-2clips", "cfg_cache3-2clips", "exact-3clips", "video_scale",
+        "video_scale-2clips", "pndm", "pndm_prk", "euler_a", "no_cfg-2clips",
+        "unshared-2clips", "cfg_cache3-video_scale"])
 def test_expected_launches_match_the_hand_count(meta_unet, spec, dtype,
                                                 batch, want):
     assert chip_smoke.expected_launches(meta_unet, spec, dtype,

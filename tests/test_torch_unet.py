@@ -71,10 +71,19 @@ def random_tree(init, *args, seed=0):
     return jax.tree_util.tree_map_with_path(fill, shapes)
 
 
+# the tiny UNet with the camera-motion embedding (BASELINE config 4)
+TINY_CAMERA = dataclasses.replace(TINY_UNET, use_camera_motion_condition=True)
+
+
 def tiny_unet_tree(cfg=TINY_UNET, seed=0):
+    """The UNet's random tree; with ``use_camera_motion_condition`` the JAX
+    init is given a camera-motion type, so the tree holds that embedding."""
     b, f, hw = 1, 4, 8
+    cam = (jnp.full((b,), 1.0) if cfg.use_camera_motion_condition
+           else None)
     cond = JCond(context=jnp.zeros((2 * b, 77, 768)),
-                 fps=jnp.full((b,), 8.0), motion_score=jnp.full((b,), 20.0))
+                 fps=jnp.full((b,), 8.0), motion_score=jnp.full((b,), 20.0),
+                 camera_motion_type=cam)
     return random_tree(JUNet(cfg).init,
                        jnp.zeros((b, f, hw, hw, cfg.conv_in_channels)),
                        jnp.zeros((b,), jnp.int32), cond, seed=seed)
@@ -132,8 +141,46 @@ def test_bridge_fills_every_leaf_at_the_tiny_configs(unet_tree):
         assert n_leaves == len(list(module.parameters()))
 
 
+@pytest.mark.parametrize("cfg_batch", [1, 2])
+def test_camera_motion_embedding(cfg_batch):
+    """The camera-motion embedding (zero-init output, here random) added
+    before the fps and motion embeddings, its type given at the sample's
+    (pre-CFG) batch and tiled to the doubled one. Two clips alike in all
+    but their camera types (pan_left, zoom_in) must give different
+    predictions. The bridge carries its leaves with the rest."""
+    tree = tiny_unet_tree(TINY_CAMERA)
+    assert "camera_motion_embedding" in tree
+    unet = UNet3DConditionModel(TINY_CAMERA)
+    load_jax_params(unet, tree)
+    assert len(jax.tree_util.tree_leaves(tree)) == len(list(
+        unet.parameters()))
+    rs = np.random.RandomState(5 + cfg_batch)
+    b, f, hw = 2, 4, 8
+    x = np.repeat(rs.randn(1, f, hw, hw, 9).astype(np.float32), b, axis=0)
+    ctx = np.repeat(rs.randn(cfg_batch, 1, 77, 768).astype(np.float32), b,
+                    axis=1).reshape(cfg_batch * b, 77, 768)
+    tsteps = np.array([501] * b)
+    fps, ms = np.full((b,), 8.0, np.float32), np.full((b,), 20.0, np.float32)
+    cam = np.array([0.0, 4.0], np.float32)
+    want = jax.jit(JUNet(TINY_CAMERA).apply)(
+        {"params": tree}, jnp.asarray(x), jnp.asarray(tsteps),
+        JCond(context=jnp.asarray(ctx), fps=jnp.asarray(fps),
+              motion_score=jnp.asarray(ms),
+              camera_motion_type=jnp.asarray(cam)))
+    with torch.no_grad():
+        got = unet(torch.from_numpy(x), torch.from_numpy(tsteps),
+                   UNetConditioning(torch.from_numpy(ctx),
+                                    torch.from_numpy(fps),
+                                    torch.from_numpy(ms),
+                                    torch.from_numpy(cam)))
+    assert got.shape == (cfg_batch * b, f, hw, hw, 4)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=5e-4,
+                               atol=5e-4)
+    assert float((got[0] - got[1]).abs().max()) > 1e-3
+
+
 def test_unet3d_rejects_unported_options():
-    for name in ("use_camera_motion_condition", "use_text_encoder_2",
+    for name in ("use_text_encoder_2",
                  "use_temporal_conv", "use_pseudo_conv3d"):
         with pytest.raises(NotImplementedError):
             UNet3DConditionModel(dataclasses.replace(TINY_UNET,
