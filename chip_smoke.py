@@ -41,7 +41,13 @@ result line:
    on the exact sampler, vanilla under ``pab244_deep4_cfg4_ex``; a
    camera-conditioned UNet with a merged motion LoRA; DPM-Solver++;
    Euler-A with the same injected step noise on both devices; and
-   ``video_scale = 1.5``;
+   ``video_scale = 1.5``; then one tiny request per remaining UNet and
+   motion-module option (``TINY_OPTIONS``: PseudoConv3d, temporal convs,
+   the first-frame concat, ``center_input_sample``, linear projections,
+   ``upcast_attention``, decoder-only motion modules, ``_Cross`` blocks,
+   ``temporal_attention_dim_div = 2``, RoPE at 24 frames) and a tiny UNet
+   evaluation with class embeddings and with the first-frame zero
+   timestep, card vs CPU, zero and dirac inits perturbed;
 4. two UNet evaluations at full width (the default ``InferenceConfig``,
    1.28 B UNet parameters, seeded random weights) in bf16 at 16 frames,
    512², on the CFG batch: one on the exact sampler's path (the
@@ -82,9 +88,23 @@ result line:
    tokens, the CLIP ViT-H/14 tower (32 layers, 1280 wide) and the
    Resampler (depth 4, 12 heads, 16 queries); two one-clip requests with
    different images on the exact sampler (``--steps``), and the ip encode
-   alone (tower and Resampler, condition and black image) by CUDA events.
+   alone (tower and Resampler, condition and black image) by CUDA events;
+11. the T5 second text tower, built after the earlier pipeline is freed:
+   the default widths with the T5 cross-attention and a T5-v1.1-XXL
+   encoder (4.76 B parameters, T5's own initial scales); the encode alone
+   by CUDA events and on the device, and against fp32; phase 4's check of
+   an evaluation with the T5 states; an exact request cold and warm; a
+   ``pab488_deep4_cfg4_ex`` request, whose recording steps cache
+   ``attn_t5_out`` beside ``attn2_out``;
+12. the routes: one full-width bf16 evaluation with cross-frame and
+   in-block temporal attention and RoPE / LoRA motion modules, phase 4's
+   check, its launches equal to ``ROUTES_LAUNCHES``.
 
-Phases 5 to 10 are the main paths: each sets every kernel's launch count to
+Phase 2 also holds flash attention at the level-0 cross-frame shape of one
+clip (``CROSS_FRAME_FLASH``, 8192 keys) and the frame attention at the
+``temporal_attention_dim_div = 2`` widths.
+
+Phases 5 to 12 are the main paths: each sets every kernel's launch count to
 0 before each request and checks the request's counts against those its
 :func:`expected_launches` gives at its batch (from ``request_plan``: the
 solver's calls, CFG or not, the per-frame pass) and, where given, against
@@ -165,8 +185,14 @@ TEMPORAL_ATTN_SHAPES = [((512, 16, 8, 160), 10), ((128, 16, 8, 160), 10),
                         ((256, 16, 8, 160), 0), ((64, 16, 8, 160), 0),
                         # stage (c) of the bf16 motion block and of
                         # fused_temporal_block at C = 320 and 640 (its time
-                        # counts under those wrappers)
-                        ((8192, 16, 8, 40), 0), ((2048, 16, 8, 80), 0)]
+                        # counts under those wrappers); also the in-block
+                        # temporal attention and the RoPE / LoRA motion
+                        # attention at levels 0 and 1
+                        ((8192, 16, 8, 40), 0), ((2048, 16, 8, 80), 0),
+                        # temporal_attention_dim_div = 2: D = C / 8 / 2 at
+                        # C = 320, 640 and 1280
+                        ((8192, 16, 8, 20), 0), ((2048, 16, 8, 40), 0),
+                        ((512, 16, 8, 80), 0), ((128, 16, 8, 80), 0)]
 # flash attention: (B, Sq, Sk, H, D), dtype and count per UNet evaluation.
 # The path shape is level-0 spatial self-attention of a 2-clip CFG batch
 # (2 clips x 2 x 16 frames, 64² tokens, 8 heads of 40), 4 calls in an exact
@@ -177,6 +203,11 @@ FLASH_SHAPES = [((64, 4096, 4096, 8, 40), torch.bfloat16, 4),
                 ((2, 256, 77, 4, 40), torch.bfloat16, 0),
                 ((1, 512, 512, 2, 160), torch.bfloat16, 0),
                 ((2, 1024, 1024, 8, 40), torch.float32, 0)]
+# cross-frame self-attention at level 0 of one clip: after the CFG
+# duplication 32 rows of 4096 queries over [frame 0; the frame before] =
+# 8192 keys, 16 GiB of bf16 scores, 4 calls an evaluation (the stem's, at 16
+# rows and 8 GiB, stays plain); timed apart from the 2-clip path's sum
+CROSS_FRAME_FLASH = (32, 4096, 8192, 8, 40)
 KERNELS = {
     "fused_motion_block": ("followyourclick_tpu_torch/csrc/motion_block.cu",
                            "followyourclick_tpu/ops/motion_block.py:179"),
@@ -258,6 +289,42 @@ SERVING_LAUNCHES = {"fused_motion_block": 0, "fused_ln_geglu": 204,
 BATCH = 2
 BATCHED_FLASH_PER_EXACT_STEP = 4
 BATCHED_SERVING_LAUNCHES = {**SERVING_LAUNCHES, "flash_attention": 20}
+# the routes phase: the default widths with cross-frame and in-block
+# temporal attention and motion modules with RoPE and temporal LoRA, and its
+# launches in one exact CFG evaluation of one clip, worked out by hand: every
+# motion block on the modular path (20 FFs, 40 attentions on the
+# tiny-sequence kernel), 16 in-block temporal attentions, 16 spatial FFs, and
+# flash for the 4 level-0 cross-frame self-attentions after the CFG
+# duplication (8192 keys, 16 GiB of scores; the stem's 8 GiB stays plain)
+ROUTES_UNET = dict(unet_use_cross_frame_attention=True,
+                   unet_use_temporal_attention=True)
+ROUTES_MOTION = dict(use_rope_position_encoding=True, add_temporal_lora=True)
+ROUTES_LAUNCHES = {"fused_motion_block": 0, "fused_ln_geglu": 36,
+                   "fused_temporal_block": 0, "temporal_attention": 56,
+                   "flash_attention": 4}
+# the T5 encode in bf16 against the same encode in fp32 at full width,
+# relative L2. At T5's own init scales it reads about 1.7e-2 on an H100; the
+# control, the same encoder refilled N(0, 1/fan_in) (:func:`fan_in_init_`:
+# one-hot unscaled attention whose choices bf16 flips), about 0.47, and the
+# phase fails unless the check rejects it
+T5_BF16_REL_L2 = 5e-2
+# each RMSNorm's bf16 output against its formula in fp64 on the same input,
+# relative L2, largest over the encoder's 49 norms. Computed in fp32 and
+# rounded once, the norm differs only where fp32 and fp64 round apart; the
+# control, the norm computed in bf16 (:func:`rmsnorm_in_input_dtype`), must
+# fail. The encode's own relative L2 cannot tell the two apart: the control
+# moves it by about a seventh
+T5_NORM_REL_L2 = 5e-4
+# the T5 phase's prompts: T5 token ids at the tokenizer's padded length,
+# the cond prompt's first T5_PROMPT_TOKENS real, the uncond prompt's first
+T5_TOKENS, T5_PROMPT_TOKENS = 77, 20
+
+
+def routes_unet(unet_config):
+    """``unet_config`` with the routes phase's options."""
+    return dataclasses.replace(
+        unet_config, **ROUTES_UNET, motion_module=dataclasses.replace(
+            unet_config.motion_module, **ROUTES_MOTION))
 
 
 def log(*a):
@@ -679,13 +746,14 @@ def phase_kernels(seed):
 
     def check(kernel, name, run_kernel, run_plain, count, ops, inputs,
               run_library=None, tol=BF16_REL, timed=True,
-              peak_ops=PEAK_BF16_OPS):
+              peak_ops=PEAK_BF16_OPS, into=None):
         """Compare, time and bound one call; add ``count`` calls of it to
-        the kernel's per-evaluation sums."""
+        the kernel's per-evaluation sums; ``into``: a dict that takes the
+        call's error, times and bound."""
         got = run_kernel()
         st = stats[kernel]
-        st["err"] = max(st["err"], compare(name, got, run_plain(), failures,
-                                           tol))
+        err = compare(name, got, run_plain(), failures, tol)
+        st["err"] = max(st["err"], err)
         if not timed:
             return
         ms, plain = time_ms(run_kernel), time_ms(run_plain)
@@ -693,6 +761,7 @@ def phase_kernels(seed):
         line = (f"    kernel {ms:.3f} ms, plain {plain:.3f} ms, bound "
                 f"{max(ops_ms, bytes_ms):.3f} ms (operations {ops_ms:.3f}, "
                 f"bytes {bytes_ms:.3f})")
+        lib = None
         if run_library is not None:
             lib = time_ms(run_library)
             line += f", library {lib:.3f} ms"
@@ -700,6 +769,11 @@ def phase_kernels(seed):
             st["ms_library_sites"] = st.get("ms_library_sites", 0.0) \
                 + count * ms
         log(line)
+        if into is not None:
+            into.update(max_abs_err=err, ms=ms, plain_ms=plain,
+                        bound_ms=max(ops_ms, bytes_ms),
+                        bound_by=("operations" if ops_ms >= bytes_ms
+                                  else "bytes"), library_ms=lib)
         st["ms"] += count * ms
         st["plain_ms"] += count * plain
         st["ops_ms"] += count * ops_ms
@@ -863,6 +937,18 @@ def phase_kernels(seed):
             log(f"    {exps:.3e} exponentials: {sfu_ms(exps):.3f} ms at the "
                 "special-function units' rate (16 per SM per clock at the "
                 "card's maximum SM clock)")
+    # the cross-frame path's shape: one call, kept apart from the sums
+    b, sq, sk, h, d = CROSS_FRAME_FLASH
+    q = randn(gen, (b, sq, h, d), 1.0, bf)
+    kv = [randn(gen, (b, sk, h, d), 1.0, bf) for _ in range(2)]
+    cross_frame = stats["flash_attention"]["cross_frame"] = {}
+    check("flash_attention",
+          f"flash_attention B={b} Sq={sq} Sk={sk} H={h} D={d} bfloat16 "
+          "(cross-frame self-attention, one call)",
+          lambda: flash_attention(q, *kv),
+          lambda: flash_attention_ref(q, *kv), 0, 4 * b * h * sq * sk * d,
+          [q, *kv], run_library=lambda: sdpa(q, *kv), into=cross_frame)
+    del q, kv
     phase_unrouted_kernels(gen, check, vec)
     for name, st in stats.items():
         st["bound_by"] = ("operations" if st["ops_ms"] >= st["bytes_ms"]
@@ -1009,19 +1095,38 @@ def phase_unrouted_kernels(gen, check, vec):
 
 def unzero_(module, gen, std=0.02):
     """Give the layers that start at zero (motion-module proj_out, the fps,
-    motion-score and camera-motion embedding outputs) small random weights,
-    so the motion blocks and the embeddings reach the video."""
+    motion-score and camera-motion embedding outputs, the T5 projection, the
+    temporal LoRA ``up``, the last conv of a temporal conv block) small
+    random weights, and add as much noise to the identity (dirac) temporal
+    conv of each ``PseudoConv3d``, so each of them reaches the video."""
     from followyourclick_tpu_torch.models.layers import TimestepEmbedding
-    from followyourclick_tpu_torch.models.motion_module import MotionModule
+    from followyourclick_tpu_torch.models.motion_module import (
+        LoRADense,
+        MotionModule,
+    )
+    from followyourclick_tpu_torch.models.resnet import (
+        PseudoConv3d,
+        TemporalConvBlock,
+    )
+    from followyourclick_tpu_torch.models.unet3d import UNet3DConditionModel
+
+    def noise(shape):
+        return torch.randn(shape, generator=gen, device=gen.device) * std
 
     with torch.no_grad():
         for m in module.modules():
+            if isinstance(m, PseudoConv3d):
+                w = m.temporal_conv.weight
+                w.add_(noise(w.shape).to(w))
+                continue
             layer = (m.proj_out if isinstance(m, MotionModule) else
-                     m.linear_2 if isinstance(m, TimestepEmbedding) else None)
+                     m.linear_2 if isinstance(m, TimestepEmbedding) else
+                     m.up if isinstance(m, LoRADense) else
+                     m.conv4 if isinstance(m, TemporalConvBlock) else
+                     getattr(m, "text_encoder_proj_model_t5", None)
+                     if isinstance(m, UNet3DConditionModel) else None)
             if layer is not None and not layer.weight.any():
-                w = torch.randn(layer.weight.shape, generator=gen,
-                                device=gen.device) * std
-                layer.weight.copy_(w)
+                layer.weight.copy_(noise(layer.weight.shape))
 
 
 def tiny_config():
@@ -1051,7 +1156,9 @@ def make_request(pipe, spec, seed, vocab, batch=1):
     """``batch`` clips, each with its own token ids, click mask, fps, motion
     score and first-frame image (encoded by the pipeline's VAE), and, when
     the pipeline has an IP-Adapter, its own image prompt (unit normal, as
-    CLIP-normalised pixels), all from ``seed``."""
+    CLIP-normalised pixels), when it has a T5 encoder its own T5 token ids
+    and padding masks (``T5_PROMPT_TOKENS`` real tokens of ``T5_TOKENS``
+    cond, one uncond), all from ``seed``."""
     g = torch.Generator().manual_seed(seed)
     b, h, w = batch, spec.height // 8, spec.width // 8
     image = torch.rand(b, spec.height, spec.width, 3, generator=g) * 2 - 1
@@ -1073,6 +1180,17 @@ def make_request(pipe, spec, seed, vocab, batch=1):
     if pipe.ip_adapter is not None:
         size = pipe.ip_adapter.image_encoder.config.image_size
         req["ip_pixel_values"] = torch.randn(b, size, size, 3, generator=g)
+    if pipe.t5 is not None:
+        vocab = pipe.t5.config.vocab_size
+        masks = torch.zeros(2, b, T5_TOKENS, dtype=torch.long)
+        masks[0, :, :T5_PROMPT_TOKENS] = 1
+        masks[1, :, :1] = 1
+        req.update(
+            t5_input_ids=torch.randint(0, vocab, (b, T5_TOKENS), generator=g),
+            t5_attention_mask=masks[0],
+            t5_neg_input_ids=torch.randint(0, vocab, (b, T5_TOKENS),
+                                           generator=g),
+            t5_neg_attention_mask=masks[1])
     return req
 
 
@@ -1155,7 +1273,6 @@ def phase_tiny(seed):
     serving = apply_schedule(SampleSpec(video_length=4, height=64, width=64,
                                         num_inference_steps=6),
                              "pab244_deep4_cfg4_ex")
-    wrappers = kernel_wrappers()
     plain, vanilla, plus = (tiny_pipelines(cfg, seed, ip)
                             for ip in (None, False, True))
     camera = tiny_pipelines(cfg, seed, camera_lora=True)
@@ -1178,31 +1295,114 @@ def phase_tiny(seed):
             ("exact, video_scale 1.5", plain,
              dataclasses.replace(exact, video_scale=1.5), {})]
     for label, (cpu, card), spec, extra in runs:
+        tiny_request(label, cpu, card, spec, extra, seed)
+
+
+def tiny_request(label, cpu, card, spec, extra, seed):
+    """One tiny request on the CPU (plain versions) and on the card
+    (kernels): the videos must agree within ``TINY_VIDEO_ATOL``, and
+    spatial self-attention of <= 32 tokens must take the tiny-sequence
+    kernel. Returns the card's launches by kernel."""
+    wrappers = kernel_wrappers()
+    with torch.inference_mode():
+        req = {**make_request(cpu, spec, seed + 1, 1000), **extra}
+    t0 = time.perf_counter()
+    want = cpu.sample(spec=spec, **req)
+    t_cpu = time.perf_counter() - t0
+    before = {n: fn.launches for n, fn in wrappers.items()}
+    t0 = time.perf_counter()
+    got = card.sample(spec=spec, **req)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    launched = {n: fn.launches - before[n] for n, fn in wrappers.items()}
+    err = float((got.cpu() - want).abs().max())
+    ok = err <= TINY_VIDEO_ATOL and bool(torch.isfinite(got).all()) \
+        and float(want.std()) > 1e-3
+    log(f"[tiny] {label}: video {tuple(got.shape)} card (kernels) vs "
+        f"CPU (plain): max_abs_err {err:.3e} (tol {TINY_VIDEO_ATOL}); "
+        f"card {t_card:.2f} s, CPU {t_cpu:.2f} s; launches {launched} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"tiny {label} request: the card disagrees "
+                         "with the CPU")
+    if not launched["temporal_attention"]:
+        raise SystemExit("tiny request: spatial self-attention of <= 32 "
+                         "tokens did not take the temporal_attention "
+                         "kernel")
+    return launched
+
+
+# the remaining UNet and motion-module options, one tiny request each:
+# (label, UNet3DConfig fields, MotionModuleConfig fields, frames)
+TINY_OPTIONS = [
+    ("use_pseudo_conv3d", dict(use_pseudo_conv3d=True), {}, 4),
+    ("use_temporal_conv", dict(use_temporal_conv=True), {}, 4),
+    ("use_first_frame_condition_concat",
+     dict(use_first_frame_condition_concat=True,
+          use_first_frame_mask_condition_concat=False), {}, 4),
+    ("center_input_sample", dict(center_input_sample=True), {}, 4),
+    ("use_linear_projection", dict(use_linear_projection=True), {}, 4),
+    ("upcast_attention", dict(upcast_attention=True), {}, 4),
+    ("motion_module_decoder_only", dict(motion_module_decoder_only=True), {},
+     4),
+    ("Temporal_Cross", {},
+     dict(attention_block_types=("Temporal_Self", "Temporal_Cross")), 4),
+    ("temporal_attention_dim_div 2", {}, dict(temporal_attention_dim_div=2),
+     4),
+    ("RoPE at F = 24 > train_video_length", {},
+     dict(use_rope_position_encoding=True), 24),
+]
+
+
+def phase_tiny_options(seed):
+    """Each remaining UNet and motion-module option as a tiny fp32 request,
+    card against CPU (:func:`tiny_request`), its zero and dirac inits
+    perturbed (:func:`unzero_`); then the two options no request reaches
+    (the JAX sampler sets neither), class embeddings and the first-frame
+    zero-timestep embedding, as one tiny UNet evaluation each, card
+    against CPU within the same limit."""
+    from followyourclick_tpu_torch.models.unet3d import (
+        UNet3DConditionModel,
+        UNetConditioning,
+    )
+    from followyourclick_tpu_torch.pipelines.animation import SampleSpec
+
+    base = tiny_config()
+    for label, unet_kw, motion_kw, frames in TINY_OPTIONS:
+        cfg = dataclasses.replace(base, unet=dataclasses.replace(
+            base.unet, **unet_kw, motion_module=dataclasses.replace(
+                base.unet.motion_module, **motion_kw)))
+        spec = SampleSpec(video_length=frames, height=64, width=64,
+                          num_inference_steps=2)
+        tiny_request(f"option {label}", *tiny_pipelines(cfg, seed), spec, {},
+                     seed)
+    g = torch.Generator().manual_seed(seed + 3)
+    for label, unet_kw, extra in (
+            ("num_class_embeds", dict(num_class_embeds=4),
+             dict(class_labels=torch.tensor([2]))),
+            ("first_frame_zero_timestep", {},
+             dict(first_frame_zero_timestep=True))):
+        torch.manual_seed(seed)
+        cfg = dataclasses.replace(base.unet, **unet_kw)
+        cpu = UNet3DConditionModel(cfg).eval()
+        unzero_(cpu, torch.Generator().manual_seed(seed))
+        card = copy.deepcopy(cpu).cuda()
+        x = torch.randn(1, 4, 8, 8, cfg.conv_in_channels, generator=g)
+        cond = dict(context=torch.randn(2, TEXT_KEYS, 768, generator=g),
+                    fps=torch.tensor([8.0]), motion_score=torch.tensor([20.0]),
+                    **extra)
+        t = torch.tensor([501])
         with torch.inference_mode():
-            req = {**make_request(cpu, spec, seed + 1, 1000), **extra}
-        t0 = time.perf_counter()
-        want = cpu.sample(spec=spec, **req)
-        t_cpu = time.perf_counter() - t0
-        before = {n: fn.launches for n, fn in wrappers.items()}
-        t0 = time.perf_counter()
-        got = card.sample(spec=spec, **req)
-        torch.cuda.synchronize()
-        t_card = time.perf_counter() - t0
-        launched = {n: fn.launches - before[n] for n, fn in wrappers.items()}
+            want = cpu(x, t, UNetConditioning(**cond))
+            got = card(x.cuda(), t.cuda(), UNetConditioning(**{
+                k: v.cuda() if torch.is_tensor(v) else v
+                for k, v in cond.items()}))
         err = float((got.cpu() - want).abs().max())
-        ok = err <= TINY_VIDEO_ATOL and bool(torch.isfinite(got).all()) \
-            and float(want.std()) > 1e-3
-        log(f"[tiny] {label}: video {tuple(got.shape)} card (kernels) vs "
-            f"CPU (plain): max_abs_err {err:.3e} (tol {TINY_VIDEO_ATOL}); "
-            f"card {t_card:.2f} s, CPU {t_cpu:.2f} s; launches {launched} "
-            f"{'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise SystemExit(f"tiny {label} request: the card disagrees "
-                             "with the CPU")
-        if not launched["temporal_attention"]:
-            raise SystemExit("tiny request: spatial self-attention of <= 32 "
-                             "tokens did not take the temporal_attention "
-                             "kernel")
+        log(f"[tiny] option {label}: UNet evaluation {tuple(got.shape)} card "
+            f"vs CPU: max_abs_err {err:.3e} (tol {TINY_VIDEO_ATOL})")
+        if err > TINY_VIDEO_ATOL or not bool(torch.isfinite(got).all()):
+            raise SystemExit(f"tiny option {label}: the card disagrees with "
+                             "the CPU")
 
 
 def whole_block_fits(c, dtype, frames=16):
@@ -1217,11 +1417,19 @@ def whole_block_fits(c, dtype, frames=16):
     return c < 640
 
 
-def flash_line(rows, tokens, heads):
-    """The flash route's rule for self-attention, written out from the JAX
+def flash_line(rows, tokens, heads, keys=None):
+    """The flash route's rule for self-attention of ``tokens`` queries over
+    ``keys`` keys (``tokens`` unless given), written out from the JAX
     routing rule rather than asked of the port: at least 1024 keys and more
     than 12 GiB of bf16 scores."""
-    return tokens >= 1024 and rows * heads * tokens * tokens * 2 > 12 * 2 ** 30
+    keys = tokens if keys is None else keys
+    return keys >= 1024 and rows * heads * tokens * keys * 2 > 12 * 2 ** 30
+
+
+def tiny_line(frames, heads):
+    """The tiny-sequence route's rule for attention over the frames: at
+    most 32 frames and frames x heads at most 256."""
+    return frames <= 32 and frames * heads <= 256
 
 
 def expected_launches(unet, spec, dtype, batch=1, plan=None):
@@ -1229,23 +1437,27 @@ def expected_launches(unet, spec, dtype, batch=1, plan=None):
     ``plan`` (default the request's :func:`request_plan`: ``step_plan`` on
     DDIM, the solver's ``n_calls`` full steps otherwise), from the plan, the
     clip shape and the UNet's module structure alone. A trunk-reuse step
-    runs only level 0 (down block 0 and the last up block). A motion block
-    (all standard, two ``Temporal_Self`` attentions) takes the modular path
-    when the step's mode records or reuses temporal sites or
-    :func:`whole_block_fits` says no, else the whole-block kernel. On the
-    modular path the FF is one LN-GEGLU launch and each attention that is
-    not reused one launch of fused_temporal_block (C < 1280) or
-    temporal_attention (C = 1280); every spatial transformer block runs one
-    LN-GEGLU. A spatial self-attention that is not reused launches flash
+    runs only level 0 (down block 0 and the last up block).
+
+    A motion block takes the whole-block kernel when it is standard (two
+    ``Temporal_Self`` attentions, no RoPE, no LoRA, inner width = C), the
+    step's mode neither records nor reuses temporal sites and
+    :func:`whole_block_fits` says yes; else the modular path: the FF is one
+    LN-GEGLU launch and each attention that is not reused one launch of
+    fused_temporal_block (no RoPE or LoRA, inner width = C < 1280) or of
+    temporal_attention (where :func:`tiny_line` holds). Every spatial
+    transformer block runs one LN-GEGLU; with in-block temporal attention,
+    one temporal_attention launch unless reused (where :func:`tiny_line`
+    holds). A spatial self-attention that is not reused launches flash
     attention when :func:`flash_line` holds for its rows (clips × frames,
     doubled for CFG after the duplication: with a shared CFG prefix on an
     exact step only from the second transformer block on, since the first
     duplicates at its cross-attention; with an unshared prefix or on a full
     serving step everywhere, the input being pre-duplicated; never on a
-    cond-only step or without CFG). Under ``video_scale`` (with CFG) every
-    full step adds the per-frame pass, the exact UNet at clips × frames rows
-    of one frame: every motion block on the whole-block kernel (bf16 takes
-    up to 32 frames). Spatial self-attention is assumed above 32 tokens (no
+    cond-only step or without CFG) and its keys (twice its tokens under
+    cross-frame attention). Under ``video_scale`` (with CFG) every full step
+    adds the per-frame pass, the exact UNet at clips × frames rows of one
+    frame. Spatial self-attention is assumed above 32 tokens (no
     tiny-sequence launches), as at 512²."""
     from followyourclick_tpu_torch.config import NoiseScheduleConfig
     from followyourclick_tpu_torch.models.attention import (
@@ -1280,6 +1492,7 @@ def expected_launches(unet, spec, dtype, batch=1, plan=None):
                  or len(unet.down_blocks) < 2)
         temporal_sites = mode is not None and (mode.record_temporal
                                                or mode.reuse_temporal)
+        temporal_run = mode is None or not mode.reuse_temporal
         for name, m in unet.named_modules():
             if not (trunk or level0(name)):
                 continue
@@ -1289,19 +1502,30 @@ def expected_launches(unet, spec, dtype, batch=1, plan=None):
                 doubled = doubled or (spec.do_cfg and full)
                 tokens = ((spec.height // 8 >> level(name))
                           * (spec.width // 8 >> level(name)))
+                keys = 2 * tokens if m.cross_frame else tokens
                 if (mode is None or not mode.reuse_spatial) and flash_line(
-                        r, tokens, m.attn1.heads):
+                        r, tokens, m.attn1.heads, keys):
                     counts["flash_attention"] += 1
+                if m.temporal and temporal_run and tiny_line(
+                        frames, m.attn_temp.heads):
+                    counts["temporal_attention"] += 1
             elif isinstance(m, TemporalTransformerBlock):
-                if not temporal_sites and whole_block_fits(m.dim, dtype,
-                                                           frames):
+                standard = (m.block_types == ("Temporal_Self",) * 2
+                            and not m.use_rope and not m.lora
+                            and m.heads * m.head_dim == m.dim)
+                if standard and not temporal_sites and whole_block_fits(
+                        m.dim, dtype, frames):
                     counts["fused_motion_block"] += 1
                     continue
                 counts["fused_ln_geglu"] += 1
-                if mode is None or not mode.reuse_temporal:
-                    kernel = ("fused_temporal_block" if m.dim < 1280
-                              else "temporal_attention")
-                    counts[kernel] += len(m.attention_blocks)
+                if not temporal_run:
+                    continue
+                for a in m.attention_blocks:
+                    if not a.lora and not a.use_rope and m.dim < 1280 \
+                            and a.heads * a.dim_head == m.dim:
+                        counts["fused_temporal_block"] += 1
+                    elif tiny_line(frames, a.heads):
+                        counts["temporal_attention"] += 1
 
     for step in plan:
         rows = batch * spec.video_length
@@ -1313,12 +1537,17 @@ def expected_launches(unet, spec, dtype, batch=1, plan=None):
     return counts
 
 
-def full_pipeline(seed, ip_plus=False, camera=False):
+def full_pipeline(seed, ip_plus=False, camera=False, t5=False,
+                  routes=False):
     """The default InferenceConfig's models with seeded random weights, in
     bf16 on the card. ``ip_plus``: the IP-Adapter Plus configuration, ip
     tokens in the UNet (``IP_TOKENS``), the CLIP ViT-H/14 tower and the
     Resampler (depth 4, 12 heads). ``camera``: the UNet with the
-    camera-motion embedding (BASELINE config 4)."""
+    camera-motion embedding (BASELINE config 4). ``t5``: the UNet with the
+    T5 cross-attention and a T5-v1.1-XXL encoder at ``T5Config()`` widths
+    (:func:`t5_encoder`). ``routes``: the UNet with :func:`routes_unet`'s
+    options. Every zero-initialised layer gets small weights
+    (:func:`unzero_`)."""
     from followyourclick_tpu_torch.config import InferenceConfig
     from followyourclick_tpu_torch.models.clip_text import CLIPTextModel
     from followyourclick_tpu_torch.models.ip_adapter import (
@@ -1338,6 +1567,11 @@ def full_pipeline(seed, ip_plus=False, camera=False):
     if camera:
         cfg = dataclasses.replace(cfg, unet=dataclasses.replace(
             cfg.unet, use_camera_motion_condition=True))
+    if t5:
+        cfg = dataclasses.replace(cfg, unet=dataclasses.replace(
+            cfg.unet, use_text_encoder_2=True))
+    if routes:
+        cfg = dataclasses.replace(cfg, unet=routes_unet(cfg.unet))
     t0 = time.perf_counter()
     torch.manual_seed(seed)
     ip = None
@@ -1350,15 +1584,53 @@ def full_pipeline(seed, ip_plus=False, camera=False):
                            IP_TOKENS, plus=True)
     unzero_(unet, torch.Generator(device="cuda").manual_seed(seed))
     pipe = AnimationPipeline(cfg, unet, vae, text, device="cuda",
-                             dtype=torch.bfloat16, ip_adapter=ip)
+                             dtype=torch.bfloat16, ip_adapter=ip,
+                             t5=t5_encoder(seed) if t5 else None)
     n_params = sum(p.numel() for p in pipe.unet.parameters())
     torch.cuda.synchronize()
     log(f"[full] built in {time.perf_counter() - t0:.1f} s; UNet "
         f"{n_params / 1e9:.3f} B parameters, bf16"
         + ("" if ip is None else
            f"; IP-Adapter Plus {sum(p.numel() for p in ip.parameters()) / 1e9:.3f}"
+           " B parameters")
+        + ("" if pipe.t5 is None else
+           f"; T5 {sum(p.numel() for p in pipe.t5.parameters()) / 1e9:.3f}"
            " B parameters"))
     return pipe
+
+
+def t5_encoder(seed):
+    """A T5-v1.1-XXL encoder at ``T5Config()`` widths, built in bf16 on the
+    card (4.76 B parameters, 9.5 GB) and filled from a generator on the
+    card at T5's own initial scales (its attention is unscaled, so the
+    query carries the 1/√(d_model·d_kv)): q N(0, 1/(d_model·d_kv)), k, v
+    and the feed-forward inputs N(0, 1/d_model), o N(0, 1/(heads·d_kv)),
+    wo N(0, 1/d_ff), the relative-position bias N(0, 1/d_model), the token
+    embedding N(0, 1), RMSNorm scales 1 + N(0, 0.05²)."""
+    from followyourclick_tpu_torch.models.t5_text import (
+        T5Config,
+        T5EncoderModel,
+    )
+
+    cfg = T5Config()
+    inner = cfg.num_heads * cfg.d_kv
+    std = {"q": (cfg.d_model * cfg.d_kv) ** -0.5, "k": cfg.d_model ** -0.5,
+           "v": cfg.d_model ** -0.5, "o": inner ** -0.5,
+           "wi_0": cfg.d_model ** -0.5, "wi_1": cfg.d_model ** -0.5,
+           "wo": cfg.d_ff ** -0.5,
+           "relative_attention_bias": cfg.d_model ** -0.5, "shared": 1.0}
+    with torch.device("meta"):
+        model = T5EncoderModel(cfg).to(torch.bfloat16)
+    model = model.to_empty(device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 21)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            layer = name.split(".")[-2]
+            if layer in std:
+                p.normal_(0.0, std[layer], generator=gen)
+            else:  # ln1, ln2, final_layer_norm
+                p.normal_(1.0, 0.05, generator=gen)
+    return model
 
 
 def phase_evaluation(pipe, seed):
@@ -1374,7 +1646,8 @@ def phase_evaluation(pipe, seed):
     evaluation(pipe, seed, "modular", PabMode(record_temporal=True))
 
 
-def evaluation(pipe, seed, label, mode, camera=None):
+def evaluation(pipe, seed, label, mode, camera=None, t5_states=None,
+               want_launches=None):
     """One bf16 UNet evaluation at 16 f / 512² under the PAB ``mode`` (the
     latents and their 5 condition channels, the doubled context; with a
     mode the latents are doubled first, as the sampler's full steps do),
@@ -1387,7 +1660,10 @@ def evaluation(pipe, seed, label, mode, camera=None):
     kernels' launches must be those :func:`expected_launches` gives for
     one full step under ``mode``. Prints the bf16 evaluations' times (CUDA
     events). ``camera``: the camera-motion type of a UNet with that
-    embedding."""
+    embedding; ``t5_states``: the T5 states ``[uncond; cond]`` of a UNet
+    with the T5 cross-attention; ``want_launches``: launch counts worked
+    out by hand, which ``expected_launches`` must give too. Returns the
+    kernels' launches."""
     from followyourclick_tpu_torch.models.unet3d import UNetConditioning
     from followyourclick_tpu_torch.pipelines.animation import (
         PlanStep,
@@ -1413,7 +1689,8 @@ def evaluation(pipe, seed, label, mode, camera=None):
             fps=torch.tensor([8.0], device="cuda"),
             motion_score=torch.tensor([20.0], device="cuda"),
             camera_motion_type=(None if camera is None else
-                                torch.tensor([float(camera)], device="cuda")))
+                                torch.tensor([float(camera)], device="cuda")),
+            context_t5=None if t5_states is None else t5_states.to(dtype))
         with torch.inference_mode():
             return pipe.unet(x.to(dtype), t, cond, mode, {})
 
@@ -1430,8 +1707,12 @@ def evaluation(pipe, seed, label, mode, camera=None):
         return (float(d.abs().max() / b.abs().max()),
                 float(d.norm() / b.norm()))
 
-    want_launches = {**dict.fromkeys(wrappers, 0), **expected_launches(
-        pipe.unet, spec, pipe.dtype, plan=[PlanStep(0, 0, True, mode)])}
+    expected = expected_launches(pipe.unet, spec, pipe.dtype,
+                                 plan=[PlanStep(0, 0, True, mode)])
+    if want_launches is not None and expected != want_launches:
+        raise SystemExit(f"evaluation, {label}: step_plan gives {expected} "
+                         f"launches, the hand count {want_launches}")
+    want_launches = {**dict.fromkeys(wrappers, 0), **expected}
     got, counts = launched(evaluate)
     kernel_ms = time_ms(evaluate, reps=3)
     plain = plain_versions()
@@ -1473,6 +1754,7 @@ def evaluation(pipe, seed, label, mode, camera=None):
             or got_32 > EVAL_FP32_RATIO * want_32:
         raise SystemExit(f"evaluation, {label}: the kernels' noise "
                          "prediction disagrees with the plain versions'")
+    return counts
 
 
 def run_request(pipe, spec, label, seed, by_hand=None, batch=1,
@@ -1733,6 +2015,198 @@ def phase_ip(seed, spec, by_hand):
     return launches
 
 
+def phase_t5(seed, spec, by_hand, serving):
+    """The T5 second text tower at full width: the default widths with the
+    T5 cross-attention (its zero-initialised projection given weights) and
+    a T5-v1.1-XXL encoder, bf16. The T5 encode alone (two passes, cond and
+    uncond) by CUDA events beside its bound (each weight read once a pass),
+    and against the same encode in fp32 (the encoder cast there and back),
+    each RMSNorm against its formula in fp64, and both checks against their
+    controls (:func:`rmsnorm_in_input_dtype` before the requests,
+    :func:`fan_in_init_` after them), which must fail; phase 4's evaluation
+    check with the T5 states; one exact request cold and warm; one request
+    under ``serving`` (its cross sites counted in a recording evaluation:
+    ``attn_t5_out`` beside ``attn2_out``). The encode is also timed on the
+    device alone (:func:`graph_ms`). Returns the launches by path."""
+    from followyourclick_tpu_torch.models.pab import PabMode
+    from followyourclick_tpu_torch.models.unet3d import UNetConditioning
+
+    pipe = full_pipeline(seed, t5=True)
+    t5 = pipe.t5
+    n_params = sum(p.numel() for p in t5.parameters())
+    with torch.inference_mode():
+        req = make_request(pipe, spec, seed + 400, 1000)
+        args = [req[k].cuda() for k in ("t5_input_ids", "t5_attention_mask",
+                                        "t5_neg_input_ids",
+                                        "t5_neg_attention_mask")]
+        torch.cuda.reset_peak_memory_stats()
+        states = pipe.encode_prompt_t5(*args)
+        encode_ms = time_ms(lambda: pipe.encode_prompt_t5(*args))
+        device_ms = graph_ms(lambda: pipe.encode_prompt_t5(*args), reps=3)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    fp32 = t5_fp32(pipe, args)
+    norm_max, rel = t5_drift(states, fp32)
+    shape = (2, T5_TOKENS, t5.config.d_model)
+    norm_err = t5_norm_error(t5, lambda: pipe.encode_prompt_t5(*args))
+    with rmsnorm_in_input_dtype():
+        norm_control = t5_norm_error(t5, lambda: pipe.encode_prompt_t5(*args))
+        with torch.inference_mode():
+            rel_control = t5_drift(pipe.encode_prompt_t5(*args), fp32)[1]
+    tokens = args[0].numel()
+    ops_ms, bytes_ms = bound_times(2 * 2 * n_params * tokens,
+                                   list(t5.parameters()) * 2)
+    log(f"[t5] encode [uncond; cond] {tuple(states.shape)}: {encode_ms:.3f} "
+        f"ms for two passes, {device_ms:.3f} ms of it on the device (CUDA "
+        f"graph of 3 encodes) (bound {max(ops_ms, bytes_ms):.3f} ms: bytes "
+        f"{bytes_ms:.3f}, operations {ops_ms:.3f}; {n_params / 1e9:.3f} B "
+        f"parameters); peak device memory {peak:.2f} GiB; bf16 against fp32: "
+        f"normalised max error {norm_max:.3e}, relative L2 {rel:.3e} (limit "
+        f"{T5_BF16_REL_L2}); RMSNorm against fp64: relative L2 {norm_err:.3e}"
+        f", control (RMSNorm in bf16) {norm_control:.3e} (limit "
+        f"{T5_NORM_REL_L2}); the encode under that control against fp32: "
+        f"relative L2 {rel_control:.3e}")
+    if not t5_encode_ok(states, fp32, shape):
+        raise SystemExit("t5: the bf16 encode is not finite of the expected "
+                         "shape, or strays from fp32")
+    if norm_err > T5_NORM_REL_L2:
+        raise SystemExit("t5: an RMSNorm strays from its fp32 formula")
+    if norm_control <= T5_NORM_REL_L2:
+        raise SystemExit("t5: the norm check passes RMSNorm in bf16")
+    paths = {"t5_evaluation": evaluation(pipe, seed, "T5", None,
+                                         t5_states=states)}
+    for r in ("cold", "warm"):
+        got, _, _ = run_request(pipe, spec, f"t5 exact, {r}", seed + 401,
+                                by_hand)
+        paths["exact_t5"] = {k: paths.get("exact_t5", {}).get(k, 0) + v
+                             for k, v in got.items()}
+    cache = {}
+    x = torch.zeros(2, spec.video_length, spec.height // 8, spec.width // 8,
+                    pipe.config.unet.conv_in_channels, device="cuda",
+                    dtype=pipe.dtype)
+    ctx = torch.zeros(2, TEXT_KEYS, 768, device="cuda", dtype=pipe.dtype)
+    with torch.inference_mode():
+        pipe.unet(x, torch.tensor([501, 501], device="cuda"),
+                  UNetConditioning(ctx, torch.tensor([8.0], device="cuda"),
+                                   torch.tensor([20.0], device="cuda"),
+                                   context_t5=states),
+                  PabMode(record_cross=True), cache)
+    del x, ctx
+    sites = collections.Counter(k.rsplit(".", 1)[-1] for k in cache)
+    log(f"[t5] cross sites a recording step caches: {dict(sites)}")
+    if sites != {"attn2_out": 16, "attn_t5_out": 16}:
+        raise SystemExit("t5: the serving schedule's cross sites miss the "
+                         "T5 cross-attention")
+    del cache
+    paths[f"{SERVING_SCHEDULE}_t5"], _, _ = run_request(
+        pipe, serving, "t5 serving", seed + 402, SERVING_LAUNCHES)
+    fan_in_init_(t5, torch.Generator(device="cuda").manual_seed(seed + 22))
+    with torch.inference_mode():
+        states = pipe.encode_prompt_t5(*args)
+    fp32 = t5_fp32(pipe, args)
+    norm_max, rel = t5_drift(states, fp32)
+    log(f"[t5] control (weights N(0, 1/fan_in)): bf16 against fp32: "
+        f"normalised max error {norm_max:.3e}, relative L2 {rel:.3e} (limit "
+        f"{T5_BF16_REL_L2})")
+    if t5_encode_ok(states, fp32, shape):
+        raise SystemExit("t5: the encode check passes the fan-in control")
+    return paths
+
+
+def t5_drift(states, fp32):
+    """A T5 encode against the same encode in fp32: (normalised max error,
+    relative L2)."""
+    d = states.float() - fp32
+    return (float(d.abs().max() / fp32.abs().max()),
+            float(d.norm() / fp32.norm()))
+
+
+def t5_encode_ok(states, fp32, shape):
+    """Whether a bf16 T5 encode is finite, of ``shape`` and within
+    ``T5_BF16_REL_L2`` of fp32."""
+    return (tuple(states.shape) == tuple(shape)
+            and bool(torch.isfinite(states).all())
+            and t5_drift(states, fp32)[1] <= T5_BF16_REL_L2)
+
+
+def t5_fp32(pipe, args):
+    """The pipeline's T5 encode ``[uncond; cond]`` in fp32 (the encoder
+    cast there and back)."""
+    pipe.t5.float()
+    try:
+        with torch.inference_mode():
+            return pipe.encode_prompt_t5(*args)
+    finally:
+        pipe.t5.to(pipe.dtype)
+
+
+def t5_norm_error(t5, encode):
+    """The largest relative L2, over ``t5``'s RMSNorms during one call of
+    ``encode``, of a norm's output against its formula computed in fp64 on
+    the same input and rounded to the output's dtype."""
+    from followyourclick_tpu_torch.models.t5_text import RMSNorm
+
+    errs = []
+
+    def hook(module, inputs, out):
+        x = inputs[0].double()
+        want = (x * torch.rsqrt(x.pow(2).mean(-1, keepdim=True)
+                                + module.eps)
+                * module.weight.double()).to(out.dtype).double()
+        errs.append(float((out.double() - want).norm() / want.norm()))
+
+    hooks = [m.register_forward_hook(hook) for m in t5.modules()
+             if isinstance(m, RMSNorm)]
+    try:
+        with torch.inference_mode():
+            encode()
+    finally:
+        for h in hooks:
+            h.remove()
+    return max(errs)
+
+
+@contextlib.contextmanager
+def rmsnorm_in_input_dtype():
+    """The T5 phase's control for :func:`t5_norm_error`: the port's RMSNorm
+    computed in its input's dtype, the drift from the fp32 design that the
+    check must reject."""
+    from followyourclick_tpu_torch.models.t5_text import RMSNorm
+
+    forward = RMSNorm.forward
+
+    def in_input_dtype(self, x):
+        var = x.pow(2).mean(dim=-1, keepdim=True)
+        return x * torch.rsqrt(var + self.eps) * self.weight.to(x.dtype)
+
+    RMSNorm.forward = in_input_dtype
+    try:
+        yield
+    finally:
+        RMSNorm.forward = forward
+
+
+def fan_in_init_(t5, gen):
+    """The T5 phase's control for :func:`t5_encode_ok`: every projection of
+    ``t5`` refilled N(0, 1/fan_in) from ``gen``, which leaves the unscaled
+    attention one-hot."""
+    with torch.no_grad():
+        for name, p in t5.named_parameters():
+            if p.dim() == 2 and not name.endswith(
+                    ("shared.weight", "relative_attention_bias.weight")):
+                p.normal_(0.0, p.shape[1] ** -0.5, generator=gen)
+
+
+def phase_routes(seed):
+    """One full-width bf16 UNet evaluation with the options that change
+    routes (:func:`routes_unet`: cross-frame and in-block temporal
+    attention, motion modules with RoPE and temporal LoRA, the LoRA ``up``
+    given weights), held by :func:`evaluation` to its plain versions and
+    fp32 and to ``ROUTES_LAUNCHES``. Returns its launches."""
+    pipe = full_pipeline(seed, routes=True)
+    return evaluation(pipe, seed, "routes", None,
+                      want_launches=ROUTES_LAUNCHES)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=4,
@@ -1755,6 +2229,7 @@ def main(argv=None) -> int:
     phase_build()
     stats = phase_kernels(args.seed)
     phase_tiny(args.seed)
+    phase_tiny_options(args.seed)
     pipe = full_pipeline(args.seed)
     phase_evaluation(pipe, args.seed)
     exact = SampleSpec(num_inference_steps=args.steps)
@@ -1788,6 +2263,12 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     paths["exact_ip_plus"] = phase_ip(args.seed, exact, exact_by_hand)
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths.update(phase_t5(args.seed, exact, exact_by_hand, serving))
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["routes_evaluation"] = phase_routes(args.seed)
     for name in KERNELS:
         if not sum(launches[name] for launches in paths.values()):
             raise SystemExit(f"{name} was never launched on a main path")
@@ -1822,7 +2303,9 @@ def main(argv=None) -> int:
                 "bound_ms": stats[name]["bound_ms"],
                 "bound_by": stats[name]["bound_by"],
                 "library_ms": stats[name]["library_ms"],
-                "ms_covers": covers[name] + " at 16 f / 512^2 CFG, bf16"}
+                "ms_covers": covers[name] + " at 16 f / 512^2 CFG, bf16",
+                **({"cross_frame": stats[name]["cross_frame"]}
+                   if "cross_frame" in stats[name] else {})}
                for name, (src, rep) in {**KERNELS, **UNROUTED}.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

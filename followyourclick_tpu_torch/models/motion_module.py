@@ -1,23 +1,30 @@
 """Temporal-attention motion modules.
 
-Port of ``followyourclick_tpu/models/motion_module.py`` with sinusoidal PE
-and the temporal PAB sites (``attn_0_out``, ``attn_1_out``). RoPE, temporal
-LoRA and cross-attention blocks are not ported yet and raise.
+Port of ``followyourclick_tpu/models/motion_module.py``: sinusoidal PE or
+RoPE (``models/rope.py``), the temporal LoRA on q, k, v and out
+(``add_temporal_lora``, scaled by ``lora_scale``), ``_Cross`` block types,
+``temporal_attention_dim_div`` (head width C / heads / div, so q, k, v and
+the out-projection's input are C / div wide) and the temporal PAB sites
+(``attn_0_out``, ``attn_1_out``). The UNet calls a motion module with no
+context, so a ``_Cross`` attention falls back to its own input, as in the
+JAX package (``motion_module.py:140-144``): a second self-attention over the
+frames.
 
-Routes on a CUDA tensor, decided before any launch:
+Routes on a CUDA tensor, decided before any launch, as the JAX rules:
 
 - the whole-block kernel ``ops/motion_block.fused_motion_block`` takes a
-  standard block (two ``Temporal_Self`` attentions, full width ≤ 1280) when
-  no PAB mode records or reuses temporal sites and the kernel takes this
-  width, frame count and dtype (``ops/motion_block.fits``: bf16 at every
-  width of 16-byte rows; fp32 where one position's block fits a thread
-  block's shared memory, which C ≥ 640 does not);
+  standard block (two ``Temporal_Self`` attentions, no RoPE, no LoRA, inner
+  width = C ≤ 1280) when no PAB mode records or reuses temporal sites and
+  the kernel takes this width, frame count and dtype
+  (``ops/motion_block.fits``: bf16 at every width of 16-byte rows; fp32
+  where one position's block fits a thread block's shared memory, which
+  C ≥ 640 does not);
 - every other block takes the modular path, each attention through a PAB
-  site: at C < 1280 one call of ``ops/temporal_attention.
-  fused_temporal_block`` (the JAX package's condition; in bf16 with the
-  module's cached ``[Wq; Wk; Wv]``), at C = 1280 the q/k/v products and
-  ``dot_product_attention``'s tiny-sequence kernel ``temporal_attention``;
-  its FF is ``ops/geglu.fused_ln_geglu``.
+  site: one call of ``ops/temporal_attention.fused_temporal_block`` for an
+  attention without RoPE or LoRA, inner width = C < 1280 (in bf16 with the
+  module's cached ``[Wq; Wk; Wv]``), else the q/k/v products and
+  ``dot_product_attention``, whose tiny-sequence route (F ≤ 32) launches
+  ``temporal_attention``; its FF is ``ops/geglu.fused_ln_geglu``.
 
 The fit test is a deliberate route, not a recovery from a failed build or
 launch. On a CPU tensor the modular path runs with plain PyTorch, as the JAX
@@ -42,6 +49,7 @@ from followyourclick_tpu_torch.models.layers import (
     temporal_positional_encoding,
 )
 from followyourclick_tpu_torch.models.pab import PabMode, pab_site
+from followyourclick_tpu_torch.models.rope import apply_rope, rope_tables
 from followyourclick_tpu_torch.ops import motion_block
 from followyourclick_tpu_torch.ops.attention import dot_product_attention
 from followyourclick_tpu_torch.ops.motion_block import fused_motion_block
@@ -61,22 +69,48 @@ def _pe_table(enabled: bool, max_len: int, frames: int, dim: int,
     return pe[0, :frames].to(like.dtype)
 
 
+class LoRADense(nn.Module):
+    """Rank-``rank`` residual projection ``up(down(x))``: down N(0, 1/rank²),
+    up zero, so a fresh one adds nothing (JAX ``LoRADense``)."""
+
+    def __init__(self, in_features: int, features: int, rank: int = 4):
+        super().__init__()
+        self.down = nn.Linear(in_features, rank, bias=False)
+        self.up = nn.Linear(rank, features, bias=False)
+        nn.init.normal_(self.down.weight, std=1.0 / rank)
+        nn.init.zeros_(self.up.weight)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.up(self.down(x))
+
+
 class TemporalAttention(nn.Module):
     """Self-attention along the frame axis of ``(B·H·W, F, C)`` rows, with
-    the sinusoidal PE added to the (normed) input."""
+    the sinusoidal PE added to the (normed) input or RoPE on q and k, and
+    the temporal LoRA (``add_temporal_lora``) beside each projection."""
 
     def __init__(self, query_dim: int, heads: int, dim_head: int,
                  temporal_position_encoding: bool = True,
-                 temporal_position_encoding_max_len: int = 24):
+                 temporal_position_encoding_max_len: int = 24,
+                 use_rope: bool = False, train_video_length: int = 16,
+                 add_temporal_lora: bool = False, lora_rank: int = 4):
         super().__init__()
         inner = heads * dim_head
         self.heads, self.dim_head = heads, dim_head
         self.pe = temporal_position_encoding
         self.pe_max_len = temporal_position_encoding_max_len
+        self.use_rope = use_rope
+        self.train_video_length = train_video_length
+        self.lora = add_temporal_lora
         self.to_q = nn.Linear(query_dim, inner, bias=False)
         self.to_k = nn.Linear(query_dim, inner, bias=False)
         self.to_v = nn.Linear(query_dim, inner, bias=False)
         self.to_out = nn.Linear(inner, query_dim)
+        if add_temporal_lora:
+            self.to_q_lora = LoRADense(query_dim, inner, lora_rank)
+            self.to_k_lora = LoRADense(query_dim, inner, lora_rank)
+            self.to_v_lora = LoRADense(query_dim, inner, lora_rank)
+            self.to_out_lora = LoRADense(inner, query_dim, lora_rank)
         self._qkv_key, self._qkv = None, None
 
     def qkv_weight(self) -> torch.Tensor:
@@ -89,12 +123,18 @@ class TemporalAttention(nn.Module):
             self._qkv, self._qkv_key = torch.cat(ws), key
         return self._qkv
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def fused_route(self, c: int) -> bool:
+        """The JAX rule for ``fused_temporal_block``: no LoRA, no RoPE, inner
+        width = C < 1280 (on a CUDA tensor)."""
+        return (not self.lora and not self.use_rope
+                and self.heads * self.dim_head == c and c < 1280)
+
+    def forward(self, x: torch.Tensor,
+                lora_scale: float = 1.0) -> torch.Tensor:
         bd, f, c = x.shape
-        if self.pe:
+        if self.pe and not self.use_rope:
             x = x + _pe_table(True, self.pe_max_len, f, c, x)
-        if x.device.type == "cuda" and c < 1280 \
-                and self.heads * self.dim_head == c:
+        if x.device.type == "cuda" and self.fused_route(c):
             return fused_temporal_block(
                 x.contiguous(), self.to_q.weight, self.to_k.weight,
                 self.to_v.weight, self.to_out.weight, self.to_out.bias,
@@ -102,39 +142,57 @@ class TemporalAttention(nn.Module):
                 qkv=self.qkv_weight() if x.dtype == torch.bfloat16
                 else None)
 
+        q, k, v = self.to_q(x), self.to_k(x), self.to_v(x)
+        if self.lora:
+            q = q + lora_scale * self.to_q_lora(x)
+            k = k + lora_scale * self.to_k_lora(x)
+            v = v + lora_scale * self.to_v_lora(x)
+
         def split(t):
             return t.reshape(bd, f, self.heads, self.dim_head)
 
-        out = dot_product_attention(split(self.to_q(x)), split(self.to_k(x)),
-                                    split(self.to_v(x)))
-        return self.to_out(out.reshape(bd, f, -1).to(x.dtype))
+        q, k, v = split(q), split(k), split(v)
+        if self.use_rope:
+            cos, sin = rope_tables(self.dim_head, f, device=x.device)
+            # (F, D) tables against (B·D, F, H, Dh): broadcast over heads
+            q, k = apply_rope(q, k, cos[:, None], sin[:, None],
+                              self.train_video_length, f)
+        out = dot_product_attention(q, k, v).reshape(bd, f, -1).to(x.dtype)
+        o = self.to_out(out)
+        if self.lora:
+            o = o + lora_scale * self.to_out_lora(out)
+        return o
 
 
 class TemporalTransformerBlock(nn.Module):
-    """Pre-LN temporal self-attentions with residuals, then LN → GEGLU FF."""
+    """Pre-LN temporal attentions with residuals, then LN → GEGLU FF.
+    ``attention_head_dim`` may be less than ``dim / heads``
+    (``temporal_attention_dim_div``); the block's width stays ``dim``."""
 
     def __init__(self, dim: int, num_attention_heads: int,
                  attention_head_dim: int,
                  attention_block_types: Sequence[str] = _STANDARD,
                  temporal_position_encoding: bool = True,
-                 temporal_position_encoding_max_len: int = 24):
+                 temporal_position_encoding_max_len: int = 24,
+                 use_rope: bool = False, train_video_length: int = 16,
+                 add_temporal_lora: bool = False, lora_rank: int = 4):
         super().__init__()
-        if any(t != "Temporal_Self" for t in attention_block_types):
-            raise NotImplementedError(
-                f"attention_block_types {tuple(attention_block_types)}: "
-                "only Temporal_Self is ported")
         self.dim = dim
         self.heads = num_attention_heads
         self.head_dim = attention_head_dim
         self.block_types = tuple(attention_block_types)
         self.pe = temporal_position_encoding
         self.pe_max_len = temporal_position_encoding_max_len
+        self.use_rope = use_rope
+        self.lora = add_temporal_lora
         self.norms = nn.ModuleList(LayerNorm(dim)
                                    for _ in attention_block_types)
         self.attention_blocks = nn.ModuleList(
             TemporalAttention(dim, num_attention_heads, attention_head_dim,
                               temporal_position_encoding,
-                              temporal_position_encoding_max_len)
+                              temporal_position_encoding_max_len, use_rope,
+                              train_video_length, add_temporal_lora,
+                              lora_rank)
             for _ in attention_block_types)
         self.ff_norm = LayerNorm(dim)
         self.ff = GEGLUFeedForward(dim)
@@ -162,6 +220,7 @@ class TemporalTransformerBlock(nn.Module):
                                             or pab.reuse("temporal"))
         return (h.device.type == "cuda" and not pab_temporal
                 and self.block_types == _STANDARD
+                and not self.use_rope and not self.lora
                 and self.heads * self.head_dim == self.dim
                 and self.dim <= 1280
                 and motion_block.fits(h.shape[1], self.dim, self.heads,
@@ -188,21 +247,20 @@ class MotionModule(nn.Module):
 
     def __init__(self, in_channels: int, config: MotionModuleConfig):
         super().__init__()
-        if config.use_rope_position_encoding or config.add_temporal_lora:
-            raise NotImplementedError(
-                "RoPE and temporal LoRA are not ported yet")
-        if config.temporal_attention_dim_div != 1:
-            raise NotImplementedError("temporal_attention_dim_div != 1")
         c = in_channels
         self.norm = GroupNorm(c, 32, eps=1e-6)
         self.proj_in = nn.Linear(c, c)
         self.transformer_blocks = nn.ModuleList(
             TemporalTransformerBlock(
                 c, config.num_attention_heads,
-                c // config.num_attention_heads,
+                c // config.num_attention_heads
+                // config.temporal_attention_dim_div,
                 tuple(config.attention_block_types),
                 config.temporal_position_encoding,
-                config.temporal_position_encoding_max_len)
+                config.temporal_position_encoding_max_len,
+                config.use_rope_position_encoding,
+                config.train_video_length, config.add_temporal_lora,
+                config.lora_rank)
             for _ in range(config.num_transformer_block))
         self.proj_out = nn.Linear(c, c)
         if config.zero_initialize:

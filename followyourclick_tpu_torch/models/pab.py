@@ -7,6 +7,12 @@ UNet trunk, for DeepCache-style reuse) is wrapped in :func:`pab_site`. A
 that reuses returns the cached output and skips the whole sublayer (pre-LN,
 q/k/v, attention, out-projection). ``pab=None`` is the exact path.
 
+The sites, in the order a UNet evaluation meets them in each block: a
+spatial transformer block's ``attn1_out`` (kind ``spatial``), ``attn2_out``
+and, with T5, ``attn_t5_out`` (``cross``), and with in-block temporal
+attention ``attn_temp_out`` (``temporal``); a motion block's ``attn_0_out``
+and ``attn_1_out`` (``temporal``); the trunk's ``deep_trunk`` (``deep``).
+
 The cache is a plain ``dict[str, Tensor]`` that the sampler owns and passes
 down through ``forward``; a site updates it in place. A key is the site's
 module path in the UNet (``torch`` qualified name, set by

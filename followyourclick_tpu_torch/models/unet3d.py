@@ -5,10 +5,18 @@ fps and motion-score embeddings, the 9-channel ``conv_in`` (noisy latent,
 click mask, first-frame latent), the down / mid / up topology,
 ``conv_norm_out`` with SiLU over the whole clip, ``conv_out``, and the PAB
 sites of the serving schedules (``models/pab.py``), the DeepCache trunk site
-among them, and the IP-Adapter's decoupled cross-attention
+among them, the IP-Adapter's decoupled cross-attention
 (``use_ip_cross_attention``: the context ends in ``ip_num_tokens`` image
-tokens). T5, class embeddings, PseudoConv3d and temporal convs are not
-ported yet and raise.
+tokens), and every other option of ``UNet3DConfig`` the JAX UNet runs:
+``center_input_sample``, class embeddings (``num_class_embeds``), the
+first-frame latent concatenated over the frames
+(``use_first_frame_condition_concat``, halved after ``conv_in``), the
+``PseudoConv3d`` convs and temporal conv blocks, the zero-initialised T5
+projection (``use_text_encoder_2``), the first-frame zero-timestep
+embedding, ``motion_module_decoder_only`` and the attention options of
+``models/attention.py``. Two options the JAX UNet declares but never reads
+raise: ``resnet_time_scale_shift`` other than "default" and a
+``class_embed_type``.
 
 Tensors are ``(B, F, H, W, C)``. CFG prefix sharing (exact): when
 ``cond.context`` has twice the sample's batch, the stem runs once and the
@@ -32,7 +40,11 @@ from followyourclick_tpu_torch.models.layers import (
     sinusoidal_timestep_embedding,
 )
 from followyourclick_tpu_torch.models.pab import PabMode, name_sites, pab_site
-from followyourclick_tpu_torch.models.resnet import InflatedConv, tile_to_batch
+from followyourclick_tpu_torch.models.resnet import (
+    InflatedConv,
+    PseudoConv3d,
+    tile_to_batch,
+)
 from followyourclick_tpu_torch.models.unet_blocks import (
     CrossAttnDownBlock3D,
     CrossAttnUpBlock3D,
@@ -41,37 +53,36 @@ from followyourclick_tpu_torch.models.unet_blocks import (
     UpBlock3D,
 )
 
-_NOT_PORTED = ("center_input_sample", "use_text_encoder_2",
-               "use_pseudo_conv3d", "use_temporal_conv",
-               "use_first_frame_condition_concat",
-               "unet_use_cross_frame_attention",
-               "unet_use_temporal_attention", "motion_module_decoder_only",
-               "use_linear_projection", "upcast_attention")
-
 
 @dataclass
 class UNetConditioning:
-    """Conditioning of one denoise step. ``context`` carries the CFG layout
-    ([uncond; cond] when doubled); ``fps``, ``motion_score`` and
-    ``camera_motion_type`` (an index of ``data/camera_motion.MOTION_TYPES``)
-    may be at the sample's batch or the context's."""
+    """Conditioning of one denoise step. ``context`` and ``context_t5``
+    carry the CFG layout ([uncond; cond] when doubled); ``fps``,
+    ``motion_score`` and ``camera_motion_type`` (an index of
+    ``data/camera_motion.MOTION_TYPES``) may be at the sample's batch or
+    the context's; ``class_labels`` and ``reference_images_latent`` are at
+    the sample's batch and tiled where the batch doubles.
+    ``first_frame_zero_timestep``: frame 0 of every resnet takes the t = 0
+    time embedding."""
 
     context: torch.Tensor                       # (B, 77 [+ ip tokens], 768)
     fps: Optional[torch.Tensor] = None          # (B,)
     motion_score: Optional[torch.Tensor] = None  # (B,)
     camera_motion_type: Optional[torch.Tensor] = None  # (B,)
+    class_labels: Optional[torch.Tensor] = None  # (B,) int
+    context_t5: Optional[torch.Tensor] = None   # (B, S2, 4096) raw T5 states
+    reference_images_latent: Optional[torch.Tensor] = None  # (B, h, w, 4)
+    first_frame_zero_timestep: bool = False
 
 
 class UNet3DConditionModel(nn.Module):
     def __init__(self, config: UNet3DConfig):
         super().__init__()
         cfg = self.config = config
-        for name in _NOT_PORTED:
-            if getattr(cfg, name):
-                raise NotImplementedError(f"UNet3DConfig.{name} is not "
-                                          "ported yet")
-        if cfg.num_class_embeds is not None or cfg.class_embed_type:
-            raise NotImplementedError("class embeddings are not ported yet")
+        # declared by the JAX config, never read by the JAX UNet
+        if cfg.class_embed_type is not None:
+            raise NotImplementedError(
+                f"class_embed_type={cfg.class_embed_type!r}")
         if cfg.resnet_time_scale_shift != "default":
             raise NotImplementedError(cfg.resnet_time_scale_shift)
         boc = list(cfg.block_out_channels)
@@ -85,7 +96,15 @@ class UNet3DConditionModel(nn.Module):
                                                    zero_init_output=True)
             self.motion_embedding = TimestepEmbedding(c0, temb,
                                                       zero_init_output=True)
-        self.conv_in = InflatedConv(cfg.conv_in_channels, c0, 3)
+        if cfg.num_class_embeds is not None:
+            self.class_embedding = nn.Embedding(cfg.num_class_embeds, temb)
+        conv_in = PseudoConv3d if cfg.use_pseudo_conv3d else InflatedConv
+        self.conv_in = conv_in(self.conv_in_channels(cfg), c0, 3)
+        if cfg.use_text_encoder_2:
+            self.text_encoder_proj_model_t5 = nn.Linear(
+                cfg.text_encoder_2_dim, cfg.cross_attention_dim)
+            nn.init.zeros_(self.text_encoder_proj_model_t5.weight)
+            nn.init.zeros_(self.text_encoder_proj_model_t5.bias)
 
         def use_motion(level: int) -> bool:
             return (cfg.use_motion_module
@@ -96,7 +115,8 @@ class UNet3DConditionModel(nn.Module):
         for i, kind in enumerate(cfg.down_block_types):
             final = i == len(boc) - 1
             args = (cfg, boc[max(i - 1, 0)], boc[i], cfg.layers_per_block,
-                    not final, use_motion(i))
+                    not final,
+                    use_motion(i) and not cfg.motion_module_decoder_only)
             if kind == "CrossAttnDownBlock3D":
                 self.down_blocks.append(CrossAttnDownBlock3D(*args))
             elif kind == "DownBlock3D":
@@ -131,6 +151,21 @@ class UNet3DConditionModel(nn.Module):
         self.conv_out = InflatedConv(c0, cfg.out_channels, 3)
         name_sites(self)
 
+    @staticmethod
+    def conv_in_channels(cfg: UNet3DConfig) -> int:
+        """``conv_in``'s input channels: the sample the caller passes (the
+        latents, and with ``use_first_frame_mask_condition_concat`` the
+        click mask and first-frame latent), plus the first-frame latent the
+        UNet concatenates under ``use_first_frame_condition_concat``. The
+        JAX UNet infers it from its input, so with both flags it is not
+        ``cfg.conv_in_channels``."""
+        c = cfg.in_channels
+        if cfg.use_first_frame_mask_condition_concat:
+            c += cfg.in_channels + 1
+        if cfg.use_first_frame_condition_concat:
+            c += cfg.in_channels
+        return c
+
     @contextlib.contextmanager
     def _ip_off(self):
         """Within the block every cross-attention treats the whole context
@@ -164,10 +199,12 @@ class UNet3DConditionModel(nn.Module):
     def _forward(self, sample, timesteps, cond, pab, cache, plain):
         cfg = self.config
         b, f = sample.shape[:2]
-        dtype = self.conv_in.conv.weight.dtype
+        dtype = self.conv_out.conv.weight.dtype
         timesteps = torch.as_tensor(timesteps, device=sample.device)
         if timesteps.ndim == 0:
             timesteps = timesteps.expand(b)
+        if cfg.center_input_sample:
+            sample = 2.0 * sample - 1.0
 
         def sin_emb(x):
             return sinusoidal_timestep_embedding(
@@ -179,6 +216,10 @@ class UNet3DConditionModel(nn.Module):
             return tile_to_batch(a, b) if a.ndim else a.expand(b)
 
         emb = self.time_embedding(sin_emb(timesteps))
+        emb_frame0 = None
+        if cond.first_frame_zero_timestep:
+            emb_frame0 = self.time_embedding(sin_emb(torch.zeros_like(
+                timesteps)))
         if cfg.use_camera_motion_condition \
                 and cond.camera_motion_type is not None:
             emb = emb + self.camera_motion_embedding(
@@ -190,12 +231,34 @@ class UNet3DConditionModel(nn.Module):
             emb = emb + self.fps_embedding(sin_emb(aux(cond.fps)))
             emb = emb + self.motion_embedding(
                 sin_emb(aux(cond.motion_score)))
+        if cfg.num_class_embeds is not None:
+            if cond.class_labels is None:
+                raise ValueError("num_class_embeds requires cond.class_labels")
+            emb = emb + self.class_embedding(torch.as_tensor(
+                cond.class_labels, device=sample.device))
+
+        sample = sample.to(dtype)
+        if cfg.use_first_frame_condition_concat:
+            if cond.reference_images_latent is None:
+                raise ValueError("use_first_frame_condition_concat requires "
+                                 "cond.reference_images_latent")
+            ref = tile_to_batch(cond.reference_images_latent, b).to(dtype)
+            sample = torch.cat([sample, ref[:, None].expand(
+                b, f, *ref.shape[1:])], dim=-1)
+        sample = self.conv_in(sample)
+        if cfg.use_first_frame_condition_concat:
+            sample = sample / 2.0
 
         context = cond.context.to(dtype)
-        sample = self.conv_in(sample.to(dtype))
+        context_2 = None
+        if cfg.use_text_encoder_2 and cond.context_t5 is not None:
+            context_2 = self.text_encoder_proj_model_t5(
+                cond.context_t5.to(dtype))
+        extra = (context_2, emb_frame0)
         # level 0 (the outermost) always runs
         res_samples = [sample]
-        sample, res = self.down_blocks[0](sample, emb, context, pab, cache)
+        sample, res = self.down_blocks[0](sample, emb, context, pab, cache,
+                                          *extra)
         res_samples += res
 
         def trunk(s):
@@ -203,13 +266,13 @@ class UNet3DConditionModel(nn.Module):
             DeepCache-cacheable interior."""
             skips = list(res_samples)
             for block in self.down_blocks[1:]:
-                s, res = block(s, emb, context, pab, cache)
+                s, res = block(s, emb, context, pab, cache, *extra)
                 skips += res
-            s = self.mid_block(s, emb, context, pab, cache)
+            s = self.mid_block(s, emb, context, pab, cache, *extra)
             for block in self.up_blocks[:-1]:
                 res = skips[-self.n_skip:]
                 skips = skips[:-self.n_skip]
-                s = block(s, res, emb, context, pab, cache)
+                s = block(s, res, emb, context, pab, cache, *extra)
             return s
 
         deep_site = (pab is not None and (pab.reuse_deep or pab.record_deep)
@@ -221,7 +284,7 @@ class UNet3DConditionModel(nn.Module):
             sample = trunk(sample)
         # the last up block takes the level-0 skips, computed in either mode
         sample = self.up_blocks[-1](sample, res_samples[:self.n_skip], emb,
-                                    context, pab, cache)
+                                    context, pab, cache, *extra)
         if cfg.use_inflated_groupnorm:
             bo = sample.shape[0]
             sample = self.conv_norm_out(

@@ -2,9 +2,12 @@
 → MotionModule, with down- and upsampling.
 
 Port of ``followyourclick_tpu/models/unet_blocks.py``. ``pab`` and
-``cache`` (``models/pab.py``) pass through to every attention site; the
-IP-Adapter settings (``use_ip_cross_attention``, ``ip_num_tokens``,
-``ip_scale``) to every spatial transformer.
+``cache`` (``models/pab.py``) pass through to every attention site, the
+projected T5 states ``context_2`` to every spatial transformer and the
+first-frame time embedding ``temb_frame0`` to every resnet; the config's
+attention options (IP-Adapter, ``upcast_attention``, T5, cross-frame and
+in-block temporal attention) reach every spatial transformer, its conv
+options (``use_pseudo_conv3d``, ``use_temporal_conv``) every resnet.
 """
 
 from __future__ import annotations
@@ -31,14 +34,19 @@ def _spatial_transformer(cfg: UNet3DConfig, ch: int) -> SpatialTransformer3D:
         ch, heads, ch // heads, 1, cfg.cross_attention_dim,
         cfg.norm_num_groups,
         ip_num_tokens=cfg.ip_num_tokens if cfg.use_ip_cross_attention else 0,
-        ip_scale=cfg.ip_scale)
+        ip_scale=cfg.ip_scale, upcast_attention=cfg.upcast_attention,
+        use_text_encoder_2=cfg.use_text_encoder_2,
+        cross_frame_attention=cfg.unet_use_cross_frame_attention,
+        temporal_attention=cfg.unet_use_temporal_attention)
 
 
 def _resnet(cfg: UNet3DConfig, in_ch: int, out_ch: int) -> ResnetBlock3D:
     return ResnetBlock3D(in_ch, out_ch, cfg.time_embed_dim,
                          groups=cfg.norm_num_groups,
                          eps=cfg.norm_eps if cfg.norm_eps else 1e-6,
-                         use_inflated_groupnorm=cfg.use_inflated_groupnorm)
+                         use_inflated_groupnorm=cfg.use_inflated_groupnorm,
+                         use_pseudo_conv3d=cfg.use_pseudo_conv3d,
+                         use_temporal_conv=cfg.use_temporal_conv)
 
 
 class _DownBlock(nn.Module):
@@ -60,13 +68,13 @@ class _DownBlock(nn.Module):
             if add_downsample else None)
 
     def forward(self, hidden_states, temb, context=None, pab=None,
-                cache=None):
+                cache=None, context_2=None, temb_frame0=None):
         output_states = []
         for i, resnet in enumerate(self.resnets):
-            hidden_states = resnet(hidden_states, temb)
+            hidden_states = resnet(hidden_states, temb, temb_frame0)
             if self.attentions is not None:
                 hidden_states = self.attentions[i](hidden_states, context,
-                                                   pab, cache)
+                                                   pab, cache, context_2)
             if self.motion_modules is not None:
                 hidden_states = self.motion_modules[i](hidden_states, pab,
                                                        cache)
@@ -91,8 +99,9 @@ class DownBlock3D(_DownBlock):
                          add_downsample, use_motion, cross_attention=False)
 
     def forward(self, hidden_states, temb, context=None, pab=None,
-                cache=None):
-        return super().forward(hidden_states, temb, None, pab, cache)
+                cache=None, context_2=None, temb_frame0=None):
+        return super().forward(hidden_states, temb, None, pab, cache, None,
+                               temb_frame0)
 
 
 class UNetMidBlock3DCrossAttn(nn.Module):
@@ -108,14 +117,17 @@ class UNetMidBlock3DCrossAttn(nn.Module):
             MotionModule(in_channels, cfg.motion_module)
             for _ in range(num_layers)) if use_motion else None)
 
-    def forward(self, hidden_states, temb, context, pab=None, cache=None):
-        hidden_states = self.resnets[0](hidden_states, temb)
+    def forward(self, hidden_states, temb, context, pab=None, cache=None,
+                context_2=None, temb_frame0=None):
+        hidden_states = self.resnets[0](hidden_states, temb, temb_frame0)
         for i, attn in enumerate(self.attentions):
-            hidden_states = attn(hidden_states, context, pab, cache)
+            hidden_states = attn(hidden_states, context, pab, cache,
+                                 context_2)
             if self.motion_modules is not None:
                 hidden_states = self.motion_modules[i](hidden_states, pab,
                                                        cache)
-            hidden_states = self.resnets[i + 1](hidden_states, temb)
+            hidden_states = self.resnets[i + 1](hidden_states, temb,
+                                                temb_frame0)
         return hidden_states
 
 
@@ -140,17 +152,17 @@ class _UpBlock(nn.Module):
                            if add_upsample else None)
 
     def forward(self, hidden_states, res_hidden_states, temb, context=None,
-                pab=None, cache=None):
+                pab=None, cache=None, context_2=None, temb_frame0=None):
         res_list = list(res_hidden_states)
         for i, resnet in enumerate(self.resnets):
             # skips saved before the CFG duplication point (conv_in output)
             # are at the pre-CFG batch
             res = tile_to_batch(res_list.pop(), hidden_states.shape[0])
             hidden_states = torch.cat([hidden_states, res], dim=-1)
-            hidden_states = resnet(hidden_states, temb)
+            hidden_states = resnet(hidden_states, temb, temb_frame0)
             if self.attentions is not None:
                 hidden_states = self.attentions[i](hidden_states, context,
-                                                   pab, cache)
+                                                   pab, cache, context_2)
             if self.motion_modules is not None:
                 hidden_states = self.motion_modules[i](hidden_states, pab,
                                                        cache)
@@ -178,6 +190,6 @@ class UpBlock3D(_UpBlock):
                          cross_attention=False)
 
     def forward(self, hidden_states, res_hidden_states, temb, context=None,
-                pab=None, cache=None):
+                pab=None, cache=None, context_2=None, temb_frame0=None):
         return super().forward(hidden_states, res_hidden_states, temb, None,
-                               pab, cache)
+                               pab, cache, None, temb_frame0)

@@ -12,7 +12,8 @@ the shapes alone:
   a 2-clip CFG request at 16 frames, 512²);
 - "plain": everything else, PyTorch's ``scaled_dot_product_attention`` in
   the role the JAX package gives XLA (the softmax runs in fp32 in its
-  kernels).
+  kernels); with a bias (CLIP's causal mask, T5's position bias and
+  padding mask) the JAX formula itself, fp32 logits plus the fp32 bias.
 
 ``impl`` is the JAX argument: "auto" routes as above, "flash" takes the
 flash route whenever there is no bias, "xla" the plain route, "packed" the
@@ -22,6 +23,10 @@ plain PyTorch, bias included, since the JAX one is no Pallas kernel). Under
 plain route, as the JAX package does off the TPU; "flash" asked for by name
 runs ``flash_attention`` on either, which on a CPU tensor is its plain
 version ``flash_attention_ref``.
+
+Mixed dtypes (``upcast_attention``: q and k in fp32, v in bf16) compute what
+the JAX plain path computes: fp32 logits and weights times v promoted, so v
+is cast up (exactly) and the route's kernel runs in fp32.
 """
 
 from __future__ import annotations
@@ -87,9 +92,15 @@ def packed_small_seq_attention(query: torch.Tensor, key: torch.Tensor,
 
 
 def _plain_attention(query, key, value, bias, scale):
+    if bias is not None:
+        # the JAX plain path: fp32 logits plus the fp32 bias, the weights
+        # cast to q's dtype (the bias never rounds to bf16)
+        logits = torch.einsum("bqhd,bkhd->bhqk", query.float(),
+                              key.float()) * scale + bias.float()
+        weights = torch.softmax(logits, dim=-1).to(query.dtype)
+        return torch.einsum("bhqk,bkhd->bqhd", weights, value)
     out = F.scaled_dot_product_attention(
         query.transpose(1, 2), key.transpose(1, 2), value.transpose(1, 2),
-        attn_mask=None if bias is None else bias.to(query.dtype),
         scale=scale)
     return out.transpose(1, 2)
 
@@ -103,6 +114,9 @@ def dot_product_attention(query: torch.Tensor, key: torch.Tensor,
     ``(B, H, Sq, Sk)``. Returns ``(B, Sq, H, D)``."""
     if scale is None:
         scale = query.shape[-1] ** -0.5
+    dtype = torch.promote_types(torch.promote_types(query.dtype, key.dtype),
+                                value.dtype)
+    query, key, value = (t.to(dtype) for t in (query, key, value))
     kind = route(query.shape, key.shape, bias is not None, impl)
     if kind == "packed":
         return packed_small_seq_attention(query, key, value, bias, scale)

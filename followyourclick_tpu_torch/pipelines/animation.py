@@ -22,6 +22,15 @@ the JAX sampler refuses raise (:meth:`SampleSpec.check_ported`). The
 tokenizer needs vocabulary files the repository does not ship, so requests
 carry token ids.
 
+The T5 second text tower: a pipeline built with a ``t5``
+(``models/t5_text.T5EncoderModel``) over a UNet with ``use_text_encoder_2``
+encodes the T5 token ids and padding masks of a request once
+(:meth:`AnimationPipeline.encode_prompt_t5`, ``[uncond; cond]``); the UNet
+projects the states into every spatial transformer's ``attn_t5``, and the
+cond-half steps slice them as the CLIP context. A UNet with
+``use_first_frame_condition_concat`` gets the first-frame latent as
+``reference_images_latent``.
+
 IP-Adapter image prompts (BASELINE config 3): a pipeline built with an
 ``ip_adapter`` (``models/ip_adapter.IPAdapter``) over a UNet with
 ``use_ip_cross_attention`` encodes ``ip_pixel_values`` once per request and
@@ -43,6 +52,7 @@ from followyourclick_tpu_torch.config import InferenceConfig
 from followyourclick_tpu_torch.models.clip_text import CLIPTextModel
 from followyourclick_tpu_torch.models.ip_adapter import IPAdapter
 from followyourclick_tpu_torch.models.pab import PabMode
+from followyourclick_tpu_torch.models.t5_text import T5EncoderModel
 from followyourclick_tpu_torch.models.unet3d import (
     UNet3DConditionModel,
     UNetConditioning,
@@ -194,8 +204,9 @@ def request_plan(spec: SampleSpec, n_calls: int) -> list[PlanStep]:
 
 
 class AnimationPipeline:
-    """Text encoder, UNet3D, VAE and the optional IP-Adapter on one device,
-    in one dtype: the card unless the caller passes ``device="cpu"``."""
+    """Text encoder, UNet3D, VAE and the optional IP-Adapter and T5 encoder
+    on one device, in one dtype: the card unless the caller passes
+    ``device="cpu"``."""
 
     def __init__(self, config: InferenceConfig,
                  unet: Optional[UNet3DConditionModel] = None,
@@ -203,7 +214,8 @@ class AnimationPipeline:
                  text_encoder: Optional[CLIPTextModel] = None,
                  device: torch.device | str = "cuda",
                  dtype: torch.dtype = torch.float32,
-                 ip_adapter: Optional[IPAdapter] = None):
+                 ip_adapter: Optional[IPAdapter] = None,
+                 t5: Optional[T5EncoderModel] = None):
         self.config = config
         self.device = torch.device(device)
         self.dtype = dtype
@@ -216,6 +228,7 @@ class AnimationPipeline:
         self.text_encoder = place(text_encoder
                                   or CLIPTextModel(config.clip_text))
         self.ip_adapter = None if ip_adapter is None else place(ip_adapter)
+        self.t5 = None if t5 is None else place(t5)
 
     def _on(self, x, dtype=None):
         if x is None:
@@ -227,6 +240,20 @@ class AnimationPipeline:
         """CFG context ``[uncond; cond]`` on the batch axis."""
         cond, _ = self.text_encoder(self._on(input_ids))
         uncond, _ = self.text_encoder(self._on(neg_input_ids))
+        return torch.cat([uncond, cond], dim=0)
+
+    def encode_prompt_t5(self, input_ids: torch.Tensor,
+                         attention_mask: torch.Tensor,
+                         neg_input_ids: torch.Tensor,
+                         neg_attention_mask: torch.Tensor) -> torch.Tensor:
+        """The raw T5 states ``[uncond; cond]`` (2B, S, d_model), one pass
+        each; the UNet projects them."""
+        if self.t5 is None:
+            raise ValueError("pipeline built without a T5 encoder: pass t5= "
+                             "to use t5_input_ids")
+        cond = self.t5(self._on(input_ids), self._on(attention_mask))
+        uncond = self.t5(self._on(neg_input_ids),
+                         self._on(neg_attention_mask))
         return torch.cat([uncond, cond], dim=0)
 
     def encode_image_prompt(self, pixel_values: torch.Tensor
@@ -292,9 +319,11 @@ class AnimationPipeline:
                 camera_motion_type: Optional[torch.Tensor] = None,
                 partial_mask: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
-                step_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """The denoise loop over :func:`request_plan`; ``context`` is
-        ``[uncond; cond]`` under CFG, the cond rows alone without.
+                step_noise: Optional[torch.Tensor] = None,
+                context_t5: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The denoise loop over :func:`request_plan`; ``context`` (and the
+        T5 states ``context_t5``, where given) is ``[uncond; cond]`` under
+        CFG, the cond rows alone without.
 
         The solver (``spec.scheduler``) scales the initial latents by its
         ``init_noise_sigma``, each UNet input by ``scale_model_input``, and
@@ -319,7 +348,9 @@ class AnimationPipeline:
         where given) reach the UNet as 5 channels beside the latents only
         when the UNet has ``use_first_frame_mask_condition_concat`` (its
         9-channel ``conv_in``); otherwise it gets the bare latents, and
-        ``first_image_latents``, ``mask`` and ``partial_mask`` are not read.
+        ``first_image_latents``, ``mask`` and ``partial_mask`` are not read;
+        a UNet with ``use_first_frame_condition_concat`` gets
+        ``first_image_latents`` as ``reference_images_latent``.
 
         DDIM at ``eta > 0`` and Euler-A add fresh standard-normal noise each
         step: ``step_noise[i]`` (``(n_calls, B, F, h, w, 4)``) where given,
@@ -356,8 +387,13 @@ class AnimationPipeline:
                    motion_score=self._on(motion_score, torch.float32),
                    camera_motion_type=self._on(camera_motion_type,
                                                torch.float32))
-        cond = UNetConditioning(context=context, **aux)
-        cond_half = UNetConditioning(context=context[b:], **aux)
+        if self.config.unet.use_first_frame_condition_concat:
+            aux["reference_images_latent"] = self._on(first_image_latents, dt)
+        cond = UNetConditioning(context=context, context_t5=context_t5,
+                                **aux)
+        cond_half = UNetConditioning(
+            context=context[b:], context_t5=(None if context_t5 is None
+                                             else context_t5[b:]), **aux)
         frame_ctx = None
         if do_cfg and spec.video_scale > 0:
             ucfg = self.config.unet
@@ -455,7 +491,12 @@ class AnimationPipeline:
                ip_pixel_values: Optional[torch.Tensor] = None,
                camera_motion_type: Optional[torch.Tensor] = None,
                partial_mask: Optional[torch.Tensor] = None,
-               step_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+               step_noise: Optional[torch.Tensor] = None,
+               t5_input_ids: Optional[torch.Tensor] = None,
+               t5_attention_mask: Optional[torch.Tensor] = None,
+               t5_neg_input_ids: Optional[torch.Tensor] = None,
+               t5_neg_attention_mask: Optional[torch.Tensor] = None
+               ) -> torch.Tensor:
         """Token ids (B, 77) + first-frame latent (B, h, w, 4) + click mask
         (B, h, w, 1) + fps and motion score (B,) → video (B, F, H, W, 3).
         ``noise`` (B, F, h, w, 4) replaces the initial draw from
@@ -467,7 +508,9 @@ class AnimationPipeline:
         multiplies the first-frame latent channels. The first-frame latent
         and the mask may be None when the UNet has no
         ``use_first_frame_mask_condition_concat``; the first-frame latent is
-        also the init image of ``use_first_image_as_init_latents``."""
+        also the init image of ``use_first_image_as_init_latents``. The T5
+        token ids and padding masks (B, S), cond and uncond, go through the
+        pipeline's T5 encoder into the UNet's T5 cross-attention."""
         spec.check_ported()
         if ip_pixel_values is None and \
                 self.config.unet.use_ip_cross_attention:
@@ -481,8 +524,14 @@ class AnimationPipeline:
             ip_tokens = self.encode_image_prompt(ip_pixel_values)
             context = torch.cat([context, ip_tokens.to(context.dtype)],
                                 dim=1)
+        context_t5 = None
+        if t5_input_ids is not None:
+            context_t5 = self.encode_prompt_t5(
+                t5_input_ids, t5_attention_mask, t5_neg_input_ids,
+                t5_neg_attention_mask)
         if not spec.do_cfg:
             context = context[b:]
+            context_t5 = None if context_t5 is None else context_t5[b:]
         if not self.config.unet.use_camera_motion_condition:
             camera_motion_type = None
         latents = self.prepare_latents(
@@ -491,5 +540,6 @@ class AnimationPipeline:
                           if spec.use_first_image_as_init_latents else None))
         latents = self.denoise(latents, context, spec, first_image_latents,
                                mask, fps, motion_score, camera_motion_type,
-                               partial_mask, generator, step_noise)
+                               partial_mask, generator, step_noise,
+                               context_t5)
         return self.decode_latents(latents)

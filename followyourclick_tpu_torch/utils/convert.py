@@ -9,6 +9,8 @@ torch module kind:
 - ``nn.Linear``: ``kernel (in, out)`` → ``weight (out, in)``; a 1×1-conv
   kernel ``(1, 1, in, out)`` is accepted too (the JAX ``Conv1x1``);
 - ``nn.Conv2d``: ``kernel HWIO`` → ``weight OIHW``;
+- ``nn.Conv1d`` (a conv along the frames): ``kernel (K, in, out)`` →
+  ``weight (out, in, K)``;
 - ``nn.Embedding``: ``embedding`` → ``weight``;
 - norms (any other module with ``weight``): ``scale`` → ``weight``;
 - ``bias`` stays ``bias``; a module may declare raw parameters under other
@@ -108,7 +110,7 @@ def _leaf_name(module: nn.Module, pname: str) -> str:
     """The flax leaf that fills torch parameter ``pname`` of ``module``."""
     if pname != "weight":
         return pname
-    if isinstance(module, (nn.Linear, nn.Conv2d)):
+    if isinstance(module, (nn.Linear, nn.Conv1d, nn.Conv2d)):
         return "kernel"
     if isinstance(module, nn.Embedding):
         return "embedding"
@@ -125,6 +127,8 @@ def _torch_layout(module: nn.Module, pname: str,
         return value.T
     if isinstance(module, nn.Conv2d):
         return value.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+    if isinstance(module, nn.Conv1d):
+        return value.transpose(2, 1, 0)  # (K, in, out) -> (out, in, K)
     return value
 
 

@@ -181,16 +181,6 @@ def test_motion_module(monkeypatch, force_fused, f, pe):
     close(tmod(t(x)), jmod.apply({"params": tree}, jnp.asarray(x)))
 
 
-def test_motion_module_rejects_unported_options():
-    for bad in (dict(use_rope_position_encoding=True),
-                dict(add_temporal_lora=True),
-                dict(attention_block_types=("Temporal_Self",
-                                            "Temporal_Cross"))):
-        with pytest.raises(NotImplementedError):
-            tm.MotionModule(32, MotionModuleConfig(num_attention_heads=4,
-                                                   **bad))
-
-
 def test_fused_params_order_matches_the_kernel():
     """The 20-tuple the block hands the kernel, against the JAX order."""
     blk = tm.TemporalTransformerBlock(32, 4, 8)

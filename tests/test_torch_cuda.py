@@ -790,3 +790,108 @@ def test_tiny_ip_request_card_against_cpu(card, plus, schedule):
     torch.cuda.synchronize()
     assert got.shape == want.shape == (1, 4, 64, 64, 3)
     assert float((got.cpu() - want).abs().max()) <= chip_smoke.TINY_VIDEO_ATOL
+
+
+# flash attention over twice the keys (cross-frame self-attention: frame 0
+# and the frame before each query frame), up to the level-0 shape of one
+# clip at 512² after the CFG duplication (32 rows, 4096 queries, 8192 keys)
+@pytest.mark.parametrize("b,sq,h,d,dtypes", [
+    (2, 300, 4, 40, (F32, BF16)), (4, 1024, 8, 40, (F32, BF16)),
+    (32, 4096, 8, 40, (BF16,))])
+def test_flash_attention_at_twice_the_keys(card, b, sq, h, d, dtypes):
+    rs = np.random.RandomState(sq)
+    for dtype in dtypes:
+        q = _randn(rs, (b, sq, h, d), 1.0, dtype)
+        k, v = (_randn(rs, (b, 2 * sq, h, d), 1.0, dtype) for _ in range(2))
+        before = flash_attention.launches
+        got = flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        assert flash_attention.launches == before + 1
+        assert_close(got, flash_attention_ref(q, k, v),
+                     FP32_REL if dtype == F32 else BF16_REL)
+
+
+@pytest.mark.parametrize("q_shape,k_shape,kernel", [
+    # the level-0 cross-frame shape of one clip: the flash route
+    ((32, 4096, 8, 40), (32, 8192, 8, 40), "flash"),
+    # a motion / in-block temporal attention shape: the tiny route
+    ((512, 16, 8, 40), (512, 16, 8, 40), "tiny")], ids=["flash", "tiny"])
+def test_upcast_attention_runs_the_fp32_kernel(card, q_shape, k_shape,
+                                               kernel):
+    """``upcast_attention``: q and k in fp32, v in bf16. The dispatch casts
+    v up and launches the route's kernel in fp32, as the JAX plain path
+    computes fp32 weights times v promoted."""
+    rs = np.random.RandomState(7)
+    q = _randn(rs, q_shape, 1.0, F32)
+    k = _randn(rs, k_shape, 1.0, F32)
+    v = _randn(rs, k_shape, 1.0, BF16)
+    wrapper, ref = ((flash_attention, flash_attention_ref) if kernel == "flash"
+                    else (temporal_attention, temporal_attention_ref))
+    before = wrapper.launches
+    got = dot_product_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert got.dtype == F32
+    assert_close(got, ref(q, k, v.float()), FP32_REL)
+
+
+# the frame attention at the widths of temporal_attention_dim_div = 2
+# (D = C / 8 / 2 at C = 320, 640, 1280) and of the in-block temporal
+# attention (D = 40, 80, 160), 16 frames
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("b,d", [(8192, 20), (2048, 40), (512, 80),
+                                 (128, 80), (8192, 40), (2048, 80)])
+def test_temporal_attention_at_the_dim_div_widths(card, dtype, b, d):
+    rs = np.random.RandomState(b + d)
+    q, k, v = (_randn(rs, (b, 16, 8, d), 1.0, dtype) for _ in range(3))
+    before = temporal_attention.launches
+    got = temporal_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert temporal_attention.launches == before + 1
+    assert_close(got, temporal_attention_ref(q, k, v),
+                 FP32_REL if dtype == F32 else BF16_REL)
+
+
+@pytest.mark.parametrize("c,dtype,mm,want", [
+    # RoPE or LoRA: the modular path, every attention on the frame kernel
+    (320, BF16, dict(use_rope_position_encoding=True), [0, 0, 2, 1]),
+    (640, F32, dict(add_temporal_lora=True), [0, 0, 2, 1]),
+    # a _Cross block: fused_temporal_block below 1280
+    (320, BF16, dict(attention_block_types=("Temporal_Self",
+                                            "Temporal_Cross")), [0, 2, 0, 1]),
+    (1280, BF16, dict(attention_block_types=("Temporal_Self",
+                                             "Temporal_Cross")),
+     [0, 0, 2, 1]),
+    # dim_div 2: half-width heads on the frame kernel
+    (640, BF16, dict(temporal_attention_dim_div=2), [0, 0, 2, 1])])
+def test_motion_options_route_on_the_card(card, c, dtype, mm, want):
+    """A motion module with each option (64 positions, 16 frames) on the
+    card against its plain run on the CPU, with the kernels each route
+    launches; the LoRA ``up`` is given weights."""
+    torch.manual_seed(c)
+    cpu = MotionModule(c, MotionModuleConfig(zero_initialize=False, **mm))
+    with torch.no_grad():
+        for m in cpu.modules():
+            if hasattr(m, "up") and isinstance(m.up, torch.nn.Linear):
+                m.up.weight.normal_(0.0, 0.1)
+    cpu = cpu.to(dtype)
+    gpu = copy.deepcopy(cpu).to("cuda")
+    x = _randn(np.random.RandomState(c), (1, 16, 8, 8, c), 1.0, dtype, "cpu")
+    with torch.no_grad():
+        want_out = cpu(x)
+        before = _counts()
+        got = gpu(x.cuda())
+        torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_counts(), before)] == want
+    assert_close(got.cpu(), want_out, FP32_REL if dtype == F32 else BF16_REL)
+
+
+def test_entry_runs_on_the_card(card):
+    """One CFG UNet3D step of the flagship config on the card (bf16)."""
+    from followyourclick_tpu_torch.entry import entry
+
+    fn, args = entry()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    assert out.shape == (2, 8, 32, 32, 4) and out.dtype == BF16
+    assert bool(torch.isfinite(out).all())

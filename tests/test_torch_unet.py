@@ -180,11 +180,12 @@ def test_camera_motion_embedding(cfg_batch):
 
 
 def test_unet3d_rejects_unported_options():
-    for name in ("use_text_encoder_2",
-                 "use_temporal_conv", "use_pseudo_conv3d"):
+    """The two options the JAX UNet declares but never reads still raise;
+    every other option builds (tests/test_torch_unet_options*.py)."""
+    for bad in (dict(resnet_time_scale_shift="scale_shift"),
+                dict(class_embed_type="timestep")):
         with pytest.raises(NotImplementedError):
-            UNet3DConditionModel(dataclasses.replace(TINY_UNET,
-                                                     **{name: True}))
+            UNet3DConditionModel(dataclasses.replace(TINY_UNET, **bad))
 
 
 def test_clip_text():
