@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Profile one warm full-width request per path on one NVIDIA card.
 
-    python3 chip_profile.py
+    python3 chip_profile.py [path ...]
+
+(all paths by default; e.g. ``python3 chip_profile.py cli``)
 
 Builds the kernels and the default ``InferenceConfig`` pipeline as
 ``chip_smoke.py`` does (bf16, seeded random weights, 16 frames, 512², CFG 8)
@@ -12,9 +14,15 @@ serving, whose level-0 self-attention takes the flash-attention kernel),
 then, with that pipeline freed, for the IP-Adapter Plus configuration
 (``chip_smoke.full_pipeline(ip_plus=True)``: ViT-H/14 tower, Resampler, 16
 ip tokens) on the exact sampler at 4 steps, runs one request to warm up and
-then one under ``torch.profiler`` (CPU and CUDA activities, no schedule). For each path it prints the wall time (host
-clock, ending in ``torch.cuda.synchronize()``), the peak device memory of
-the profiled request, the device's busy time (the union of the kernel,
+then one under ``torch.profiler`` (CPU and CUDA activities, no schedule);
+last, the click-to-video CLI (``cli``): ``cli.inference.run`` on a
+one-row manifest without an image over the synthetic SD-1.5 directory of
+``chip_smoke.write_sd_directory`` (exact sampler, 4 steps), one run to warm
+up and one under the profiler, with the load, the T2I first frame and the
+request each timed and given its own device busy time and idle share (the
+device intervals inside that part's host range). For each path it prints
+the wall time (host clock, ending in ``torch.cuda.synchronize()``), the
+peak device memory of the profiled request, the device's busy time (the union of the kernel,
 memcpy and memset intervals of the trace), the device span, the idle share
 of the wall time, each kernel wrapper's device time, calls, device launches
 and share of the wall, and the 30 kernels that take the most device time;
@@ -118,7 +126,97 @@ def request(pipe, spec, seed, batch=1):
     return video
 
 
-def main() -> int:
+def host_ranges(events, names):
+    """(start µs, end µs) of each host range named in ``names``, by name."""
+    out = collections.defaultdict(list)
+    for e in events:
+        if e.get("cat") == "user_annotation" and e.get("name") in names:
+            out[e["name"]].append((e["ts"], e["ts"] + e["dur"]))
+    return out
+
+
+def clipped_busy_us(intervals, window):
+    """Device busy µs of ``intervals`` inside ``window`` (start, end)."""
+    lo, hi = window
+    return busy_us([(max(s, lo), min(e, hi), n) for s, e, n in intervals
+                    if e > lo and s < hi])
+
+
+def profile_cli(acts, cfg=None, device="cuda", clip=(16, 512, 512)):
+    """The CLI path: one warm-up ``cli.inference.run`` and one under the
+    profiler, with the load, each T2I request and each video request in
+    their own profiler ranges; prints each part's wall, device busy time
+    and idle share, and the run's. ``cfg``, ``device`` and ``clip``
+    (frames, height, width) default to the full-width run on the card."""
+    from followyourclick_tpu_torch.cli import inference as cli
+    from followyourclick_tpu_torch.config import InferenceConfig
+    from followyourclick_tpu_torch.pipelines.animation import (
+        AnimationPipeline,
+    )
+    from followyourclick_tpu_torch.pipelines.text_to_image import (
+        TextToImagePipeline,
+    )
+    from followyourclick_tpu_torch.utils import loaders
+
+    cfg = cfg or InferenceConfig()
+    frames, height, width = clip
+    parts = {"load": (loaders, "assemble_pipeline_from_pretrained"),
+             "t2i": (TextToImagePipeline, "__call__"),
+             "request": (AnimationPipeline, "__call__")}
+    with tempfile.TemporaryDirectory() as root:
+        sd = os.path.join(root, "sd15")
+        _, mm = chip_smoke.write_sd_directory(sd, cfg, 0, device)
+        manifest = os.path.join(root, "prompts.txt")
+        with open(manifest, "w") as f:
+            f.write(chip_smoke.CLI_PROMPTS[0] + "\n")
+        args = cli.build_arg_parser().parse_args([
+            "--pretrained_model_path", sd, "--config", "smoke.yaml",
+            "--file", manifest, "--output_path", root, "--device", device,
+            "--L", str(frames), "--H", str(height), "--W", str(width)])
+        config = {"smoke": {"motion_module": [mm], "steps": EXACT_STEPS,
+                            "seed": [0]}}
+        cli.run(args, cfg, config, cli.load_prompt_manifest(manifest),
+                write_gifs=False)
+        saved = {}
+        for name, (owner, attr) in parts.items():
+            saved[name] = getattr(owner, attr)
+            setattr(owner, attr, annotated(f"cli_{name}", saved[name]))
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            with torch.profiler.profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                cli.run(args, cfg, config, cli.load_prompt_manifest(manifest),
+                        write_gifs=False)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            for name, (owner, attr) in parts.items():
+                setattr(owner, attr, saved[name])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    events = trace_events(prof)
+    iv = device_intervals(events)
+    busy = busy_us(iv) / 1e6
+    chip_smoke.log(f"[cli] one row, exact {EXACT_STEPS} steps: wall "
+                   f"{wall:.3f} s, peak device memory {peak:.2f} GiB, device "
+                   f"busy {busy:.3f} s; idle share of wall "
+                   f"{1 - busy / wall:.3f}")
+    ranges = host_ranges(events, {f"cli_{n}" for n in parts})
+    for name in parts:
+        for window in ranges[f"cli_{name}"]:
+            w = (window[1] - window[0]) / 1e6
+            b = clipped_busy_us(iv, window) / 1e6
+            chip_smoke.log(f"[cli] {name}: wall {w:.3f} s, device busy "
+                           f"{b:.3f} s, idle share {1 - b / w:.3f}")
+    by_name = collections.Counter()
+    for s, e, name in iv:
+        by_name[name] += e - s
+    rows = [f"{us / 1e3:12.2f} ms  {name}" for name, us in
+            by_name.most_common()]
+    (Path("chiprun_out") / "profile_cli.txt").write_text("\n".join(rows)
+                                                         + "\n")
+
+
+def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device; this script runs only on the "
               "card", file=sys.stderr)
@@ -144,12 +242,16 @@ def main() -> int:
         f"exact_{chip_smoke.BATCH}clips": (exact, chip_smoke.BATCH, False),
         "exact_ip_plus": (exact, 1, True),
     }
+    chosen = list(sys.argv[1:] if argv is None else argv) \
+        or [*paths, "cli"]
     out_dir = Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     pipe = None
     for label, (spec, batch, ip_plus) in paths.items():
+        if label not in chosen:
+            continue
         if pipe is None or (pipe.ip_adapter is not None) != ip_plus:
             pipe = None  # one full-width pipeline at a time
             gc.collect()
@@ -189,6 +291,11 @@ def main() -> int:
         (out_dir / f"profile_{label}.txt").write_text("\n".join(rows) + "\n")
         for row in rows[:TOP]:
             chip_smoke.log(f"[{label}] {row[:150]}")
+    if "cli" in chosen:
+        pipe = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        profile_cli(acts)
     return 0
 
 

@@ -98,20 +98,37 @@ result line:
    ``attn_t5_out`` beside ``attn2_out``;
 12. the routes: one full-width bf16 evaluation with cross-frame and
    in-block temporal attention and RoPE / LoRA motion modules, phase 4's
-   check, its launches equal to ``ROUTES_LAUNCHES``.
+   check, its launches equal to ``ROUTES_LAUNCHES``;
+13. the click-to-video CLI from checkpoint files (:func:`phase_cli`): a
+   synthetic SD-1.5 directory at the default widths (seeded random fp16
+   ``.safetensors`` in the reference's names, written through the inverse
+   of the converters, ``merges.txt``) and a DDP-prefixed motion-module
+   ``.ckpt``; the loader alone (a sample of its tensors against what was
+   written); then ``cli.inference`` on a two-row manifest without images,
+   one clip a request on the exact sampler and two clips a request under
+   ``pab488_deep4_cfg4_ex`` (``--steps``): each row's first frame by the
+   T2I pipeline (50 steps, CFG 8, on the video UNet's own tensors: its
+   construction may allocate ``T2I_MAX_NEW_BYTES`` at most), launches
+   equal to the video requests' ``expected_launches`` plus the T2I's
+   (LN-GEGLU only), load / T2I / request seconds and peak memory; GIFs
+   and ``config_snapshot.yaml`` (without PyYAML the phase drives
+   ``cli.inference.run`` with the configs built in Python and says so;
+   without imageio and PIL it checks the videos in memory and says so).
+
+Phase 1 also prints which optional packages import (``OPTIONAL_PACKAGES``).
 
 Phase 2 also holds flash attention at the level-0 cross-frame shape of one
 clip (``CROSS_FRAME_FLASH``, 8192 keys) and the frame attention at the
 ``temporal_attention_dim_div = 2`` widths.
 
-Phases 5 to 12 are the main paths: each sets every kernel's launch count to
-0 before each request and checks the request's counts against those its
-:func:`expected_launches` gives at its batch (from ``request_plan``: the
-solver's calls, CFG or not, the per-frame pass) and, where given, against
-the counts worked out by hand (the three unrouted kernels: 0), and prints
-time, video statistics per clip and peak memory. The
-second-to-last line is the JSON kernel table, the last line
-``{"ok": true, "device": {...}}``. The script needs torch with CUDA, numpy
+Phases 5 to 13 are the main paths: each sets every kernel's launch count to
+0 before each request (phase 13: before each CLI run) and checks the
+request's counts against those its :func:`expected_launches` gives at its
+batch (from ``request_plan``: the solver's calls, CFG or not, the
+per-frame pass) and, where given, against the counts worked out by hand
+(the three unrouted kernels: 0), and prints time, video statistics per
+clip and peak memory. The second-to-last line is the JSON kernel table,
+the last line ``{"ok": true, "device": {...}}``. The script needs torch with CUDA, numpy
 and the CUDA toolkit; it imports no JAX.
 """
 
@@ -124,6 +141,7 @@ import copy
 import dataclasses
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -391,6 +409,13 @@ def randn(gen, shape, scale, dtype):
         dtype)
 
 
+# packages the card's machine need not have; the CLI path needs none of
+# safetensors, transformers and cv2, and PyYAML and imageio (or PIL) only
+# for the files it reads and writes
+OPTIONAL_PACKAGES = ("yaml", "safetensors", "imageio", "PIL", "cv2",
+                     "pandas", "transformers")
+
+
 def phase_build():
     from followyourclick_tpu_torch.ops import _build
 
@@ -398,6 +423,11 @@ def phase_build():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     log(smi.stdout.strip().splitlines()[0])
+    import importlib.util
+
+    log("[build] optional packages: " + ", ".join(
+        f"{m} {'yes' if importlib.util.find_spec(m) else 'no'}"
+        for m in OPTIONAL_PACKAGES))
     t0 = time.perf_counter()
     path = _build.build()
     _build.load_library()
@@ -2207,6 +2237,508 @@ def phase_routes(seed):
                       want_launches=ROUTES_LAUNCHES)
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the click-to-video CLI from checkpoint files
+# ---------------------------------------------------------------------------
+
+# the reference's list modules, whose flax name folds the index in
+_LIST_SEGMENT = re.compile(
+    r"^(down_blocks|up_blocks|resnets|attentions|motion_modules|"
+    r"transformer_blocks|attention_blocks|norms|downsamplers|upsamplers)"
+    r"_(\d+)$")
+# reference convs the JAX package wraps with an inner "conv"
+_INFLATED = ("conv_in", "conv_out", "conv1", "conv2", "conv_shortcut")
+# the CLI phase's manifest (two rows, no images: the T2I makes each first
+# frame) and the T2I's fixed request (the JAX CLI's: 50 steps, CFG 8)
+CLI_PROMPTS = ("a red car drives along a coastal road",
+               "a cat sleeps in a sunny garden")
+T2I_STEPS = 50
+# a T2I step's launches by hand: the 16 spatial transformer blocks' LN-GEGLU
+# (no motion module, no flash at one frame)
+T2I_LAUNCHES_PER_STEP = {"fused_ln_geglu": 16}
+# a loaded tensor is sampled every CLI_SAMPLE_EVERY-th parameter
+CLI_SAMPLE_EVERY = 97
+# the T2I pipeline shares the video UNet's tensors: its construction may
+# allocate no more than this (a copy of the 2D UNet is 1.6 GiB in bf16)
+T2I_MAX_NEW_BYTES = 64 * 2 ** 20
+
+
+def _flat(tree):
+    """A nested tree → ``{path tuple: leaf}``."""
+    from followyourclick_tpu_torch.utils.convert import _flatten
+
+    return _flatten(tree)
+
+
+def _reference_leaf(leaf, value):
+    """A flax leaf → (reference leaf name, reference layout): kernels back
+    to ``(out, in)``, conv1d ``(out, in, k)`` and conv2d ``OIHW``; a norm's
+    ``scale`` and an embedding are ``weight``."""
+    if leaf == "kernel":
+        perm = {2: (1, 0), 3: (2, 1, 0), 4: (3, 2, 0, 1)}[value.ndim]
+        return "weight", value.permute(*perm) if hasattr(value, "permute") \
+            else value.transpose(*perm)
+    if leaf in ("scale", "embedding"):
+        return "weight", value
+    return leaf, value
+
+
+def unet_state_from_tree(tree):
+    """The inverse of ``convert_unet3d_state_dict``: a UNet flax tree → the
+    reference's (diffusers / AnimateDiff) state dict, names and layouts:
+    list indices unfolded, an inflated conv's inner ``conv`` dropped, the
+    motion module's ``temporal_transformer`` level put back, ``to_out.0``,
+    ``ff.net.0.proj`` and ``ff.net.2``."""
+    out = {}
+    for path, value in _flat(tree).items():
+        segs = list(path[:-1])
+        if len(segs) >= 2 and segs[-1] == "conv" and segs[-2] in _INFLATED:
+            segs.pop()
+        names = []
+        for seg in segs:
+            m = _LIST_SEGMENT.match(seg)
+            names += [m.group(1), m.group(2)] if m else [seg]
+            if m and m.group(1) == "motion_modules":
+                names.append("temporal_transformer")
+        name = ".".join(names)
+        name = re.sub(r"\.to_out$", ".to_out.0", name)
+        name = re.sub(r"\.ff\.proj$", ".ff.net.0.proj", name)
+        name = re.sub(r"\.ff\.out$", ".ff.net.2", name)
+        leaf, ref = _reference_leaf(path[-1], value)
+        out[f"{name}.{leaf}"] = ref
+    return out
+
+
+def vae_state_from_tree(tree):
+    """The inverse of ``convert_vae_state_dict``: a VAE flax tree → the
+    diffusers ``AutoencoderKL`` state dict (attention q/k/v/out as linear
+    ``query`` / ``key`` / ``value`` / ``proj_attn``)."""
+    out = {}
+    for path, value in _flat(tree).items():
+        name = ".".join(path[:-1])
+        name = re.sub(r"down_(\d+)_resnet_(\d+)", r"down_blocks.\1.resnets.\2",
+                      name)
+        name = re.sub(r"down_(\d+)_downsample",
+                      r"down_blocks.\1.downsamplers.0.conv", name)
+        name = re.sub(r"up_(\d+)_resnet_(\d+)", r"up_blocks.\1.resnets.\2",
+                      name)
+        name = re.sub(r"up_(\d+)_upsample", r"up_blocks.\1.upsamplers.0.conv",
+                      name)
+        name = re.sub(r"mid_resnet_(\d+)",
+                      lambda m: f"mid_block.resnets.{int(m.group(1)) - 1}",
+                      name)
+        name = name.replace("mid_attn_1", "mid_block.attentions.0")
+        leaf, ref = _reference_leaf(path[-1], value)
+        out[f"{name}.{leaf}"] = ref
+    return out
+
+
+def clip_state_from_tree(tree):
+    """The inverse of ``convert_clip_text_state_dict``: a CLIP text flax
+    tree → the HF ``CLIPTextModel`` state dict."""
+    out = {}
+    for path, value in _flat(tree).items():
+        name = ".".join(path[:-1])
+        name = re.sub(r"^layers_(\d+)", r"encoder.layers.\1", name)
+        name = re.sub(r"^(token|position)_embedding$",
+                      r"embeddings.\1_embedding", name)
+        name = name.replace("mlp_fc1", "mlp.fc1").replace("mlp_fc2",
+                                                          "mlp.fc2")
+        leaf, ref = _reference_leaf(path[-1], value)
+        out[f"text_model.{name}.{leaf}"] = ref
+    return out
+
+
+_SAFETENSORS_NAMES = {torch.float32: "F32", torch.float16: "F16",
+                      torch.bfloat16: "BF16", torch.int64: "I64",
+                      torch.int32: "I32", torch.uint8: "U8"}
+
+
+def write_safetensors(path, tensors):
+    """``{name: CPU tensor}`` → a ``.safetensors`` file: the 8-byte
+    little-endian header length, the JSON header (padded with spaces to 8
+    bytes), then each tensor's bytes in header order."""
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": _SAFETENSORS_NAMES[t.dtype],
+                        "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    head = json.dumps(header, separators=(",", ":")).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(len(head).to_bytes(8, "little"))
+        f.write(head)
+        for t in tensors.values():
+            raw = t.contiguous()
+            if raw.dtype == torch.bfloat16:
+                raw = raw.view(torch.int16)
+            f.write(memoryview(raw.numpy()).cast("B"))
+
+
+def synthetic_merges(words=("car", "cat", "road", "garden", "the", "sun")):
+    """BPE merges that compose each of ``words`` from its characters (a
+    ``merges.txt`` body; the repository ships no CLIP vocabulary)."""
+    merges = []
+    for w in words:
+        cur = w[0]
+        for i, ch in enumerate(w[1:], 1):
+            nxt = ch + ("</w>" if i == len(w) - 1 else "")
+            pair = f"{cur} {nxt}"
+            if pair not in merges:
+                merges.append(pair)
+            cur += nxt
+    return "#version: 0.2\n" + "\n".join(merges) + "\n"
+
+
+def random_flax_tree(module, gen):
+    """Seeded random values for ``module``'s flax tree (its
+    ``module_tree`` shapes), on the generator's device: kernels N(0,
+    1/fan_in), norm scales 1 + N(0, 0.05²), biases and embeddings N(0,
+    0.02²). The spatial transformers' ``proj_in`` / ``proj_out`` get the
+    JAX ``Conv1x1`` kernel ``(1, 1, in, out)``, as an SD-1.5 file holds
+    them (1×1 convs)."""
+    from followyourclick_tpu_torch.utils.convert import _set, module_tree
+
+    tree = {}
+    for path, slot in _flat(module_tree(module)).items():
+        shape = slot.shape
+        z = torch.randn(shape, generator=gen, device=gen.device)
+        if path[-1] == "kernel":
+            z = z / float(np.prod(shape[:-1])) ** 0.5
+            if (len(path) >= 3 and path[-2] in ("proj_in", "proj_out")
+                    and path[-3].startswith("attentions_")
+                    and len(shape) == 2):
+                z = z.reshape(1, 1, *shape)
+        elif path[-1] == "scale":
+            z = 1.0 + 0.05 * z
+        else:
+            z = 0.02 * z
+        _set(tree, path, z)
+    return tree
+
+
+def write_sd_directory(root, cfg, seed, device="cuda", dtype=torch.float16):
+    """An SD-1.5 directory at ``cfg``'s widths with seeded random weights,
+    as a user would download it, and the click-to-video motion module:
+    ``unet/``, ``vae/``, ``text_encoder/`` (``.safetensors`` in ``dtype``,
+    fp16 by default, in the reference's names, the UNet's 2D part with a
+    4-channel ``conv_in``),
+    ``tokenizer/merges.txt`` and ``motion_module.ckpt`` (the rest of the
+    3D UNet, ``conv_in`` at full width, ``module.``-prefixed in a
+    ``{"state_dict": ...}`` wrapper). The values are drawn on ``device``.
+    Returns the UNet's, VAE's and CLIP's written flax trees (``dtype``, CPU)
+    and the motion module's path."""
+    import os
+
+    from followyourclick_tpu_torch.models.clip_text import CLIPTextModel
+    from followyourclick_tpu_torch.models.unet3d import UNet3DConditionModel
+    from followyourclick_tpu_torch.models.vae import AutoencoderKL
+    from followyourclick_tpu_torch.utils.convert import _set
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    with torch.device("meta"):
+        modules = {"unet": UNet3DConditionModel(cfg.unet),
+                   "vae": AutoencoderKL(cfg.vae),
+                   "text_encoder": CLIPTextModel(cfg.clip_text)}
+    inverse = {"unet": unet_state_from_tree, "vae": vae_state_from_tree,
+               "text_encoder": clip_state_from_tree}
+    trees, motion = {}, {}
+    for sub, module in modules.items():
+        trees[sub] = {}
+        for path, v in _flat(random_flax_tree(module, gen)).items():
+            _set(trees[sub], path, v.to(dtype).cpu())
+        state = inverse[sub](trees[sub])
+        if sub == "unet":
+            motion = {k: v for k, v in state.items()
+                      if ".motion_modules." in k or k.startswith(
+                          ("fps_embedding.", "motion_embedding.",
+                           "conv_in."))}
+            state = {k: v for k, v in state.items()
+                     if k not in motion or k.startswith("conv_in.")}
+            state["conv_in.weight"] = state["conv_in.weight"][:, :4]
+        os.makedirs(os.path.join(root, sub))
+        name = ("diffusion_pytorch_model.safetensors" if sub != "text_encoder"
+                else "model.safetensors")
+        write_safetensors(os.path.join(root, sub, name),
+                          {k: v.contiguous() for k, v in state.items()})
+    os.makedirs(os.path.join(root, "tokenizer"))
+    with open(os.path.join(root, "tokenizer", "merges.txt"), "w") as f:
+        f.write(synthetic_merges())
+    mm_path = os.path.join(root, "motion_module.ckpt")
+    torch.save({"state_dict": {"module." + k: v.contiguous()
+                               for k, v in motion.items()}}, mm_path)
+    return trees, mm_path
+
+
+def loaded_sample_check(pipe, trees):
+    """Every ``CLI_SAMPLE_EVERY``-th parameter of the loaded UNet, VAE and
+    CLIP text encoder against what was written (fp16, through the flax →
+    torch layout, in the pipeline's dtype): bit for bit. Returns the number
+    checked."""
+    from followyourclick_tpu_torch.utils.convert import (
+        _flax_path,
+        _leaf_name,
+        _torch_layout,
+    )
+
+    checked = 0
+    for sub, module in (("unet", pipe.unet), ("vae", pipe.vae),
+                        ("text_encoder", pipe.text_encoder)):
+        flat = _flat(trees[sub])
+        params = [(mname, mod, pname, p) for mname, mod in
+                  module.named_modules()
+                  for pname, p in mod.named_parameters(recurse=False)]
+        for i, (mname, mod, pname, p) in enumerate(params):
+            if i % CLI_SAMPLE_EVERY and "conv_in" not in mname:
+                continue
+            key = _flax_path(mname) + (_leaf_name(mod, pname),)
+            want = torch.from_numpy(np.ascontiguousarray(_torch_layout(
+                mod, pname, flat[key].numpy()))).to(p.dtype)
+            if not torch.equal(p.detach().cpu(), want):
+                raise SystemExit(f"[cli] loaded {sub}.{mname}.{pname} is not "
+                                 "what was written")
+            checked += 1
+    return checked
+
+
+@contextlib.contextmanager
+def t2i_observed(log_rows):
+    """Watch the T2I pipeline inside the CLI: the device memory its
+    construction adds (it must share the video UNet's tensors) and the
+    launches of each of its requests, read from the wrappers' counts
+    before and after (nothing is reset)."""
+    from followyourclick_tpu_torch.pipelines import text_to_image as t2i_mod
+
+    cls = t2i_mod.TextToImagePipeline
+    init, sample = cls.__init__, cls.sample
+    wrappers = {**kernel_wrappers(), **unrouted_wrappers()}
+
+    def observed_init(self, config, unet, *a, **kw):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        init(self, config, unet, *a, **kw)
+        torch.cuda.synchronize()
+        shared = (self.unet.conv_in.conv.weight.data_ptr()
+                  == unet.conv_in.conv.weight.data_ptr())
+        log_rows.append(("init", torch.cuda.memory_allocated() - before,
+                         shared))
+
+    def observed_sample(self, *a, **kw):
+        before = {n: fn.launches for n, fn in wrappers.items()}
+        out = sample(self, *a, **kw)
+        log_rows.append(("sample", {n: fn.launches - before[n]
+                                    for n, fn in wrappers.items()}))
+        return out
+
+    cls.__init__, cls.sample = observed_init, observed_sample
+    try:
+        yield
+    finally:
+        cls.__init__, cls.sample = init, sample
+
+
+def cli_run(label, argv, main_reads_files, write_gifs, expect_clips,
+            cfg):
+    """One CLI run with every launch count set to 0 before and read after:
+    through ``cli.inference.main``, which reads the files (``cfg`` must be
+    what its ``--inference_config`` file holds), or else through ``run``
+    with ``cfg`` and the prompt config read as JSON. Returns (launches by
+    kernel, the run's result, the T2I rows, seconds)."""
+    from followyourclick_tpu_torch.cli import inference as cli
+
+    wrappers = {**kernel_wrappers(), **unrouted_wrappers()}
+    rows = []
+    torch.cuda.reset_peak_memory_stats()
+    for fn in wrappers.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with t2i_observed(rows):
+        if main_reads_files:
+            result = cli.main(argv)
+        else:
+            args = cli.build_arg_parser().parse_args(argv)
+            with open(args.config) as f:
+                model_config = json.load(f)
+            result = cli.run(args, cfg, model_config,
+                             cli.load_prompt_manifest(args.file),
+                             write_gifs=write_gifs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    got = {name: fn.launches for name, fn in wrappers.items()}
+    st = result["stats"]
+    log(f"[cli {label}] {dt:.2f} s in all; load {st['load'][0]:.2f} s, "
+        f"T2I {' / '.join(f'{t:.2f}' for t in st['t2i'])} s, request "
+        f"{' / '.join(f'{t:.2f}' for t in st['request'])} s; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+        f"launches {got}")
+    if len(result["files"]) != expect_clips:
+        raise SystemExit(f"[cli {label}] {len(result['files'])} clips, "
+                         f"expected {expect_clips}")
+    return got, result, rows, dt
+
+
+def phase_cli(seed, steps, cfg=None, device="cuda", clip=(16, 512, 512)):
+    """Phase 13: the click-to-video CLI from checkpoint files at the default
+    widths. A synthetic SD-1.5 directory (:func:`write_sd_directory`) and a
+    two-row manifest without images; ``cli.inference`` runs (a) one clip a
+    request on the exact sampler, (b) two clips a request under
+    ``SERVING_SCHEDULE``, at ``steps`` (the prompt YAML's ``steps``). Each
+    row's first frame comes from the T2I pipeline (``T2I_STEPS`` steps, CFG
+    8, the motion-free UNet on the video UNet's tensors). Checks: a sample
+    of loaded tensors equals what was written; the T2I construction adds
+    no weights and shares ``conv_in``; each T2I request launches what
+    ``expected_launches`` gives for the motion-free UNet (LN-GEGLU only);
+    the run's launches equal the T2I's plus ``expected_launches`` of the
+    video requests; the videos are finite, in [0, 1], of the expected
+    shape; the GIFs exist (when imageio or PIL is installed). ``cfg``,
+    ``device`` and ``clip`` (frames, height, width) default to the
+    full-width run on the card. Returns the two runs' launches."""
+    import importlib.util
+    import os
+    import tempfile
+    from pathlib import Path
+
+    from followyourclick_tpu_torch.config import InferenceConfig
+    from followyourclick_tpu_torch.models.unet3d import UNet3DConditionModel
+    from followyourclick_tpu_torch.pipelines.animation import SampleSpec
+    from followyourclick_tpu_torch.pipelines.serving_schedules import (
+        apply_schedule,
+    )
+    from followyourclick_tpu_torch.utils import loaders
+
+    have_yaml = importlib.util.find_spec("yaml") is not None
+    have_gif = any(importlib.util.find_spec(m) for m in ("imageio", "PIL"))
+    if not have_yaml:
+        log("[cli] PyYAML is not installed: cli.inference.main cannot read "
+            "the inference config or the prompt YAML; the phase drives "
+            "cli.inference.run with the default InferenceConfig (what "
+            "configs/inference/inference.yaml holds) and the prompt config "
+            "read as JSON")
+    if not have_gif:
+        log("[cli] neither imageio nor PIL is installed: the GIFs are not "
+            "written (run(write_gifs=False)); the videos are checked in "
+            "memory")
+    cfg = cfg or InferenceConfig()
+    frames, height, width = clip
+    with torch.device("meta"):
+        meta_unet = UNet3DConditionModel(cfg.unet)
+        t2i_unet = UNet3DConditionModel(dataclasses.replace(
+            cfg.unet, use_motion_module=False,
+            use_first_frame_mask_condition_concat=False,
+            use_fps_condition=False))
+    t2i_spec = SampleSpec(video_length=1, height=height, width=width,
+                          num_inference_steps=T2I_STEPS,
+                          share_cfg_prefix=False)
+    t2i_want = expected_launches(t2i_unet, t2i_spec, torch.bfloat16)
+    t2i_by_hand = {name: T2I_LAUNCHES_PER_STEP.get(name, 0) * T2I_STEPS
+                   for name in KERNELS}
+    if t2i_want != t2i_by_hand:
+        raise SystemExit(f"[cli] T2I: step_plan gives {t2i_want}, the hand "
+                         f"count {t2i_by_hand}")
+    repo = Path(__file__).resolve().parent
+    paths = {}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        sd = os.path.join(root, "sd15")
+        trees, mm_path = write_sd_directory(sd, cfg, seed, device)
+        size = sum(f.stat().st_size for f in Path(sd).rglob("*")
+                   if f.is_file())
+        log(f"[cli] wrote the synthetic SD-1.5 directory and motion module "
+            f"({size / 2 ** 30:.2f} GiB) in {time.perf_counter() - t0:.1f} s")
+        # the loader alone, once: the tensors it fills are the written ones
+        t0 = time.perf_counter()
+        pipe = loaders.assemble_pipeline_from_pretrained(
+            sd, cfg, motion_module_path=mm_path, device=device)
+        torch.cuda.synchronize()
+        log(f"[cli] assembled in {time.perf_counter() - t0:.2f} s "
+            f"(tokenizer built at first use); "
+            f"{loaded_sample_check(pipe, trees)} loaded tensors equal the "
+            "written ones")
+        del pipe, trees
+        gc.collect()
+        torch.cuda.empty_cache()
+        model_config = {"smoke": {
+            "motion_module": [mm_path], "steps": steps,
+            "guidance_scale": 8.0, "seed": [seed],
+            "n_prompt": ["low resolution, low quality"]}}
+        prompt_file = os.path.join(root, "smoke.yaml")
+        with open(prompt_file, "w") as f:
+            json.dump(model_config, f)  # JSON is YAML
+        manifest = os.path.join(root, "prompts.txt")
+        with open(manifest, "w") as f:
+            f.write("\n".join(CLI_PROMPTS) + "\n")
+        base = ["--pretrained_model_path", sd, "--inference_config",
+                str(repo / "configs" / "inference" / "inference.yaml"),
+                "--config", prompt_file, "--file", manifest,
+                "--seed", str(seed), "--device", device, "--L", str(frames),
+                "--H", str(height), "--W", str(width)]
+        size = dict(video_length=frames, height=height, width=width,
+                    num_inference_steps=steps)
+        exact = SampleSpec(**size)
+        serving = apply_schedule(SampleSpec(**size), SERVING_SCHEDULE)
+        for label, extra, spec, batch in (
+                ("exact", ["--batch_size", "1"], exact, 1),
+                (f"{SERVING_SCHEDULE} {BATCH} clips",
+                 ["--batch_size", str(BATCH), "--serving_schedule",
+                  SERVING_SCHEDULE], serving, BATCH)):
+            out = os.path.join(root, "out_" + label.split()[0])
+            requests = len(CLI_PROMPTS) // batch
+            video_want = expected_launches(meta_unet, spec, torch.bfloat16,
+                                           batch)
+            want = {name: requests * video_want.get(name, 0)
+                    + len(CLI_PROMPTS) * t2i_want.get(name, 0)
+                    for name in {**KERNELS, **UNROUTED}}
+            got, result, rows, _ = cli_run(
+                label, base + extra + ["--output_path", out],
+                have_yaml and have_gif and cfg == InferenceConfig(),
+                have_gif, len(CLI_PROMPTS), cfg)
+            inits = [r for r in rows if r[0] == "init"]
+            samples = [r[1] for r in rows if r[0] == "sample"]
+            log(f"[cli {label}] T2I construction added "
+                f"{inits[0][1] / 2 ** 20:.1f} MiB, conv_in shared: "
+                f"{inits[0][2]}; T2I requests launched {samples}")
+            if len(inits) != 1 or inits[0][1] > T2I_MAX_NEW_BYTES \
+                    or not inits[0][2]:
+                raise SystemExit(f"[cli {label}] the T2I pipeline does not "
+                                 f"share the video UNet's tensors: {inits}")
+            t2i_full = {**dict.fromkeys(UNROUTED, 0), **t2i_want}
+            if len(samples) != len(CLI_PROMPTS) or any(
+                    s != t2i_full for s in samples):
+                raise SystemExit(f"[cli {label}] T2I launches {samples}, "
+                                 f"want {t2i_full} each")
+            if got != want:
+                raise SystemExit(f"[cli {label}] launches {got}, want {want} "
+                                 "(the video requests' step plan plus the "
+                                 "T2I's)")
+            for name, video in result["videos"].items():
+                shape = (1, frames, height, width, 3)
+                if video.shape != shape or not np.isfinite(video).all() \
+                        or video.min() < 0 or video.max() > 1 \
+                        or video.std() <= 0:
+                    raise SystemExit(f"[cli {label}] {name}: not a finite "
+                                     f"non-constant video in [0, 1] of "
+                                     f"shape {shape}")
+                log(f"[cli {label}]   {name}: min {video.min():.4f} max "
+                    f"{video.max():.4f} mean {video.mean():.4f} std "
+                    f"{video.std():.4f}")
+            written = sorted(os.listdir(result["savedir"]))
+            gifs = [n for n in result["files"] if n in written]
+            if have_gif and len(gifs) != len(result["files"]):
+                raise SystemExit(f"[cli {label}] GIFs missing: {written}")
+            if "config_snapshot.yaml" not in written:
+                raise SystemExit(f"[cli {label}] no config_snapshot.yaml")
+            log(f"[cli {label}] wrote {len(gifs)} GIF(s) "
+                f"{'' if have_gif else '(no imageio or PIL) '}and "
+                "config_snapshot.yaml")
+            paths[f"cli_{label.split()[0]}"] = got
+            gc.collect()
+            torch.cuda.empty_cache()
+    return paths
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=4,
@@ -2269,6 +2801,9 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     paths["routes_evaluation"] = phase_routes(args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths.update(phase_cli(args.seed, args.steps))
     for name in KERNELS:
         if not sum(launches[name] for launches in paths.values()):
             raise SystemExit(f"{name} was never launched on a main path")

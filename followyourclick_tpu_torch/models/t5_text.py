@@ -167,3 +167,56 @@ class T5EncoderModel(nn.Module):
         for block in self.block:
             x, position_bias = block(x, mask, position_bias)
         return self.final_layer_norm(x)
+
+
+def convert_t5_state_dict(state_dict) -> dict:
+    """An HF ``T5EncoderModel`` state dict → the flax tree of the JAX
+    package's ``T5EncoderModel`` (``block_{i}/{attention,ln1,ln2,wi_0,wi_1,
+    wo}``, ``shared/embedding``, ``final_layer_norm/scale``), which
+    ``utils/convert.load_jax_params`` puts into this module."""
+    import re
+
+    from followyourclick_tpu_torch.utils.convert import _set, _to_numpy
+
+    tree: dict = {}
+    for key, tensor in state_dict.items():
+        arr = _to_numpy(tensor)
+        name = re.sub(r"^encoder\.", "", key)
+        name = re.sub(r"^shared\.weight$", "shared.embedding", name)
+        name = re.sub(r"embed_tokens\.weight$", "shared.embedding", name)
+        name = re.sub(r"^block\.(\d+)\.", r"block_\1.", name)
+        name = name.replace("layer.0.SelfAttention", "attention")
+        name = name.replace("layer.0.layer_norm", "ln1")
+        name = name.replace("layer.1.DenseReluDense", "mlp")
+        name = name.replace("layer.1.layer_norm", "ln2")
+        name = name.replace("mlp.wi_0", "wi_0").replace("mlp.wi_1", "wi_1")
+        name = name.replace("mlp.wi", "wi").replace("mlp.wo", "wo")
+        name = name.replace(
+            "attention.relative_attention_bias.weight",
+            "attention.relative_attention_bias.embedding")
+        parts = name.split(".")
+        if parts[-1] == "weight":
+            _set(tree, tuple(parts[:-1]) + ("kernel",), arr.T)
+        else:
+            _set(tree, tuple(parts), arr)
+
+    def fix(node):
+        # an RMSNorm weight (rank 1) is a flax "scale", not a kernel
+        if not isinstance(node, dict):
+            return node
+        return {("scale" if k == "kernel" and getattr(v, "ndim", 0) == 1
+                 else k): fix(v) for k, v in node.items()}
+
+    return fix(tree)
+
+
+def t5_config_from_hf(hf: dict) -> T5Config:
+    """An HF T5 ``config.json`` → :class:`T5Config` (a gated-GELU
+    feed-forward for ``feed_forward_proj`` ``gated-gelu``)."""
+    keys = ("vocab_size", "d_model", "d_kv", "d_ff", "num_layers",
+            "num_heads", "relative_attention_num_buckets",
+            "relative_attention_max_distance", "layer_norm_epsilon")
+    kw = {k: hf[k] for k in keys if k in hf}
+    if "feed_forward_proj" in hf:
+        kw["gated_act"] = hf["feed_forward_proj"].startswith("gated")
+    return T5Config(**kw)

@@ -11,12 +11,19 @@ The library links against the CUDA runtime only. The TMA kernels' tensor
 maps come from the driver's ``cuTensorMapEncodeTiled``, which
 ``csrc/hopper.cuh`` takes through the runtime's driver entry-point query
 (``cudaGetDriverEntryPointByVersion``), so no ``-lcuda`` is needed.
+
+:func:`build_host_library` builds a host-only C++ source of ``csrc/`` (the
+CLIP tokenizer) with the host compiler into the same directory, under a
+file lock and by an atomic rename, so processes that start it together
+(test workers, one process a card) wait for one build and never load a
+half-written library.
 """
 
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -141,6 +148,45 @@ def build() -> Path:
             raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
                                f"{proc.stderr[-8000:]}")
         os.replace(lib, out)
+    return out
+
+
+HOST_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-Wall")
+
+
+def _cxx() -> str:
+    for name in ("g++", "c++", "clang++"):
+        found = shutil.which(name)
+        if found:
+            return found
+    raise RuntimeError("no host C++ compiler (g++, c++ or clang++) found")
+
+
+def build_host_library(source: Path, build_dir: Path = BUILD_DIR) -> Path:
+    """Compile a host C++ source into ``build_dir/lib<stem>_<hash>.so``
+    unless that library exists (the hash covers the source and flags).
+    One process builds while the others wait on ``<library>.lock``; the
+    compiler writes a temporary name that is renamed into place, so the
+    library is either absent or whole."""
+    h = hashlib.sha256(" ".join(HOST_FLAGS).encode())
+    h.update(source.read_bytes())
+    out = Path(build_dir) / f"lib{source.stem}_{h.hexdigest()[:16]}.so"
+    if out.exists():
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    with open(out.with_name(out.name + ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not out.exists():
+            tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
+            proc = subprocess.run([_cxx(), *HOST_FLAGS, "-o", str(tmp),
+                                   str(source)], capture_output=True,
+                                  text=True)
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError(f"building {source.name} failed "
+                                   f"({proc.returncode}):\n"
+                                   f"{proc.stderr[-4000:]}")
+            os.replace(tmp, out)
     return out
 
 

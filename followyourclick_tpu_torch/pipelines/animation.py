@@ -18,9 +18,12 @@ py``): the CFG-uncond cache with its first-order forecast, PAB attention
 reuse and the DeepCache trunk reuse with its forecast (``models/pab.py``),
 warm-up steps and final exact steps. :func:`step_plan` is their static
 schedule, :func:`request_plan` a request's UNet calls. Only the combinations
-the JAX sampler refuses raise (:meth:`SampleSpec.check_ported`). The
-tokenizer needs vocabulary files the repository does not ship, so requests
-carry token ids.
+the JAX sampler refuses raise (:meth:`SampleSpec.check_ported`).
+:meth:`AnimationPipeline.__call__` is the prompt-level entry (the JAX
+``__call__``): it tokenizes with the pipeline's CLIP tokenizer
+(``utils/native_tokenizer.py``, over an SD directory's ``merges.txt``),
+draws the noise from a ``torch.Generator`` seeded on the pipeline's device
+and returns the video as numpy.
 
 The T5 second text tower: a pipeline built with a ``t5``
 (``models/t5_text.T5EncoderModel``) over a UNet with ``use_text_encoder_2``
@@ -44,8 +47,9 @@ from __future__ import annotations
 import dataclasses
 import math
 from dataclasses import dataclass
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence
 
+import numpy as np
 import torch
 
 from followyourclick_tpu_torch.config import InferenceConfig
@@ -215,10 +219,13 @@ class AnimationPipeline:
                  device: torch.device | str = "cuda",
                  dtype: torch.dtype = torch.float32,
                  ip_adapter: Optional[IPAdapter] = None,
-                 t5: Optional[T5EncoderModel] = None):
+                 t5: Optional[T5EncoderModel] = None,
+                 tokenizer=None, tokenizer_2=None):
         self.config = config
         self.device = torch.device(device)
         self.dtype = dtype
+        self.tokenizer = tokenizer
+        self.tokenizer_2 = tokenizer_2
 
         def place(m):
             return m.to(device=self.device, dtype=dtype).eval()
@@ -229,6 +236,44 @@ class AnimationPipeline:
                                   or CLIPTextModel(config.clip_text))
         self.ip_adapter = None if ip_adapter is None else place(ip_adapter)
         self.t5 = None if t5 is None else place(t5)
+
+    def tokenize(self, prompts: Sequence[str],
+                 negative_prompts: Optional[Sequence[str]] = None):
+        """CLIP token ids (B, 77) of the prompts and the negative prompts
+        (empty strings where None), as numpy."""
+        if self.tokenizer is None:
+            raise ValueError("pipeline built without tokenizer")
+        if negative_prompts is None:
+            negative_prompts = [""] * len(prompts)
+        enc = self.tokenizer(list(prompts), padding="max_length",
+                             max_length=77, truncation=True,
+                             return_tensors="np")
+        neg = self.tokenizer(list(negative_prompts), padding="max_length",
+                             max_length=77, truncation=True,
+                             return_tensors="np")
+        return np.asarray(enc.input_ids), np.asarray(neg.input_ids)
+
+    def tokenize_2(self, prompts: Sequence[str],
+                   negative_prompts: Optional[Sequence[str]] = None,
+                   max_length: int = 77):
+        """T5 token ids and padding masks of the prompts and the negative
+        prompts: ``(ids, mask, neg_ids, neg_mask)``, with ``tokenizer_2``
+        (a tokenizer object the caller gives; the repository ships no
+        sentencepiece model)."""
+        if self.tokenizer_2 is None:
+            raise ValueError("pipeline built without T5 tokenizer "
+                             "(tokenizer_2); pass T5 token ids and masks "
+                             "to sample()")
+        if negative_prompts is None:
+            negative_prompts = [""] * len(prompts)
+        enc = self.tokenizer_2(list(prompts), padding="max_length",
+                               max_length=max_length, truncation=True,
+                               return_tensors="np")
+        neg = self.tokenizer_2(list(negative_prompts), padding="max_length",
+                               max_length=max_length, truncation=True,
+                               return_tensors="np")
+        return (np.asarray(enc.input_ids), np.asarray(enc.attention_mask),
+                np.asarray(neg.input_ids), np.asarray(neg.attention_mask))
 
     def _on(self, x, dtype=None):
         if x is None:
@@ -543,3 +588,64 @@ class AnimationPipeline:
                                partial_mask, generator, step_noise,
                                context_t5)
         return self.decode_latents(latents)
+
+    def __call__(self, prompt: Sequence[str] | str,
+                 negative_prompt: Optional[Sequence[str] | str] = None,
+                 spec: SampleSpec = SampleSpec(),
+                 first_image_latents=None, mask=None,
+                 fps: Optional[float] = 8.0,
+                 motion_score: Optional[float] = 20.0,
+                 camera_motion_type: Optional[float] = None,
+                 seed: int = 0, ip_image=None, partial_mask=None,
+                 noise: Optional[torch.Tensor] = None,
+                 step_noise: Optional[torch.Tensor] = None) -> np.ndarray:
+        """Prompts (+ first-frame latents (B, h, w, 4), click mask
+        (B, h, w, 1) and, for an IP UNet, CLIP pixel values ``ip_image``
+        (B, 224, 224, 3) from ``utils/video_io.clip_preprocess_image``) →
+        the video (B, F, H, W, 3) float32 in [0, 1], as numpy. fps, motion
+        score and camera type are one value for every clip, passed where
+        the UNet reads them. The noise comes from a ``torch.Generator`` on
+        the pipeline's device seeded with ``seed``, unless ``noise`` (and
+        for a stochastic solver ``step_noise``) is given."""
+        if isinstance(prompt, str):
+            prompt = [prompt]
+        if isinstance(negative_prompt, str):
+            negative_prompt = [negative_prompt] * len(prompt)
+        input_ids, neg_ids = self.tokenize(prompt, negative_prompt)
+        b = input_ids.shape[0]
+        ucfg = self.config.unet
+
+        t5_kwargs = {}
+        if self.t5 is not None and ucfg.use_text_encoder_2:
+            ids2, m2, nids2, nm2 = self.tokenize_2(prompt, negative_prompt)
+            t5_kwargs = dict(
+                t5_input_ids=torch.from_numpy(ids2),
+                t5_attention_mask=torch.from_numpy(m2),
+                t5_neg_input_ids=torch.from_numpy(nids2),
+                t5_neg_attention_mask=torch.from_numpy(nm2))
+        if ip_image is not None and self.ip_adapter is None:
+            raise ValueError("pass ip_adapter= to the pipeline to use "
+                             "ip_image")
+        if ip_image is None and ucfg.use_ip_cross_attention:
+            raise ValueError(
+                "unet.use_ip_cross_attention is on: the attention layers "
+                "treat the last ip_num_tokens of the context as image tokens, "
+                "so an ip_image (CLIP pixel values) is required")
+
+        def bcast(v, used):
+            return None if v is None or not used else \
+                torch.full((b,), float(v), dtype=torch.float32)
+
+        generator = torch.Generator(device=self.device).manual_seed(int(seed))
+        video = self.sample(
+            torch.from_numpy(input_ids), torch.from_numpy(neg_ids),
+            first_image_latents, mask,
+            bcast(fps, ucfg.use_fps_condition),
+            bcast(motion_score, ucfg.use_fps_condition), spec=spec,
+            generator=generator, noise=noise,
+            ip_pixel_values=(None if ip_image is None
+                             else torch.as_tensor(np.asarray(ip_image))),
+            camera_motion_type=bcast(camera_motion_type,
+                                     ucfg.use_camera_motion_condition),
+            partial_mask=partial_mask, step_noise=step_noise, **t5_kwargs)
+        return video.cpu().numpy()

@@ -22,11 +22,21 @@ A flax module name that holds underscores and digits but is no list entry
 the torch side (``models/ip_adapter.py``), so it maps to itself; a
 ``ModuleList`` entry ``layers.0.attn`` would map to ``layers_0/attn``.
 
-Real checkpoints go reference ``.ckpt`` → ``followyourclick_tpu.utils.
-convert.convert_*_state_dict`` (numpy, no JAX) → :func:`load_jax_params`.
-:func:`_map_unet_key` and :func:`_to_numpy` are the port's own copies of
-that module's reference-name rule, which ``utils/lora.py`` resolves LoRA
-keys through.
+Real checkpoints go state dict (``utils/loaders.py``) →
+``convert_*_state_dict`` → :func:`load_jax_params`. The converters are the
+port's own numpy copies of those of ``followyourclick_tpu/utils/convert.py``
+and give the same flax trees, so one key mapping serves both packages:
+:func:`_map_unet_key` (which ``utils/lora.py`` also resolves LoRA keys
+through), :func:`_map_vae_key` and :func:`_map_clip_key`. Value transforms
+go by rank: rank 1 → norm ``scale`` / ``bias`` as they are, rank 2 linear →
+transposed ``kernel``, rank 3 conv1d → ``(k, in, out)``, rank 4 conv2d →
+``(kh, kw, in, out)``.
+
+:func:`module_tree` is a module's own tree (:class:`ParamSlot` leaves, the
+JAX layout's shapes): the reference tree of :func:`audit_params` and the
+base that :func:`merge_params` lays a partial checkpoint over, as the JAX
+loaders use a model's initialised parameters; ``load_jax_params(...,
+partial=True)`` then fills only what the checkpoint holds.
 """
 
 from __future__ import annotations
@@ -85,6 +95,294 @@ def _map_unet_key(key: str) -> tuple | None:
     return tuple(parts) + (leaf,)
 
 
+def _leaf(name: str, tensor: np.ndarray) -> tuple:
+    """A reference parameter leaf → (flax leaf name, value in flax layout)."""
+    if name == "bias":
+        return "bias", tensor
+    if name != "weight":
+        return name, tensor
+    if tensor.ndim == 1:
+        return "scale", tensor
+    if tensor.ndim == 2:
+        return "kernel", tensor.T
+    if tensor.ndim == 3:  # conv1d (out, in, k) -> (k, in, out)
+        return "kernel", tensor.transpose(2, 1, 0)
+    if tensor.ndim == 4:  # conv2d (out, in, kh, kw) -> (kh, kw, in, out)
+        return "kernel", tensor.transpose(2, 3, 1, 0)
+    raise ValueError(f"unhandled weight rank {tensor.ndim} for {name}")
+
+
+def _set(tree: dict, path: tuple, value) -> None:
+    node = tree
+    for p in path[:-1]:
+        node = node.setdefault(p, {})
+    node[path[-1]] = value
+
+
+def convert_unet3d_state_dict(state_dict: Mapping[str, object],
+                              use_pseudo_conv3d: bool = False) -> dict:
+    """A reference UNet3D (or SD UNet2D) state dict → the flax tree. DDP
+    ``module.`` prefixes are stripped; recomputed buffers are skipped."""
+    tree: dict = {}
+    for key, tensor in state_dict.items():
+        path = _map_unet_key(key.removeprefix("module."))
+        if path is None:
+            continue
+        leaf_name, value = _leaf(path[-1], _to_numpy(tensor))
+        full = path[:-1] + (leaf_name,)
+        if use_pseudo_conv3d:
+            full = tuple("spatial_conv" if p == "conv" else p for p in full)
+        _set(tree, full, value)
+    return tree
+
+
+def _map_vae_key(key: str) -> tuple:
+    """A diffusers ``AutoencoderKL`` name → its flax path, leaf last."""
+    parts = key.split(".")
+    leaf = parts.pop()
+    name = ".".join(parts)
+    name = re.sub(r"(encoder)\.down_blocks\.(\d+)\.resnets\.(\d+)",
+                  r"\1.down_\2_resnet_\3", name)
+    name = re.sub(r"(encoder)\.down_blocks\.(\d+)\.downsamplers\.0\.conv",
+                  r"\1.down_\2_downsample", name)
+    name = re.sub(r"(decoder)\.up_blocks\.(\d+)\.resnets\.(\d+)",
+                  r"\1.up_\2_resnet_\3", name)
+    name = re.sub(r"(decoder)\.up_blocks\.(\d+)\.upsamplers\.0\.conv",
+                  r"\1.up_\2_upsample", name)
+    name = re.sub(r"mid_block\.resnets\.(\d+)",
+                  lambda m: f"mid_resnet_{int(m.group(1)) + 1}", name)
+    name = name.replace("mid_block.attentions.0", "mid_attn_1")
+    return tuple(name.split(".")) + (leaf,)
+
+
+def convert_vae_state_dict(state_dict: Mapping[str, object]) -> dict:
+    """A diffusers ``AutoencoderKL`` state dict → the flax tree. The
+    attention's q/k/v/out as 1×1 convs (older LDM dumps) become linear
+    kernels."""
+    tree: dict = {}
+    for key, tensor in state_dict.items():
+        path = _map_vae_key(key.removeprefix("module."))
+        arr = _to_numpy(tensor)
+        if path[-1] == "weight" and arr.ndim == 4 and arr.shape[2:] == (1, 1) \
+                and path[-2] in ("query", "key", "value", "proj_attn"):
+            arr = arr[:, :, 0, 0]
+        leaf_name, value = _leaf(path[-1], arr)
+        _set(tree, path[:-1] + (leaf_name,), value)
+    return tree
+
+
+def _map_clip_key(key: str) -> tuple | None:
+    """An HF ``CLIPTextModel`` name → its flax path, leaf last."""
+    if key.endswith("position_ids"):
+        return None
+    parts = key.split(".")
+    leaf = parts.pop()
+    name = ".".join(parts)
+    name = re.sub(r"^text_model\.", "", name)
+    name = re.sub(r"encoder\.layers\.(\d+)", r"layers_\1", name)
+    name = name.replace("embeddings.token_embedding", "token_embedding")
+    name = name.replace("embeddings.position_embedding", "position_embedding")
+    name = name.replace("mlp.fc1", "mlp_fc1").replace("mlp.fc2", "mlp_fc2")
+    return tuple(name.split(".")) + (leaf,)
+
+
+def convert_clip_text_state_dict(state_dict: Mapping[str, object]) -> dict:
+    """An HF ``CLIPTextModel`` state dict → the flax tree."""
+    tree: dict = {}
+    for key, tensor in state_dict.items():
+        path = _map_clip_key(key)
+        if path is None:
+            continue
+        arr = _to_numpy(tensor)
+        if path[-2] in ("token_embedding", "position_embedding"):
+            _set(tree, path[:-1] + ("embedding",), arr)
+            continue
+        leaf_name, value = _leaf(path[-1], arr)
+        _set(tree, path[:-1] + (leaf_name,), value)
+    return tree
+
+
+def audit_params(converted: Mapping, reference_tree: Mapping,
+                 prefix: str = "") -> tuple[list, list, list]:
+    """(missing, unexpected, mismatched) paths of ``converted`` against
+    ``reference_tree``: a key missing or unexpected counts where it first
+    appears, a leaf whose shape does not fit the reference leaf (a
+    :class:`ParamSlot` decides itself what fits) is mismatched."""
+    missing, unexpected, mismatched = [], [], []
+
+    def walk(conv, ref, path):
+        if not isinstance(ref, Mapping):
+            if not hasattr(conv, "shape"):
+                mismatched.append((path, "leaf-vs-tree"))
+            elif not (ref.fits(conv) if isinstance(ref, ParamSlot)
+                      else tuple(conv.shape) == tuple(ref.shape)):
+                mismatched.append((path, tuple(conv.shape),
+                                   tuple(ref.shape)))
+            return
+        if not isinstance(conv, Mapping):
+            mismatched.append((path, "tree-vs-leaf"))
+            return
+        for k in set(ref) - set(conv):
+            missing.append(path + (k,))
+        for k in set(conv) - set(ref):
+            unexpected.append(path + (k,))
+        for k in set(ref) & set(conv):
+            walk(conv[k], ref[k], path + (k,))
+
+    walk(converted, reference_tree, (prefix,) if prefix else ())
+    return missing, unexpected, mismatched
+
+
+def merge_params(base: Mapping, overlay: Mapping) -> dict:
+    """``overlay`` laid recursively over a copy of ``base`` (a partial
+    checkpoint over a full tree)."""
+    out = dict(base)
+    for k, v in overlay.items():
+        if k in out and isinstance(out[k], Mapping) and isinstance(v, Mapping):
+            out[k] = merge_params(out[k], v)
+        else:
+            out[k] = v
+    return out
+
+
+def drop_paths(tree: Mapping, paths) -> dict:
+    """A copy of ``tree`` without the subtrees at ``paths`` (what
+    :func:`audit_params` calls unexpected)."""
+    out = {k: drop_paths(v, ()) if isinstance(v, Mapping) else v
+           for k, v in tree.items()}
+    for path in paths:
+        node = out
+        for p in path[:-1]:
+            node = node[p]
+        node.pop(path[-1], None)
+    return out
+
+
+def convert_image_proj_state_dict(state_dict: Mapping[str, object]) -> dict:
+    """The vanilla ``ImageProjModel`` state dict (proj linear, norm LN) →
+    the flax tree."""
+    return {
+        "proj": {"kernel": _to_numpy(state_dict["proj.weight"]).T,
+                 "bias": _to_numpy(state_dict["proj.bias"])},
+        "norm": {"scale": _to_numpy(state_dict["norm.weight"]),
+                 "bias": _to_numpy(state_dict["norm.bias"])},
+    }
+
+
+def convert_resampler_state_dict(state_dict: Mapping[str, object]) -> dict:
+    """The Plus ``Resampler`` state dict (latents, proj_in / proj_out,
+    norm_out, ``layers.{i}.0`` the perceiver attention, ``layers.{i}.1`` the
+    LN → linear → GELU → linear feed-forward) → the flax tree."""
+    sd = state_dict
+
+    def lin(key):
+        return _to_numpy(sd[key]).T
+
+    def ln(prefix):
+        return {"scale": _to_numpy(sd[f"{prefix}.weight"]),
+                "bias": _to_numpy(sd[f"{prefix}.bias"])}
+
+    tree: dict = {
+        "latents": _to_numpy(sd["latents"]),
+        "proj_in": {"kernel": lin("proj_in.weight"),
+                    "bias": _to_numpy(sd["proj_in.bias"])},
+        "proj_out": {"kernel": lin("proj_out.weight"),
+                     "bias": _to_numpy(sd["proj_out.bias"])},
+        "norm_out": ln("norm_out"),
+    }
+    depth = 0
+    while f"layers.{depth}.0.to_q.weight" in sd:
+        p = f"layers.{depth}"
+        tree[f"layers_{depth}_attn"] = {
+            "norm1": ln(f"{p}.0.norm1"), "norm2": ln(f"{p}.0.norm2"),
+            "to_q": {"kernel": lin(f"{p}.0.to_q.weight")},
+            "to_kv": {"kernel": lin(f"{p}.0.to_kv.weight")},
+            "to_out": {"kernel": lin(f"{p}.0.to_out.weight")},
+        }
+        tree[f"layers_{depth}_ff_norm"] = ln(f"{p}.1.0")
+        tree[f"layers_{depth}_ff_in"] = {"kernel": lin(f"{p}.1.1.weight")}
+        tree[f"layers_{depth}_ff_out"] = {"kernel": lin(f"{p}.1.3.weight")}
+        depth += 1
+    return tree
+
+
+def convert_clip_vision_state_dict(state_dict: Mapping[str, object]) -> dict:
+    """A transformers ``CLIPVisionModelWithProjection`` state dict → the
+    flax tree of ``models/ip_adapter.CLIPVisionModel``."""
+    tree: dict = {}
+    for key, tensor in state_dict.items():
+        arr = _to_numpy(tensor)
+        k = key.replace("vision_model.", "")
+        if k == "embeddings.class_embedding":
+            _set(tree, ("class_embedding",), arr)
+        elif k == "embeddings.patch_embedding.weight":
+            _set(tree, ("patch_embedding", "kernel"),
+                 arr.transpose(2, 3, 1, 0))
+        elif k == "embeddings.position_embedding.weight":
+            _set(tree, ("position_embedding", "embedding"), arr)
+        elif k == "visual_projection.weight":
+            _set(tree, ("visual_projection", "kernel"), arr.T)
+        elif k.startswith(("pre_layrnorm", "post_layernorm")):
+            mod, leaf = k.split(".")
+            _set(tree, (mod, "scale" if leaf == "weight" else "bias"), arr)
+        elif k.startswith("encoder.layers."):
+            parts = k.split(".")
+            idx, rest = parts[2], parts[3:]
+            if rest[0] == "self_attn":
+                mod = rest[1]
+            elif rest[0] == "mlp":
+                mod = {"fc1": "mlp_fc1", "fc2": "mlp_fc2"}[rest[1]]
+            else:
+                mod = rest[0]  # layer_norm1 / layer_norm2
+            leaf = rest[-1]
+            if mod.startswith("layer_norm"):
+                _set(tree, (f"layers_{idx}", mod,
+                            "scale" if leaf == "weight" else "bias"), arr)
+            else:
+                name, val = _leaf(leaf, arr)
+                _set(tree, (f"layers_{idx}", mod, name), val)
+    return tree
+
+
+def graft_ip_cross_attention(unet_params: Mapping,
+                             ip_state_dict: Mapping[str, object]) -> dict:
+    """A copy of ``unet_params`` with the ip checkpoint's decoupled k/v
+    weights on every ``to_k_ip`` / ``to_v_ip`` kernel, by position: the
+    checkpoint's ``_ip`` tensors in their key order against the UNet's ip
+    projections in sorted flax-name order, as the JAX package (and the
+    reference's state-dict-order zip) does."""
+    ckpt = [(k, _to_numpy(v)) for k, v in ip_state_dict.items() if "_ip" in k]
+    paths = []
+
+    def collect(tree, path):
+        for k in sorted(tree):
+            v = tree[k]
+            if isinstance(v, Mapping):
+                if k in ("to_k_ip", "to_v_ip"):
+                    paths.append(path + (k,))
+                else:
+                    collect(v, path + (k,))
+
+    out = drop_paths(unet_params, ())  # a copy of the dict structure
+    collect(out, ())
+    if len(paths) != len(ckpt):
+        raise ValueError(
+            f"ip ckpt has {len(ckpt)} '_ip' tensors but the UNet exposes "
+            f"{len(paths)} ip projections")
+    for path, (name, arr) in zip(paths, ckpt):
+        node = out
+        for p in path:
+            node = node[p]
+        expected = tuple(node["kernel"].shape)
+        kernel = arr.T
+        if tuple(kernel.shape) != expected:
+            raise ValueError(
+                f"shape mismatch grafting {name} -> {'/'.join(path)}: "
+                f"{kernel.shape} vs {expected}")
+        node["kernel"] = kernel
+    return out
+
+
 def _flatten(tree: Mapping[str, Any], prefix: tuple = ()) -> dict:
     out = {}
     for k, v in tree.items():
@@ -132,6 +430,54 @@ def _torch_layout(module: nn.Module, pname: str,
     return value
 
 
+def _jax_shape(module: nn.Module, param: torch.Tensor) -> tuple:
+    """``param``'s shape in the flax layout (a linear kernel ``(in, out)``)."""
+    shape = tuple(param.shape)
+    if param.ndim < 2:
+        return shape
+    if isinstance(module, nn.Linear):
+        return shape[::-1]
+    if isinstance(module, nn.Conv2d):
+        return (shape[2], shape[3], shape[1], shape[0])
+    if isinstance(module, nn.Conv1d):
+        return (shape[2], shape[1], shape[0])
+    return shape
+
+
+class ParamSlot:
+    """A leaf of :func:`module_tree`: one parameter of a module, standing in
+    for its flax value. ``shape`` is the flax layout's; :meth:`fits` says
+    whether a flax value fills it (a linear layer takes a JAX ``Conv1x1``
+    kernel too, as :func:`load_jax_params` does)."""
+
+    def __init__(self, module: nn.Module, pname: str):
+        self.module, self.pname = module, pname
+        self.param = getattr(module, pname)
+        self.shape = _jax_shape(module, self.param)
+
+    def fits(self, value) -> bool:
+        value = np.broadcast_to(np.bool_(0), tuple(value.shape))
+        if isinstance(self.module, nn.Linear) and value.ndim == 4 \
+                and value.shape[:2] != (1, 1):
+            return False
+        try:
+            got = _torch_layout(self.module, self.pname, value).shape
+        except ValueError:
+            return False
+        return tuple(got) == tuple(self.param.shape)
+
+
+def module_tree(module: nn.Module) -> dict:
+    """``module``'s parameters as the flax tree of the JAX package (nested
+    dicts by :func:`_flax_path`, leaves :class:`ParamSlot`)."""
+    tree: dict = {}
+    for mname, mod in module.named_modules():
+        for pname, _ in mod.named_parameters(recurse=False):
+            _set(tree, _flax_path(mname) + (_leaf_name(mod, pname),),
+                 ParamSlot(mod, pname))
+    return tree
+
+
 def pab_cache_from_jax(tree: Mapping[str, Any]) -> dict:
     """A JAX ``"pab"`` collection (nested dicts of numpy arrays) → the
     port's PAB cache (``models/pab.py``): the path ``(down_blocks_0,
@@ -147,11 +493,16 @@ def pab_cache_from_jax(tree: Mapping[str, Any]) -> dict:
     return out
 
 
-def load_jax_params(module: nn.Module, tree: Mapping[str, Any]) -> nn.Module:
+def load_jax_params(module: nn.Module, tree: Mapping[str, Any],
+                    partial: bool = False) -> nn.Module:
     """Fill ``module``'s parameters from a flax parameter tree (nested dicts
-    of numpy arrays) in place. Raises on any leaf left unused, any parameter
-    left unfilled, and any shape mismatch."""
-    src = {k: np.asarray(v) for k, v in _flatten(tree).items()}
+    of numpy arrays) in place. Raises on any leaf left unused, any shape
+    mismatch and, unless ``partial``, any parameter left unfilled; with
+    ``partial`` an unfilled parameter keeps its value, and
+    :class:`ParamSlot` leaves (a :func:`module_tree` base that a checkpoint
+    did not cover) are skipped."""
+    src = {k: np.asarray(v) for k, v in _flatten(tree).items()
+           if not isinstance(v, ParamSlot)}
     used = set()
     unfilled = []
     with torch.no_grad():
@@ -172,7 +523,7 @@ def load_jax_params(module: nn.Module, tree: Mapping[str, Any]) -> nn.Module:
                         param.dtype))
                 used.add(key)
     unused = sorted("/".join(k) for k in src if k not in used)
-    if unfilled or unused:
+    if (unfilled and not partial) or unused:
         raise ValueError(f"load_jax_params: unfilled torch parameters "
                          f"{unfilled[:20]}; unused flax leaves {unused[:20]} "
                          f"({len(unfilled)} unfilled, {len(unused)} unused)")

@@ -204,14 +204,19 @@ def test_prepare_latents_interpolates_first_frame_noise():
 def test_port_runs_without_jax():
     """In a fresh interpreter: import every module of the port, run its tiny
     sampler on the CPU, exact, under a serving schedule and on DPM-Solver++,
-    and a camera-conditioned UNet with a merged motion LoRA, and find no
-    module of jax, flax or the JAX package loaded."""
+    and a camera-conditioned UNet with a merged motion LoRA; then the CLI
+    path from checkpoint files (a tiny SD directory written by
+    ``chip_smoke.write_sd_directory``, the loaders, the tokenizer, the T2I
+    first frame, ``__call__``, the GIF) and the drift metrics; and find no
+    module of jax, flax, the JAX package, safetensors, transformers or cv2
+    loaded."""
     code = textwrap.dedent("""
         import importlib
         import pkgutil
         import sys
         import torch
         import followyourclick_tpu_torch as port
+        torch.set_num_threads(1)  # beside the suite's other workers
         names = [info.name for info in pkgutil.walk_packages(
             port.__path__, port.__name__ + ".")]
         assert len(names) > 20, names
@@ -277,9 +282,34 @@ def test_port_runs_without_jax():
                             camera_motion_type=torch.tensor([4.0]))
         assert video.shape == (1, 2, 64, 64, 3), video.shape
         assert bool(torch.isfinite(video).all())
+        # the CLI path from checkpoint files
+        import os
+        import tempfile
+        import chip_smoke
+        from followyourclick_tpu_torch.cli import inference as cli
+        from followyourclick_tpu_torch.utils.quality import drift_metrics
+        root = tempfile.mkdtemp()
+        sd = os.path.join(root, "sd")
+        _, mm = chip_smoke.write_sd_directory(sd, cfg, 0, "cpu")
+        manifest = os.path.join(root, "prompts.txt")
+        with open(manifest, "w") as f:
+            f.write("the cat on the road\\n")
+        args = cli.build_arg_parser().parse_args([
+            "--pretrained_model_path", sd, "--config", "tiny.yaml",
+            "--file", manifest, "--output_path", root, "--L", "2",
+            "--H", "64", "--W", "64", "--device", "cpu"])
+        result = cli.run(args, cfg, {"tiny": {"motion_module": [mm],
+                                              "steps": 1, "seed": [1]}},
+                         cli.load_prompt_manifest(manifest))
+        (name,) = result["files"]
+        video = result["videos"][name]
+        assert video.shape == (1, 2, 64, 64, 3), video.shape
+        assert os.path.exists(os.path.join(result["savedir"], name))
+        assert drift_metrics(video, video)["rel_l2"] == 0.0
         print("LOADED", sorted(m for m in sys.modules
-                               if m.split(".")[0] in ("jax", "flax",
-                                                      "followyourclick_tpu")))
+                               if m.split(".")[0] in (
+                                   "jax", "flax", "followyourclick_tpu",
+                                   "safetensors", "transformers", "cv2")))
     """)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300)
