@@ -145,9 +145,11 @@ def clipped_busy_us(intervals, window):
 def profile_cli(acts, cfg=None, device="cuda", clip=(16, 512, 512)):
     """The CLI path: one warm-up ``cli.inference.run`` and one under the
     profiler, with the load, each T2I request and each video request in
-    their own profiler ranges; prints each part's wall, device busy time
-    and idle share, and the run's. ``cfg``, ``device`` and ``clip``
-    (frames, height, width) default to the full-width run on the card."""
+    their own profiler ranges, and the GIF writer patched out
+    (``chip_smoke.captured_videos(write=False)``); prints each part's wall,
+    device busy time and idle share, and the run's. ``cfg``, ``device``
+    and ``clip`` (frames, height, width) default to the full-width run on
+    the card."""
     from followyourclick_tpu_torch.cli import inference as cli
     from followyourclick_tpu_torch.config import InferenceConfig
     from followyourclick_tpu_torch.pipelines.animation import (
@@ -175,18 +177,18 @@ def profile_cli(acts, cfg=None, device="cuda", clip=(16, 512, 512)):
             "--L", str(frames), "--H", str(height), "--W", str(width)])
         config = {"smoke": {"motion_module": [mm], "steps": EXACT_STEPS,
                             "seed": [0]}}
-        cli.run(args, cfg, config, cli.load_prompt_manifest(manifest),
-                write_gifs=False)
+        with chip_smoke.captured_videos(write=False):
+            cli.run(args, cfg, config, cli.load_prompt_manifest(manifest))
         saved = {}
         for name, (owner, attr) in parts.items():
             saved[name] = getattr(owner, attr)
             setattr(owner, attr, annotated(f"cli_{name}", saved[name]))
         torch.cuda.reset_peak_memory_stats()
         try:
-            with torch.profiler.profile(activities=acts) as prof:
+            with torch.profiler.profile(activities=acts) as prof, \
+                    chip_smoke.captured_videos(write=False):
                 t0 = time.perf_counter()
-                cli.run(args, cfg, config, cli.load_prompt_manifest(manifest),
-                        write_gifs=False)
+                cli.run(args, cfg, config, cli.load_prompt_manifest(manifest))
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
         finally:

@@ -113,7 +113,8 @@ result line:
    (LN-GEGLU only), load / T2I / request seconds and peak memory; GIFs
    and ``config_snapshot.yaml`` (without PyYAML the phase drives
    ``cli.inference.run`` with the configs built in Python and says so;
-   without imageio and PIL it checks the videos in memory and says so).
+   without PIL it writes no GIF, checks the videos the CLI hands to its
+   writer (``captured_videos``) and says so).
 
 Phase 1 also prints which optional packages import (``OPTIONAL_PACKAGES``).
 
@@ -141,6 +142,7 @@ import copy
 import dataclasses
 import gc
 import json
+import os
 import re
 import subprocess
 import sys
@@ -186,6 +188,9 @@ PEAK_FP32_OPS = 67e12
 # (positions, F, C) per motion block and its count, at 16 f / 512² with CFG
 GEGLU_SHAPES = [((131072, 320), 5), ((32768, 640), 5), ((8192, 1280), 5),
                 ((2048, 1280), 1)]
+# (rows, C) per LN-GEGLU call of the T2I first frame (1 frame at 512², CFG
+# batch 2): compared with the plain version, not timed
+T2I_GEGLU_SHAPES = [(8192, 320), (2048, 640), (512, 1280), (128, 1280)]
 MOTION_SHAPES = [((8192, 16, 320), 5), ((2048, 16, 640), 5),
                  ((512, 16, 1280), 5), ((128, 16, 1280), 5)]
 # the video_scale per-frame pass of one clip: the 16 frames folded into the
@@ -410,8 +415,8 @@ def randn(gen, shape, scale, dtype):
 
 
 # packages the card's machine need not have; the CLI path needs none of
-# safetensors, transformers and cv2, and PyYAML and imageio (or PIL) only
-# for the files it reads and writes
+# safetensors, transformers, cv2 and imageio, and PyYAML and PIL only for
+# the files it reads and writes
 OPTIONAL_PACKAGES = ("yaml", "safetensors", "imageio", "PIL", "cv2",
                      "pandas", "transformers")
 
@@ -830,6 +835,19 @@ def phase_kernels(seed):
             f"two products alone by torch.matmul {t['matmul (b)']:.3f} + "
             f"{t['matmul (c)']:.3f} ms (a yardstick, not library_ms: no one "
             "call computes LN-GEGLU)")
+
+    for rows, c in T2I_GEGLU_SHAPES:
+        inner = 4 * c
+        args = (randn(gen, (rows, c), 1.0, bf), vec(c, base=1.0), vec(c),
+                randn(gen, (2 * inner, c), c ** -0.5, bf), vec(2 * inner),
+                randn(gen, (c, inner), inner ** -0.5, bf), vec(c))
+        for fast in (c <= 640, c > 640):
+            check("fused_ln_geglu",
+                  f"fused_ln_geglu T2I R={rows} C={c} "
+                  f"{'tanh' if fast else 'erf'}",
+                  lambda: fused_ln_geglu(*args, fast_gating=fast),
+                  lambda: ln_geglu_ref(*args, fast_gating=fast),
+                  0, 0, args, timed=False)
 
     def motion_params(c, dtype=bf):
         params = []
@@ -2539,13 +2557,37 @@ def t2i_observed(log_rows):
         cls.__init__, cls.sample = init, sample
 
 
+@contextlib.contextmanager
+def captured_videos(write=True):
+    """Record each clip the port's CLIs write: while the block runs, the
+    port's ``video_io.save_videos_grid`` also files the video it is given
+    under the GIF's name in the dict it yields (``write=False``: and writes
+    no file, where PIL is missing)."""
+    from followyourclick_tpu_torch.utils import video_io
+
+    real = video_io.save_videos_grid
+    videos = {}
+
+    def record(clips, path, *args, **kwargs):
+        videos[os.path.basename(path)] = clips
+        if write:
+            real(clips, path, *args, **kwargs)
+
+    video_io.save_videos_grid = record
+    try:
+        yield videos
+    finally:
+        video_io.save_videos_grid = real
+
+
 def cli_run(label, argv, main_reads_files, write_gifs, expect_clips,
             cfg):
     """One CLI run with every launch count set to 0 before and read after:
     through ``cli.inference.main``, which reads the files (``cfg`` must be
     what its ``--inference_config`` file holds), or else through ``run``
-    with ``cfg`` and the prompt config read as JSON. Returns (launches by
-    kernel, the run's result, the T2I rows, seconds)."""
+    with ``cfg`` and the prompt config read as JSON; ``write_gifs`` false
+    (no PIL) keeps the GIFs unwritten. Returns (launches by kernel, the
+    run's result, its videos by GIF name, the T2I rows, seconds)."""
     from followyourclick_tpu_torch.cli import inference as cli
 
     wrappers = {**kernel_wrappers(), **unrouted_wrappers()}
@@ -2555,7 +2597,7 @@ def cli_run(label, argv, main_reads_files, write_gifs, expect_clips,
         fn.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with t2i_observed(rows):
+    with t2i_observed(rows), captured_videos(write_gifs) as videos:
         if main_reads_files:
             result = cli.main(argv)
         else:
@@ -2563,8 +2605,7 @@ def cli_run(label, argv, main_reads_files, write_gifs, expect_clips,
             with open(args.config) as f:
                 model_config = json.load(f)
             result = cli.run(args, cfg, model_config,
-                             cli.load_prompt_manifest(args.file),
-                             write_gifs=write_gifs)
+                             cli.load_prompt_manifest(args.file))
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     got = {name: fn.launches for name, fn in wrappers.items()}
@@ -2577,7 +2618,7 @@ def cli_run(label, argv, main_reads_files, write_gifs, expect_clips,
     if len(result["files"]) != expect_clips:
         raise SystemExit(f"[cli {label}] {len(result['files'])} clips, "
                          f"expected {expect_clips}")
-    return got, result, rows, dt
+    return got, result, videos, rows, dt
 
 
 def phase_cli(seed, steps, cfg=None, device="cuda", clip=(16, 512, 512)):
@@ -2593,7 +2634,7 @@ def phase_cli(seed, steps, cfg=None, device="cuda", clip=(16, 512, 512)):
     ``expected_launches`` gives for the motion-free UNet (LN-GEGLU only);
     the run's launches equal the T2I's plus ``expected_launches`` of the
     video requests; the videos are finite, in [0, 1], of the expected
-    shape; the GIFs exist (when imageio or PIL is installed). ``cfg``,
+    shape; the GIFs exist (when PIL is installed). ``cfg``,
     ``device`` and ``clip`` (frames, height, width) default to the
     full-width run on the card. Returns the two runs' launches."""
     import importlib.util
@@ -2610,7 +2651,7 @@ def phase_cli(seed, steps, cfg=None, device="cuda", clip=(16, 512, 512)):
     from followyourclick_tpu_torch.utils import loaders
 
     have_yaml = importlib.util.find_spec("yaml") is not None
-    have_gif = any(importlib.util.find_spec(m) for m in ("imageio", "PIL"))
+    have_gif = importlib.util.find_spec("PIL") is not None
     if not have_yaml:
         log("[cli] PyYAML is not installed: cli.inference.main cannot read "
             "the inference config or the prompt YAML; the phase drives "
@@ -2618,9 +2659,9 @@ def phase_cli(seed, steps, cfg=None, device="cuda", clip=(16, 512, 512)):
             "configs/inference/inference.yaml holds) and the prompt config "
             "read as JSON")
     if not have_gif:
-        log("[cli] neither imageio nor PIL is installed: the GIFs are not "
-            "written (run(write_gifs=False)); the videos are checked in "
-            "memory")
+        log("[cli] PIL is not installed: the GIFs are not written (the "
+            "capture hook writes no file); the videos are checked as the "
+            "CLI hands them to save_videos_grid")
     cfg = cfg or InferenceConfig()
     frames, height, width = clip
     with torch.device("meta"):
@@ -2691,7 +2732,7 @@ def phase_cli(seed, steps, cfg=None, device="cuda", clip=(16, 512, 512)):
             want = {name: requests * video_want.get(name, 0)
                     + len(CLI_PROMPTS) * t2i_want.get(name, 0)
                     for name in {**KERNELS, **UNROUTED}}
-            got, result, rows, _ = cli_run(
+            got, result, videos, rows, _ = cli_run(
                 label, base + extra + ["--output_path", out],
                 have_yaml and have_gif and cfg == InferenceConfig(),
                 have_gif, len(CLI_PROMPTS), cfg)
@@ -2713,7 +2754,11 @@ def phase_cli(seed, steps, cfg=None, device="cuda", clip=(16, 512, 512)):
                 raise SystemExit(f"[cli {label}] launches {got}, want {want} "
                                  "(the video requests' step plan plus the "
                                  "T2I's)")
-            for name, video in result["videos"].items():
+            if sorted(videos) != sorted(result["files"]):
+                raise SystemExit(f"[cli {label}] clips handed to the writer "
+                                 f"{sorted(videos)}, files "
+                                 f"{result['files']}")
+            for name, video in videos.items():
                 shape = (1, frames, height, width, 3)
                 if video.shape != shape or not np.isfinite(video).all() \
                         or video.min() < 0 or video.max() > 1 \
@@ -2731,7 +2776,7 @@ def phase_cli(seed, steps, cfg=None, device="cuda", clip=(16, 512, 512)):
             if "config_snapshot.yaml" not in written:
                 raise SystemExit(f"[cli {label}] no config_snapshot.yaml")
             log(f"[cli {label}] wrote {len(gifs)} GIF(s) "
-                f"{'' if have_gif else '(no imageio or PIL) '}and "
+                f"{'' if have_gif else '(no PIL) '}and "
                 "config_snapshot.yaml")
             paths[f"cli_{label.split()[0]}"] = got
             gc.collect()

@@ -182,16 +182,15 @@ def write_snapshot(path: str, snapshot: dict) -> None:
         yaml.safe_dump(snapshot, f)
 
 
-def run(args, inference_config, model_config: dict, items: List[dict],
-        write_gifs: bool = True) -> dict:
+def run(args, inference_config, model_config: dict,
+        items: List[dict]) -> dict:
     """Everything of :func:`main` after the files are read: for each model
     of ``model_config`` and each of its motion modules, assemble the
     pipeline on ``args.device``, make the first frame of each row without
     an image, and sample ``args.n_samples`` clips a row, ``args.batch_size``
-    clips a request; write each clip's GIF (unless ``write_gifs`` is false)
-    and ``config_snapshot.yaml``. Returns ``{"savedir", "files" (GIF names
-    in order), "videos" (name → (1, F, H, W, 3) array), "stats" (seconds:
-    "load", "t2i", "request" lists)}``."""
+    clips a request; write each clip's GIF and ``config_snapshot.yaml``.
+    Returns ``{"savedir", "files" (GIF names in order), "stats" (seconds:
+    "load", "t2i", "request" lists)}``; no clip is kept once written."""
     import numpy as np
     import torch
 
@@ -215,7 +214,7 @@ def run(args, inference_config, model_config: dict, items: List[dict],
     dtype = {"auto": None, "bfloat16": torch.bfloat16,
              "float32": torch.float32}[args.dtype]
     ip_mode = {"vanilla": "raw"}.get(args.use_ip, args.use_ip)
-    result = {"savedir": savedir, "files": [], "videos": {},
+    result = {"savedir": savedir, "files": [],
               "stats": {"load": [], "t2i": [], "request": []}}
 
     for model_name, mc in model_config.items():
@@ -348,13 +347,10 @@ def run(args, inference_config, model_config: dict, items: List[dict],
                     prompt = prompts[bi]
                     name = (f"{items[idx]['idx']}-{s}-"
                             f"{prompt[:60].replace('/', '')}.gif")
-                    if write_gifs:
-                        save_videos_grid(video[bi:bi + 1],
-                                         os.path.join(savedir, name), fps=8)
+                    save_videos_grid(video[bi:bi + 1],
+                                     os.path.join(savedir, name), fps=8)
                     result["files"].append(name)
-                    result["videos"][name] = video[bi:bi + 1]
-                    print(f"[{model_name}] "
-                          f"{'saved' if write_gifs else 'sampled'} {name} "
+                    print(f"[{model_name}] saved {name} "
                           f"(seed {grp_seeds[bi]})")
             del pipe, t2i
 

@@ -314,7 +314,7 @@ def assemble_ip_adapter(inference_config, ip_mode: str, unet,
                         image_encoder_path: Optional[str] = None,
                         ip_ckpt_path: Optional[str] = None,
                         mm_image_proj: Optional[Dict] = None,
-                        device: torch.device | str = "cpu"):
+                        device: torch.device | str = "cuda"):
     """The IP-Adapter (CLIP vision tower + projection, fp32 on ``device``)
     from whichever sources exist, in the reference's order: the vision
     tower from ``image_encoder_path``; a released ip checkpoint

@@ -6,8 +6,8 @@ Port of ``followyourclick_tpu/utils/quality.py:22-145``: the tiny and
 flagship random-init pipelines, one request with fixed random conditioning,
 and the relative-L2 / PSNR drift. The JAX module's v5e step-cost model is
 fitted to TPU timings and is not ported. The conditioning and the initial
-noise are drawn on the CPU from fixed seeds, so a request is the same on
-every device.
+noise are drawn on the CPU from fixed keys (:class:`TorchDraws`), so a
+request is the same on every device.
 """
 
 from __future__ import annotations
@@ -36,7 +36,7 @@ def tiny_unet_cfg():
 
 def build_quality_pipeline(size: str = "tiny",
                            dtype: torch.dtype = torch.float32,
-                           seed: int = 0, device: str = "cpu"):
+                           seed: int = 0, device: str = "cuda"):
     """A random-init pipeline for drift measurement (the port's own
     initialisation from ``torch.manual_seed(seed)``; not zeros, which
     would make every schedule give the same video). ``size="flagship"`` is
@@ -77,20 +77,36 @@ def build_quality_pipeline(size: str = "tiny",
                              dtype=dtype)
 
 
+class TorchDraws:
+    """The harness's random draws, each from a CPU ``torch.Generator``
+    seeded with its key, so a request is the same on every device. Another
+    source (the JAX package's ``jax.random`` draws, to hold the harness to
+    the JAX one) gives the same three functions."""
+
+    @staticmethod
+    def normal(key: int, shape) -> torch.Tensor:
+        return torch.randn(shape, generator=torch.Generator().manual_seed(key))
+
+    @staticmethod
+    def uniform(key: int, shape) -> torch.Tensor:
+        return torch.rand(shape, generator=torch.Generator().manual_seed(key))
+
+    @staticmethod
+    def randint(key: int, shape, low: int, high: int) -> torch.Tensor:
+        return torch.randint(low, high, shape,
+                             generator=torch.Generator().manual_seed(key))
+
+
 def run_schedule(pipe, spec, frames: int, latent_hw: Tuple[int, int],
-                 seed: int = 3) -> np.ndarray:
+                 seed: int = 3, draws=TorchDraws) -> np.ndarray:
     """One ``sample`` request with random but fixed conditioning (first-
-    frame latent, click mask, prompt ids from seeds 7, 8, 9; the initial
-    noise from ``seed``) → the video as fp32 numpy."""
+    frame latent, click mask, prompt ids from keys 7, 8, 9 of ``draws``;
+    the initial noise from key ``seed``) → the video as fp32 numpy."""
     h, w = latent_hw
-
-    def gen(s):
-        return torch.Generator().manual_seed(s)
-
-    first = torch.randn((1, h, w, 4), generator=gen(7)) * 0.2
-    mask = (torch.rand((1, h, w, 1), generator=gen(8)) > 0.5).float()
-    prompt_ids = torch.randint(0, 1000, (1, 77), generator=gen(9))
-    noise = torch.randn((1, frames, h, w, 4), generator=gen(seed))
+    first = torch.as_tensor(draws.normal(7, (1, h, w, 4))) * 0.2
+    mask = (torch.as_tensor(draws.uniform(8, (1, h, w, 1))) > 0.5).float()
+    prompt_ids = torch.as_tensor(draws.randint(9, (1, 77), 0, 1000)).long()
+    noise = torch.as_tensor(draws.normal(seed, (1, frames, h, w, 4)))
     out = pipe.sample(prompt_ids, torch.zeros_like(prompt_ids),
                       first.to(pipe.dtype), mask.to(pipe.dtype),
                       torch.full((1,), 8.0), torch.full((1,), 20.0),

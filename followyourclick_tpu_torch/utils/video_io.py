@@ -3,13 +3,14 @@ preprocessing of the CLI.
 
 Port of ``followyourclick_tpu/utils/video_io.py`` (the reference's
 ``save_videos_grid``, ``scripts/inference.py:314-365``). PIL and imageio are
-imported where they are used, as in the JAX package; the card's machine
-need have neither unless a manifest row carries an image or GIFs are
-written, and GIFs are written by PIL where imageio is missing. The
-click-mask downsample, which the JAX package does with
-``cv2.resize(INTER_LINEAR)``, is ``F.interpolate(mode="bilinear",
-align_corners=False, antialias=False)`` here (the same half-pixel centres
-and no antialiasing), so no ``cv2`` is needed.
+imported where they are used, as in the JAX package. GIFs are written by
+PIL alone: the JAX package's ``imageio.mimsave`` hands the same frames and
+options to PIL's GIF writer, so the files are the same byte for byte, and
+imageio is needed only for an mp4. The click-mask downsample, which the
+JAX package does with ``cv2.resize(INTER_LINEAR)``, is
+``F.interpolate(mode="bilinear", align_corners=False, antialias=False)``
+here (the same half-pixel centres and no antialiasing), so no ``cv2`` is
+needed.
 """
 
 from __future__ import annotations
@@ -43,20 +44,14 @@ def videos_grid_frames(videos: np.ndarray, n_rows: int = 4,
 
 def save_videos_grid(videos: np.ndarray, path: str, fps: int = 8,
                      n_rows: int = 4, rescale: bool = False) -> None:
-    """(B, F, H, W, 3) → an endlessly looping GIF of grid frames, by
-    imageio, or by PIL where imageio is not installed."""
-    frames = videos_grid_frames(videos, n_rows, rescale)
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    try:
-        import imageio
-    except ImportError:
-        from PIL import Image
+    """(B, F, H, W, 3) → an endlessly looping GIF of grid frames."""
+    from PIL import Image
 
-        images = [Image.fromarray(f) for f in frames]
-        images[0].save(path, save_all=True, append_images=images[1:],
-                       duration=1000.0 / fps, loop=0)
-        return
-    imageio.mimsave(path, frames, duration=1000.0 / fps, loop=0)
+    images = [Image.fromarray(f)
+              for f in videos_grid_frames(videos, n_rows, rescale)]
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    images[0].save(path, save_all=True, append_images=images[1:],
+                   duration=1000.0 / fps, loop=0)
 
 
 def save_video_mp4(video: np.ndarray, path: str, fps: int = 8) -> None:

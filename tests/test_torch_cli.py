@@ -17,11 +17,13 @@ seed 3). Both CLIs run on the CPU at 2 frames, 64²:
 Both CLIs must write the same GIF names, each of ``--L`` frames, and a
 ``config_snapshot.yaml`` with the same keys (the port's ``args`` add
 ``device``). The two PRNGs differ, so the port's videos are held to its
-own ``__call__``: the CLI's videos equal, bit for bit, the port's pipeline
-called by hand with the same seed (T2I first frame, VAE encode, click mask,
-``__call__``), and its GIFs read back equal the same videos written by
-``save_videos_grid``. ``tests/test_torch_cli_animate.py`` holds
-``cli/animate.py`` the same way. The JAX UNet's ``init`` runs as zeros in
+own ``__call__``: the videos the CLI hands to its GIF writer (captured by
+``chip_smoke.captured_videos``; the CLI keeps none) equal, bit for bit,
+the port's pipeline called by hand with the same seed (T2I first frame,
+VAE encode, click mask, ``__call__``), and its GIFs read back equal the
+same videos written by ``save_videos_grid``.
+``tests/test_torch_cli_animate.py`` holds ``cli/animate.py`` the same
+way. The JAX UNet's ``init`` runs as zeros in
 its traced shapes (:func:`jax_quick_init`), since the eager init would take
 most of the file's time and no JAX value is compared here.
 """
@@ -103,7 +105,8 @@ def jax_quick_init(monkeypatch):
 
 def run_both(tmp, manifest, monkeypatch, *extra):
     """Both CLIs on ``manifest`` (and ``extra`` flags); returns (JAX save
-    dir, port result)."""
+    dir, port result, the port's videos by GIF name as handed to its
+    writer)."""
     from followyourclick_tpu.cli import inference as jcli
     from followyourclick_tpu_torch.cli import inference as tcli
 
@@ -112,11 +115,12 @@ def run_both(tmp, manifest, monkeypatch, *extra):
     jout = os.path.join(tmp["root"], "jax_" + os.path.basename(manifest))
     jcli.main(cli_argv(sd, inference, prompts, manifest, jout, *extra))
     (jdir,) = os.listdir(jout)
-    result = tcli.main(cli_argv(
-        sd, inference, prompts, manifest,
-        os.path.join(tmp["root"], "port_" + os.path.basename(manifest)),
-        *extra, "--device", "cpu"))
-    return os.path.join(jout, jdir), result
+    with chip_smoke.captured_videos() as videos:
+        result = tcli.main(cli_argv(
+            sd, inference, prompts, manifest,
+            os.path.join(tmp["root"], "port_" + os.path.basename(manifest)),
+            *extra, "--device", "cpu"))
+    return os.path.join(jout, jdir), result, videos
 
 
 def read_gif(path):
@@ -125,9 +129,9 @@ def read_gif(path):
     return [np.asarray(f)[..., :3] for f in imageio.mimread(path)]
 
 
-def check_same_outputs(jdir, result):
+def check_same_outputs(jdir, result, videos):
     """The same GIF names, ``L`` frames each, the snapshot keys; the port's
-    GIFs hold its returned videos."""
+    GIFs hold the videos it handed to its writer."""
     import yaml
 
     from followyourclick_tpu_torch.utils.video_io import save_videos_grid
@@ -135,12 +139,13 @@ def check_same_outputs(jdir, result):
     jfiles = sorted(f for f in os.listdir(jdir) if f.endswith(".gif"))
     tdir = result["savedir"]
     tfiles = sorted(f for f in os.listdir(tdir) if f.endswith(".gif"))
-    assert jfiles == tfiles == sorted(result["files"]) and jfiles
+    assert jfiles == tfiles == sorted(result["files"]) == sorted(videos) \
+        and jfiles
     for name in tfiles:
         assert len(read_gif(os.path.join(jdir, name))) == L
         frames = read_gif(os.path.join(tdir, name))
         assert len(frames) == L
-        video = result["videos"][name]
+        video = videos[name]
         assert video.shape == (1, L, H, W, 3)
         assert np.isfinite(video).all() and 0 <= video.min() <= video.max() \
             <= 1 and video.std() > 1e-3
@@ -223,10 +228,10 @@ def test_txt_manifest_without_images(tiny, monkeypatch):
     manifest = os.path.join(tiny["root"], "prompts.txt")
     with open(manifest, "w") as f:
         f.write(PROMPTS[0] + "\n\n" + PROMPTS[1] + "\n")
-    jdir, result = run_both(tiny, manifest, monkeypatch)
-    check_same_outputs(jdir, result)
+    jdir, result, videos = run_both(tiny, manifest, monkeypatch)
+    check_same_outputs(jdir, result, videos)
     assert [n.split("-")[0] for n in result["files"]] == ["0", "2"]
     assert len(result["stats"]["t2i"]) == 2
     # the first row by hand (each row is its own request, seed 3)
     want = call_by_hand(tiny, PROMPTS[:1], [None], [None], [SEED])
-    np.testing.assert_array_equal(result["videos"][result["files"][0]], want)
+    np.testing.assert_array_equal(videos[result["files"][0]], want)

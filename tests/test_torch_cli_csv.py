@@ -61,9 +61,9 @@ def test_csv_manifest_with_images(tiny, monkeypatch):
         [PROMPTS[0], os.path.join(img, "a.png")],
         ["a missing file", os.path.join(img, "missing.png")],
         [PROMPTS[1], os.path.join(img, "b.png")]], "rows.csv")
-    jdir, result = run_both(tiny, manifest, monkeypatch, "--batch_size",
-                            "2")
-    check_same_outputs(jdir, result)
+    jdir, result, videos = run_both(tiny, manifest, monkeypatch,
+                                    "--batch_size", "2")
+    check_same_outputs(jdir, result, videos)
     assert [n.split("-")[0] for n in result["files"]] == ["0", "2"]
     assert result["stats"]["t2i"] == []
     names = result["files"]
@@ -72,8 +72,7 @@ def test_csv_manifest_with_images(tiny, monkeypatch):
                         [os.path.join(img + "_mask", "a.png"), None],
                         [SEED, SEED])
     for i, name in enumerate(names):
-        np.testing.assert_array_equal(result["videos"][name],
-                                      want[i:i + 1])
+        np.testing.assert_array_equal(videos[name], want[i:i + 1])
 
 
 def test_csv_empty_image_cell_is_a_row_without_image(tiny):

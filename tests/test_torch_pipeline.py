@@ -298,11 +298,12 @@ def test_port_runs_without_jax():
             "--pretrained_model_path", sd, "--config", "tiny.yaml",
             "--file", manifest, "--output_path", root, "--L", "2",
             "--H", "64", "--W", "64", "--device", "cpu"])
-        result = cli.run(args, cfg, {"tiny": {"motion_module": [mm],
-                                              "steps": 1, "seed": [1]}},
-                         cli.load_prompt_manifest(manifest))
+        with chip_smoke.captured_videos() as videos:
+            result = cli.run(args, cfg, {"tiny": {"motion_module": [mm],
+                                                  "steps": 1, "seed": [1]}},
+                             cli.load_prompt_manifest(manifest))
         (name,) = result["files"]
-        video = result["videos"][name]
+        video = videos[name]
         assert video.shape == (1, 2, 64, 64, 3), video.shape
         assert os.path.exists(os.path.join(result["savedir"], name))
         assert drift_metrics(video, video)["rel_l2"] == 0.0

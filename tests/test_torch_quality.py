@@ -10,6 +10,8 @@ from it by no more than that test's bound (relative L2 0.098, PSNR ≥ 23.5
 dB; 0.0755 and 29.01 dB measured on the CPU) and by more than 1e-4 (a
 schedule that stopped reaching the sampler would give the exact video).
 ``tiny_unet_cfg`` is the JAX one, field for field.
+``tests/test_torch_quality_jax.py`` holds ``run_schedule`` to the JAX
+harness on one tree.
 """
 
 import dataclasses
@@ -48,12 +50,12 @@ def test_tiny_unet_cfg_matches_jax():
             g, w = dataclasses.asdict(g), dataclasses.asdict(w)
         assert g == w, f.name
     with pytest.raises(ValueError):
-        quality.build_quality_pipeline("medium")
+        quality.build_quality_pipeline("medium", device="cpu")
 
 
 @pytest.fixture(scope="module")
 def exact_video():
-    pipe = quality.build_quality_pipeline("tiny", seed=0)
+    pipe = quality.build_quality_pipeline("tiny", seed=0, device="cpu")
     return pipe, quality.run_schedule(pipe, SampleSpec(**BASE), F, (HL, HL))
 
 

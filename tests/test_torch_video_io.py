@@ -9,9 +9,10 @@
 - The crops (``load_image_and_mask`` with "crop" and "resize_and_crop")
   and the CLIP preprocessing (PIL image, [-1, 1] float, uint8): exact, as
   both call the same PIL operations.
-- GIF grids: written by both, read back equal frame for frame; the port's
-  PIL writer (used where imageio is missing) gives the same frames on an
-  image of few colours (GIF palettes are lossless there).
+- GIF grids of full-colour frames (random values, so each frame is
+  quantized to a 256-colour palette): the port's PIL writer and the JAX
+  ``imageio.mimsave`` write the same bytes, and the frames read back
+  equal; the port's writer needs no imageio.
 - ``slerp``: equal.
 """
 
@@ -88,26 +89,31 @@ def _read_gif(path):
     return [np.asarray(f)[..., :3] for f in imageio.mimread(path)]
 
 
+def _write_both(tmp_path, videos, **kw):
+    tvio.save_videos_grid(videos, str(tmp_path / "port" / "g.gif"), **kw)
+    jvio.save_videos_grid(videos, str(tmp_path / "jax" / "g.gif"), **kw)
+    return str(tmp_path / "port" / "g.gif"), str(tmp_path / "jax" / "g.gif")
+
+
 def test_gif_grids_read_back_equal(tmp_path):
     rs = np.random.RandomState(2)
     videos = rs.rand(3, 4, 16, 24, 3).astype(np.float32)
-    tvio.save_videos_grid(videos, str(tmp_path / "port" / "g.gif"),
-                          n_rows=2)
-    jvio.save_videos_grid(videos, str(tmp_path / "jax" / "g.gif"), n_rows=2)
-    got = _read_gif(str(tmp_path / "port" / "g.gif"))
-    want = _read_gif(str(tmp_path / "jax" / "g.gif"))
+    port, jax_gif = _write_both(tmp_path, videos, n_rows=2)
+    with open(port, "rb") as a, open(jax_gif, "rb") as b:
+        assert a.read() == b.read()
+    got, want = _read_gif(port), _read_gif(jax_gif)
     assert len(got) == len(want) == 4 and got[0].shape == (32, 48, 3)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
 
 
 def test_pil_gif_writer_without_imageio(tmp_path, monkeypatch):
-    """Where imageio is not installed the port writes the GIF with PIL; on
-    frames of 8 colours both writers are lossless, so the frames read back
-    equal the grid's."""
+    """With imageio not installed the port still writes the GIF (PIL
+    alone), byte for byte the JAX writer's, here on full-colour 64²
+    clips in [-1, 1], rescaled."""
     rs = np.random.RandomState(3)
-    videos = rs.randint(0, 2, size=(2, 3, 8, 8, 3)).astype(np.float32)
-    want = tvio.videos_grid_frames(videos, n_rows=4)
+    videos = rs.rand(2, 3, 64, 64, 3).astype(np.float32) * 2 - 1
+    jvio.save_videos_grid(videos, str(tmp_path / "jax.gif"), rescale=True)
     real_import = builtins.__import__
 
     def no_imageio(name, *args, **kwargs):
@@ -116,13 +122,18 @@ def test_pil_gif_writer_without_imageio(tmp_path, monkeypatch):
         return real_import(name, *args, **kwargs)
 
     monkeypatch.setattr(builtins, "__import__", no_imageio)
-    tvio.save_videos_grid(videos, str(tmp_path / "pil.gif"))
+    tvio.save_videos_grid(videos, str(tmp_path / "pil.gif"), rescale=True)
     monkeypatch.undo()
-    assert os.path.exists(tmp_path / "pil.gif")
+    with open(tmp_path / "pil.gif", "rb") as a, \
+            open(tmp_path / "jax.gif", "rb") as b:
+        assert a.read() == b.read()
     got = _read_gif(str(tmp_path / "pil.gif"))
-    assert len(got) == 3
-    for g, w in zip(got, want):
-        np.testing.assert_array_equal(g, w)
+    want = tvio.videos_grid_frames(videos, rescale=True)
+    assert len(got) == 3 and got[0].shape == (128, 64, 3)
+    # a 256-colour palette over random colours: near the grid on average
+    err = np.mean([np.abs(g.astype(int) - w).mean()
+                   for g, w in zip(got, want)])
+    assert 0 < err <= 16, err
 
 
 def test_slerp_matches():
