@@ -2,8 +2,11 @@
 """Profile one warm full-width request per path on one NVIDIA card.
 
     python3 chip_profile.py [path ...]
+    python3 chip_profile.py train [--remat-blocks] [--frames 24 --batch 3]
 
-(all paths by default; e.g. ``python3 chip_profile.py cli``)
+(all paths by default; e.g. ``python3 chip_profile.py cli``; ``train``: the
+training step, :func:`profile_train`, with ``tools/train_bench.py``'s
+flags)
 
 Builds the kernels and the default ``InferenceConfig`` pipeline as
 ``chip_smoke.py`` does (bf16, seeded random weights, 16 frames, 512², CFG 8)
@@ -43,6 +46,7 @@ import tempfile
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 import chip_smoke
@@ -77,33 +81,17 @@ def annotated(name, fn):
 
 def by_wrapper(events):
     """Per kernel wrapper: its calls, and the device µs and device launches
-    of the kernels launched inside its calls. A kernel joins the runtime
-    call that launched it (same correlation id), and that call the wrapper
-    range of its thread that holds it. Several wrappers share device
-    kernels (the bf16 motion block runs LN-GEGLU's, fused_ln_geglu's and
-    the frame attention's), so names alone cannot tell them apart."""
+    of the kernels launched inside its calls (:func:`range_device_us`).
+    Several wrappers share device kernels (the bf16 motion block runs
+    LN-GEGLU's, fused_ln_geglu's and the frame attention's), so names alone
+    cannot tell them apart."""
     names = set(chip_smoke.KERNELS)
-    ranges = collections.defaultdict(list)
-    launch = {}
-    for e in events:
-        args = e.get("args", {})
-        if e.get("cat") == "user_annotation" and e["name"] in names:
-            ranges[e["tid"]].append((e["ts"], e["ts"] + e["dur"], e["name"]))
-        elif e.get("cat") in ("cuda_runtime", "cuda_driver") \
-                and "correlation" in args:
-            launch[args["correlation"]] = (e["tid"], e["ts"])
-    calls = collections.Counter(r[2] for rs in ranges.values() for r in rs)
-    us, n = collections.Counter(), collections.Counter()
-    for e in events:
-        if e.get("cat") != "kernel":
-            continue
-        tid, ts = launch.get(e.get("args", {}).get("correlation"),
-                             (None, None))
-        for start, end, name in ranges.get(tid, ()):
-            if start <= ts <= end:
-                us[name] += e["dur"]
-                n[name] += 1
-                break
+    calls = collections.Counter(
+        e["name"] for e in events
+        if e.get("cat") == "user_annotation" and e["name"] in names)
+    us, n = range_device_us(
+        events, lambda e: e["name"] if e.get("cat") == "user_annotation"
+        and e["name"] in names else None)
     return calls, us, n
 
 
@@ -218,6 +206,176 @@ def profile_cli(acts, cfg=None, device="cuda", clip=(16, 512, 512)):
                                                          + "\n")
 
 
+def range_device_us(events, label):
+    """Device µs and launches of the kernels launched inside host ranges:
+    ``label(event)`` names a range event (or None); a kernel joins the
+    runtime call that launched it (same correlation id) and that call the
+    innermost labelled range of its thread that holds it."""
+    ranges = collections.defaultdict(list)
+    launch = {}
+    for e in events:
+        args = e.get("args", {})
+        name = label(e) if "dur" in e else None
+        if name is not None:
+            ranges[e["tid"]].append((e["ts"], e["ts"] + e["dur"], name))
+        elif e.get("cat") in ("cuda_runtime", "cuda_driver") \
+                and "correlation" in args:
+            launch[args["correlation"]] = (e["tid"], e["ts"])
+    us, n = collections.Counter(), collections.Counter()
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        tid, ts = launch.get(e.get("args", {}).get("correlation"),
+                             (None, None))
+        inside = [r for r in ranges.get(tid, ()) if r[0] <= ts <= r[1]]
+        if inside:
+            name = min(inside, key=lambda r: r[1] - r[0])[2]
+            us[name] += e["dur"]
+            n[name] += 1
+    return us, n
+
+
+# the backward nodes of the kernels' autograd Functions
+GRAD_NODES = ("MotionBlockGradBackward", "LnGegluGradBackward",
+              "GegluGradBackward", "TemporalAttentionGradBackward",
+              "TemporalBlockGradBackward", "FlashAttentionGradBackward")
+
+
+def profile_train(argv, out_dir: Path) -> int:
+    """``chip_profile.py train``: the port's counterpart of
+    ``tools/train_bench.py`` (same flags). One warm step, ``--iters`` steps
+    timed by CUDA events (median), then one step under ``torch.profiler``:
+    the device's busy time and idle share, the two kernels' forward device
+    time (inside their wrappers' ranges) and the fp32 recompute backward's
+    (inside the autograd Functions' backward nodes). One JSON line; a
+    configuration that does not fit the card's memory prints ``"fits":
+    false`` and exits 0. The whole kernel table goes to ``out_dir``."""
+    import argparse
+
+    ap = argparse.ArgumentParser(prog="chip_profile.py train")
+    ap.add_argument("--height", type=int, default=448)
+    ap.add_argument("--width", type=int, default=256)
+    ap.add_argument("--frames", type=int, default=16)
+    ap.add_argument("--batch", type=int, default=1)
+    ap.add_argument("--iters", type=int, default=5)
+    ap.add_argument("--full-tree", action="store_true",
+                    help="the fp32 full-tree state (every gradient)")
+    ap.add_argument("--mu-bf16", action="store_true",
+                    help="AdamW's first moment in bf16")
+    ap.add_argument("--fp32-compute", action="store_true",
+                    help="frozen leaves in fp32, so the forward runs in "
+                         "fp32 (default: bf16 frozen leaves, fp32 masters)")
+    ap.add_argument("--attn-chunk", type=int, default=0,
+                    help="FYC_ATTN_BATCH_CHUNK for large self-attention")
+    ap.add_argument("--remat-blocks", action="store_true",
+                    help="per-block checkpoints instead of one around the "
+                         "whole UNet call")
+    args = ap.parse_args(argv)
+    if args.attn_chunk:
+        os.environ["FYC_ATTN_BATCH_CHUNK"] = str(args.attn_chunk)
+
+    from followyourclick_tpu_torch.config import NoiseScheduleConfig
+    from followyourclick_tpu_torch.schedulers.ddim import DDIMSchedule
+    from followyourclick_tpu_torch.training import step as ts
+
+    workload = (f"{args.height}x{args.width}_{args.frames}f_b{args.batch}"
+                + ("_fulltree" if args.full_tree else "_partitioned")
+                + ("_mubf16" if args.mu_bf16 else "")
+                + ("_fp32" if args.fp32_compute else "")
+                + ("_rematblocks" if args.remat_blocks else "")
+                + (f"_attnchunk{args.attn_chunk}" if args.attn_chunk
+                   else ""))
+    result = {"metric": "train_step_ms", "workload": workload,
+              "kind": torch.cuda.get_device_name(0)}
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        cfg, unet, vae, text = chip_smoke.train_models(
+            0, remat_blocks=args.remat_blocks)
+        tcfg = ts.TrainConfig(
+            adam_mu_dtype="bfloat16" if args.mu_bf16 else None,
+            gradient_checkpointing=not args.remat_blocks)
+        if args.full_tree:
+            state, step = ts.create_train_state(unet, tcfg), ts.train_step
+        else:
+            state = ts.create_partitioned_train_state(
+                unet, tcfg, frozen_dtype=torch.float32 if args.fp32_compute
+                else torch.bfloat16)
+            step = ts.train_step_partitioned
+            result["trainable_m"] = sum(
+                t.numel() for t in state.trainable.values()) / 1e6
+            result["frozen_m"] = sum(
+                t.numel() for t in state.frozen.values()) / 1e6
+        unet.to("meta")  # the state holds every tensor the step reads
+        batch = chip_smoke.train_batch(
+            vae, cfg, 0, (args.frames, args.height, args.width), args.batch)
+        sched = DDIMSchedule.create(NoiseScheduleConfig(), 25)
+
+        def run(i):
+            gen = torch.Generator(device="cuda").manual_seed(i)
+            return step(state, batch, gen, unet=unet, text_encoder=text,
+                        sched=sched, cfg=tcfg)[1]
+
+        loss = float(run(0)["loss"])
+        if not np.isfinite(loss):
+            raise SystemExit(f"train: loss {loss} at the first step")
+        times = []
+        for i in range(args.iters):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            run(i + 1)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        ms = float(np.median(times))
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with chip_smoke.wrappers_replaced(annotated), \
+                torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            run(args.iters + 1)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    except torch.cuda.OutOfMemoryError as err:
+        result.update(fits=False, peak_gib=torch.cuda.max_memory_allocated()
+                      / 2 ** 30, error=str(err).splitlines()[0][:200])
+        print(json.dumps(result), flush=True)
+        return 0
+    events = trace_events(prof)
+    iv = device_intervals(events)
+    if not iv:
+        raise SystemExit("train: the trace holds no device activity")
+    busy = busy_us(iv) / 1e6
+    names = set(chip_smoke.KERNELS)
+
+    def label(e):
+        name = e.get("name", "")
+        if e.get("cat") == "user_annotation" and name in names:
+            return name
+        for node in GRAD_NODES:
+            if name.endswith(node):
+                return node
+        return None
+
+    us, n = range_device_us(events, label)
+    frames = args.frames * args.batch
+    result.update(
+        fits=True, value=round(ms, 2), times_ms=[round(t, 2) for t in times],
+        steps_per_s=1e3 / ms, frames_per_s=frames * 1e3 / ms,
+        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        profiled_wall_ms=wall * 1e3, busy_ms=busy * 1e3,
+        idle_share=1 - busy / wall,
+        device_ms_by_range={k: v / 1e3 for k, v in us.items()},
+        device_launches_by_range=dict(n), loss=loss)
+    by_name = collections.Counter()
+    for s_, e_, name in iv:
+        by_name[name] += e_ - s_
+    (out_dir / f"profile_train_{workload}.txt").write_text("\n".join(
+        f"{v / 1e3:12.2f} ms  {k}" for k, v in by_name.most_common()) + "\n")
+    print(json.dumps(result), flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device; this script runs only on the "
@@ -226,6 +384,8 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+    argv = list(sys.argv[1:] if argv is None else argv)
 
     from followyourclick_tpu_torch.pipelines.animation import SampleSpec
     from followyourclick_tpu_torch.pipelines.serving_schedules import (
@@ -244,10 +404,11 @@ def main(argv=None) -> int:
         f"exact_{chip_smoke.BATCH}clips": (exact, chip_smoke.BATCH, False),
         "exact_ip_plus": (exact, 1, True),
     }
-    chosen = list(sys.argv[1:] if argv is None else argv) \
-        or [*paths, "cli"]
+    chosen = argv or [*paths, "cli"]
     out_dir = Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)
+    if chosen[:1] == ["train"]:
+        return profile_train(chosen[1:], out_dir)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     pipe = None

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's click-to-video sampler on one NVIDIA card.
+"""Drive the PyTorch port's click-to-video sampler and trainer on one card.
 
     python3 chip_smoke.py [--steps 4] [--seed 0]
 
@@ -116,14 +116,38 @@ result line:
    without PIL it writes no GIF, checks the videos the CLI hands to its
    writer (``captured_videos``) and says so).
 
+14. training (:func:`phase_train`), after the earlier pipeline is freed:
+   the default ``UNet3DConfig()`` with ``remat_blocks``, the VAE and CLIP
+   with seeded random weights (zero-initialised layers given small ones),
+   the partitioned state (bf16 frozen leaves, fp32 masters of the 421 M
+   trainable ones), a synthetic seeded clip of ``TRAIN_CLIP`` (16 frames,
+   448x256, batch 1) encoded by ``encode_batch``; one step's loss and
+   gradients through the kernels against the same step with every routed
+   wrapper replaced by its plain version (``TRAIN_LOSS_REL``, each motion
+   module's gradient cosine ``TRAIN_GRAD_COS``); then ``train_loop`` for
+   ``TRAIN_STEPS`` steps saving at ``TRAIN_SAVE_AT`` (loss and
+   ``grad_norm`` a step, step ms by CUDA events, peak memory, launches
+   against ``TRAIN_LAUNCHES``), and a fresh state resumed from that
+   checkpoint to the same step, which must equal the uninterrupted state
+   bit for bit; every trainable leaf must have moved and every frozen one
+   be bit-identical to its start.
+
+Phase 2 is followed by the training kernels' checks
+(:func:`phase_train_kernels`): the motion block and LN-GEGLU at the
+training forward's shapes (``TRAIN_MOTION_SHAPES``, ``TRAIN_GEGLU_SHAPES``:
+row and position counts that are no powers of two) against their plain
+versions, and every autograd Function's backward against autograd through
+the plain version.
+
 Phase 1 also prints which optional packages import (``OPTIONAL_PACKAGES``).
 
 Phase 2 also holds flash attention at the level-0 cross-frame shape of one
 clip (``CROSS_FRAME_FLASH``, 8192 keys) and the frame attention at the
 ``temporal_attention_dim_div = 2`` widths.
 
-Phases 5 to 13 are the main paths: each sets every kernel's launch count to
-0 before each request (phase 13: before each CLI run) and checks the
+Phases 5 to 14 are the main paths: each sets every kernel's launch count to
+0 before each request (phase 13: before each CLI run; phase 14: before
+the training loop) and checks the
 request's counts against those its :func:`expected_launches` gives at its
 batch (from ``request_plan``: the solver's calls, CFG or not, the
 per-frame pass) and, where given, against the counts worked out by hand
@@ -2784,6 +2808,391 @@ def phase_cli(seed, steps, cfg=None, device="cuda", clip=(16, 512, 512)):
     return paths
 
 
+# the training phases: the reference recipe's clip (448x256, 16 frames,
+# batch 1), per-block checkpointing, bf16 frozen leaves and fp32 masters
+TRAIN_CLIP = (16, 448, 256)  # frames, height, width
+TRAIN_STEPS = 3
+TRAIN_SAVE_AT = 2
+# kernel route vs plain route, one step on the same draws: the loss, and
+# the cosine of each motion module's gradient (its leaves concatenated)
+TRAIN_LOSS_REL = 2e-2
+TRAIN_GRAD_COS = 0.99
+# launches a step by hand: 20 motion blocks, 16 LN-GEGLU and the mid
+# block's spatial self-attention over its 7x4 = 28 tokens (sq = sk <= 32,
+# sq x 8 heads <= 256: the tiny-sequence route) a UNet forward, each block's
+# forward run again in the backward (remat_blocks)
+TRAIN_LAUNCHES = {"fused_motion_block": 40, "fused_ln_geglu": 32,
+                  "fused_temporal_block": 0, "temporal_attention": 2,
+                  "flash_attention": 0}
+# the training forward's kernel shapes: motion blocks (P, F, C) and LN-GEGLU
+# rows (R, C) at latents 56x32, 16 frames (none a power of two)
+TRAIN_MOTION_SHAPES = [(1792, 16, 320), (448, 16, 640), (112, 16, 1280),
+                       (28, 16, 1280)]
+TRAIN_GEGLU_SHAPES = [(28672, 320), (7168, 640), (1792, 1280), (448, 1280)]
+
+
+def grad_check(name, route, reference, leaves, cot, failures):
+    """``route`` (a wrapper on bf16 ``leaves``, through its autograd
+    Function) against autograd through ``reference`` on fp32 copies of the
+    same values: each gradient within ``BF16_REL`` of its largest (the
+    Function's backward is that fp32 math, its gradients rounded to bf16).
+    Returns the largest normalised error."""
+    got = torch.autograd.grad(route(*leaves), leaves, cot)
+    ref_leaves = [t.detach().float().requires_grad_() for t in leaves]
+    want = torch.autograd.grad(reference(*ref_leaves), ref_leaves,
+                               cot.float())
+    worst = 0.0
+    for g, w in zip(got, want):
+        scale = float(w.abs().max())
+        err = float((g.float() - w).abs().max()) / max(scale, 1e-30)
+        worst = max(worst, err)
+    ok = worst <= BF16_REL
+    log(f"  {name} backward: gradients' normalised error {worst:.3e} "
+        f"(tol {BF16_REL}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(name + " backward")
+    return worst
+
+
+def phase_train_kernels(seed):
+    """The two kernels of the training forward at its shapes (bf16, both
+    gate forms) against their plain versions, and every autograd Function's
+    backward against autograd through the plain version: the motion block
+    and LN-GEGLU at the training shapes, the other four at one shape
+    each."""
+    from followyourclick_tpu_torch.ops.flash_attention import (
+        flash_attention,
+    )
+    from followyourclick_tpu_torch.ops.geglu import (
+        fused_geglu,
+        fused_ln_geglu,
+        geglu_ref,
+        ln_geglu_ref,
+    )
+    from followyourclick_tpu_torch.ops.motion_block import (
+        fused_motion_block,
+        motion_block_ref,
+    )
+    from followyourclick_tpu_torch.ops.temporal_attention import (
+        fused_temporal_block,
+        temporal_attention,
+        temporal_attention_ref,
+        temporal_block_ref,
+    )
+
+    bf = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+    failures = []
+
+    def leaf(shape, s, base=0.0):
+        return (base + randn(gen, shape, s, bf)).requires_grad_()
+
+    def motion_leaves(p, f, c):
+        params = []
+        for _ in range(2):
+            params += [leaf((c,), 0.05, 1.0), leaf((c,), 0.05)] + [
+                leaf((c, c), c ** -0.5) for _ in range(4)] + [
+                leaf((c,), 0.02)]
+        params += [leaf((c,), 0.05, 1.0), leaf((c,), 0.05),
+                   leaf((8 * c, c), c ** -0.5), leaf((8 * c,), 0.02),
+                   leaf((c, 4 * c), (4 * c) ** -0.5), leaf((c,), 0.02)]
+        return [leaf((p, f, c), 1.0), leaf((f, c), 0.5)] + params
+
+    log("[train kernels] forward at the training shapes, and backward")
+    for p, f, c in TRAIN_MOTION_SHAPES:
+        heads, scale = 8, (c // 8) ** -0.5
+        ls = motion_leaves(p, f, c)
+        x, pe, params = ls[0], ls[1], ls[2:]
+        with torch.no_grad():
+            for fast in (c <= 640, c > 640):
+                compare(f"fused_motion_block P={p} F={f} C={c} "
+                        f"{'tanh' if fast else 'erf'}",
+                        fused_motion_block(x, pe, params, scale, heads,
+                                           fast_gating=fast),
+                        motion_block_ref(x, pe, params, scale, heads,
+                                         fast_gating=fast), failures)
+        grad_check(f"fused_motion_block P={p} F={f} C={c}",
+                   lambda x, pe, *ps: fused_motion_block(x, pe, ps, scale,
+                                                         heads),
+                   lambda x, pe, *ps: motion_block_ref(x, pe, ps, scale,
+                                                       heads),
+                   ls, randn(gen, (p, f, c), 1.0, bf), failures)
+    for rows, c in TRAIN_GEGLU_SHAPES:
+        inner = 4 * c
+        ls = [leaf((rows, c), 1.0), leaf((c,), 0.05, 1.0), leaf((c,), 0.05),
+              leaf((2 * inner, c), c ** -0.5), leaf((2 * inner,), 0.05),
+              leaf((c, inner), inner ** -0.5), leaf((c,), 0.05)]
+        with torch.no_grad():
+            for fast in (c <= 640, c > 640):
+                compare(f"fused_ln_geglu R={rows} C={c} "
+                        f"{'tanh' if fast else 'erf'}",
+                        fused_ln_geglu(*ls, fast_gating=fast),
+                        ln_geglu_ref(*ls, fast_gating=fast), failures)
+        grad_check(f"fused_ln_geglu R={rows} C={c}", fused_ln_geglu,
+                   ln_geglu_ref, ls, randn(gen, (rows, c), 1.0, bf),
+                   failures)
+    rows, c = TRAIN_GEGLU_SHAPES[1]
+    ls = [leaf((rows, c), 1.0), leaf((8 * c, c), c ** -0.5),
+          leaf((8 * c,), 0.05), leaf((c, 4 * c), (4 * c) ** -0.5),
+          leaf((c,), 0.05)]
+    grad_check(f"fused_geglu R={rows} C={c}", fused_geglu, geglu_ref, ls,
+               randn(gen, (rows, c), 1.0, bf), failures)
+    p, f, c = TRAIN_MOTION_SHAPES[1]
+    ls = [leaf((p, f, c), 1.0)] + [leaf((c, c), c ** -0.5)
+                                   for _ in range(4)] + [leaf((c,), 0.02)]
+    grad_check(f"fused_temporal_block B={p} S={f} C={c}",
+               fused_temporal_block, temporal_block_ref, ls,
+               randn(gen, (p, f, c), 1.0, bf), failures)
+    # the frame kernel's plain version is softmax attention over any S
+    q = [leaf((112, 16, 8, 160), 1.0) for _ in range(3)]
+    grad_check("temporal_attention (112, 16, 8, 160)", temporal_attention,
+               temporal_attention_ref, q,
+               randn(gen, (112, 16, 8, 160), 1.0, bf), failures)
+    q = [leaf((4, 1792, 8, 40), 1.0) for _ in range(3)]
+    grad_check("flash_attention (4, 1792, 8, 40)", flash_attention,
+               temporal_attention_ref, q,
+               randn(gen, (4, 1792, 8, 40), 1.0, bf), failures)
+    torch.cuda.synchronize()
+    if failures:
+        raise SystemExit(f"training kernel checks failed: {failures}")
+
+
+def train_models(seed, remat_blocks=True, device="cuda", cfg=None):
+    """The UNet (fp32, ``remat_blocks``), VAE and CLIP (bf16 on the card,
+    frozen) of ``cfg`` (the default InferenceConfig) with seeded random
+    weights, every zero-initialised layer given small weights
+    (:func:`unzero_`), so every trainable leaf has a gradient from the
+    first step."""
+    from followyourclick_tpu_torch.config import InferenceConfig
+    from followyourclick_tpu_torch.models.clip_text import CLIPTextModel
+    from followyourclick_tpu_torch.models.unet3d import UNet3DConditionModel
+    from followyourclick_tpu_torch.models.vae import AutoencoderKL
+
+    cfg = cfg or InferenceConfig()
+    torch.manual_seed(seed)
+    with torch.device(device):
+        unet = UNet3DConditionModel(cfg.unet, remat_blocks=remat_blocks)
+        vae = AutoencoderKL(cfg.vae)
+        text = CLIPTextModel(cfg.clip_text)
+    unzero_(unet, torch.Generator(device=device).manual_seed(seed))
+    dtype = torch.bfloat16 if device == "cuda" else torch.float32
+    return cfg, unet, vae.to(dtype).eval(), text.to(dtype).eval()
+
+
+def train_batch(vae, cfg, seed, clip, batch=1, device="cuda"):
+    """A synthetic seeded batch: random clips in [-1, 1] encoded by
+    ``encode_batch`` (the VAE's posterior sample), a centred click mask,
+    random token ids, fps 8 and motion score 20."""
+    from followyourclick_tpu_torch.training.step import (
+        TrainBatch,
+        encode_batch,
+    )
+
+    frames, height, width = clip
+    gen = torch.Generator(device=device).manual_seed(seed + 11)
+    dtype = next(vae.parameters()).dtype
+    video = (torch.rand((batch, frames, height, width, 3), generator=gen,
+                        device=device) * 2 - 1).to(dtype)
+    latents = encode_batch(vae, video, gen).float()
+    h, w = height // 8, width // 8
+    mask = torch.zeros(batch, h, w, 1, device=device)
+    mask[:, h // 4:3 * h // 4, w // 4:3 * w // 4] = 1.0
+    ids = torch.randint(0, cfg.clip_text.vocab_size, (batch, 77),
+                        generator=gen, device=device)
+    full = torch.full((batch,), 1.0, device=device)
+    return TrainBatch(latents, ids, mask, 8.0 * full, 20.0 * full)
+
+
+def motion_modules(unet):
+    """The number of motion modules in ``unet``."""
+    from followyourclick_tpu_torch.models.motion_module import MotionModule
+
+    return sum(isinstance(m, MotionModule) for m in unet.modules())
+
+
+def motion_module_cosines(got, want):
+    """Cosine of each motion module's gradient (its leaves concatenated),
+    by module name, and the least cosine of any one leaf of them."""
+    groups = collections.defaultdict(lambda: [0.0, 0.0, 0.0])
+    worst_leaf = 1.0
+    for name, g in got.items():
+        m = re.match(r"(.*motion_modules\.\d+)\.", name)
+        if m is None:
+            continue
+        a, b = g.double().flatten(), want[name].double().flatten()
+        dot, na, nb = float(a @ b), float(a @ a), float(b @ b)
+        acc = groups[m.group(1)]
+        acc[0] += dot
+        acc[1] += na
+        acc[2] += nb
+        if na and nb:
+            worst_leaf = min(worst_leaf, dot / (na * nb) ** 0.5)
+    return {k: d / max(na * nb, 1e-300) ** 0.5
+            for k, (d, na, nb) in groups.items()}, worst_leaf
+
+
+def phase_train(seed, cfg=None, device="cuda", clip=TRAIN_CLIP):
+    """The trainer at full width (see the module docstring, phase 14);
+    returns the kernels' launch counts over the uninterrupted run. ``cfg``,
+    ``device``, ``clip``: a tiny rehearsal on the CPU (with ``torch.cuda``'s
+    events stubbed)."""
+    import itertools
+    import tempfile
+
+    from followyourclick_tpu_torch.config import NoiseScheduleConfig
+    from followyourclick_tpu_torch.schedulers.ddim import DDIMSchedule
+    from followyourclick_tpu_torch.training import loop
+    from followyourclick_tpu_torch.training import step as ts
+
+    t0 = time.perf_counter()
+    cfg, unet, vae, text = train_models(seed, device=device, cfg=cfg)
+    tcfg = ts.TrainConfig(gradient_checkpointing=False)
+    sched = DDIMSchedule.create(NoiseScheduleConfig(), 25)
+
+    def fresh():
+        return ts.create_partitioned_train_state(unet, tcfg)
+
+    state = fresh()
+    n_train = sum(t.numel() for t in state.trainable.values())
+    n_frozen = sum(t.numel() for t in state.frozen.values())
+    log(f"[train] the UNet with remat_blocks: trainable "
+        f"{n_train / 1e6:.3f} M parameters (fp32 masters), frozen "
+        f"{n_frozen / 1e6:.3f} M (bf16); built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    batch = train_batch(vae, cfg, seed, clip, device=device)
+    log(f"[train] latents {tuple(batch.latents.shape)} from {clip[0]} "
+        f"frames {clip[1]}x{clip[2]} by encode_batch")
+    kw = dict(unet=unet, text_encoder=text, sched=sched, cfg=tcfg)
+
+    # step 1, kernel route against plain route, on the same draws
+    draws = ts.draw_step(batch.latents, sched, tcfg,
+                         torch.Generator(device=device).manual_seed(seed))
+    loss_k, grads_k = ts.partitioned_loss_and_grads(state, batch, draws,
+                                                    **kw)
+    plain = plain_versions()
+    with wrappers_replaced(lambda name, fn: plain[name]):
+        loss_p, grads_p = ts.partitioned_loss_and_grads(state, batch, draws,
+                                                        **kw)
+    loss_k, loss_p = float(loss_k), float(loss_p)
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    cos, worst_leaf = motion_module_cosines(grads_k, grads_p)
+    least = min(cos, key=cos.get)
+    zero = [n for n, g in grads_k.items()
+            if "motion_modules" in n and not bool(g.any())]
+    log(f"[train] step 1, kernel vs plain route: loss {loss_k:.6f} vs "
+        f"{loss_p:.6f} (relative {rel:.3e}, tol {TRAIN_LOSS_REL}); "
+        f"motion-module gradient cosine: least {cos[least]:.6f} "
+        f"({least}), mean {np.mean(list(cos.values())):.6f} over "
+        f"{len(cos)} modules (tol {TRAIN_GRAD_COS}); least of one leaf "
+        f"{worst_leaf:.6f}; motion-module leaves with a zero gradient "
+        f"{len(zero)}")
+    if not (rel <= TRAIN_LOSS_REL and cos[least] >= TRAIN_GRAD_COS
+            and len(cos) == motion_modules(unet) and not zero):
+        raise SystemExit("[train] the kernel route's step disagrees with "
+                         "the plain route's")
+    del grads_k, grads_p
+
+    # the loop: TRAIN_STEPS steps saving at TRAIN_SAVE_AT, then a fresh
+    # state resumed from that checkpoint to the same step
+    step_ms = []
+
+    def step_fn(state, batch, generator):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = ts.train_step_partitioned(state, batch, generator, **kw)
+        end.record()
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        return out
+
+    def on_log(step, metrics):
+        loss, norm = float(metrics["loss"]), float(metrics["grad_norm"])
+        log(f"[train] step {step}: loss {loss:.6f}, grad_norm {norm:.6f}, "
+            f"{step_ms[-1]:.1f} ms")
+        if not (np.isfinite(loss) and np.isfinite(norm)):
+            raise SystemExit(f"[train] step {step}: loss or grad_norm not "
+                             "finite")
+
+    # deterministic algorithms (cuDNN attention's backward is not by
+    # default), so that the resumed step can equal the uninterrupted one;
+    # cuBLAS asks for a fixed workspace configuration in that mode
+    deterministic = (torch.backends.cudnn.deterministic,
+                     torch.are_deterministic_algorithms_enabled(),
+                     torch.is_deterministic_algorithms_warn_only_enabled(),
+                     os.environ.get("CUBLAS_WORKSPACE_CONFIG"))
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory() as out_dir:
+            loop_cfg = loop.LoopConfig(
+                output_dir=out_dir, max_train_steps=TRAIN_STEPS,
+                checkpointing_steps=TRAIN_SAVE_AT, log_every=1,
+                temporal_multi_scale=False)
+            wrappers = {**kernel_wrappers(), **unrouted_wrappers()}
+            for wrapper in wrappers.values():
+                wrapper.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            state = loop.train_loop(state, itertools.repeat(batch), step_fn,
+                                    loop_cfg, seed=seed, on_log=on_log)
+            wall = time.perf_counter() - t0
+            counts = {name: fn.launches for name, fn in wrappers.items()}
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            warm = sorted(step_ms[1:])
+            log(f"[train] {TRAIN_STEPS} steps in {wall:.2f} s (one "
+                f"checkpoint save); step ms {[round(t, 1) for t in step_ms]}"
+                f", median of the warm steps {np.median(warm):.1f} ms; peak "
+                f"device memory {peak:.2f} GiB")
+            by_hand = {k: TRAIN_LAUNCHES.get(k, 0) * TRAIN_STEPS
+                       for k in wrappers}
+            log("[train] launches by hand / counted: " + ", ".join(
+                f"{k} {by_hand[k]} / {counts[k]}" for k in counts))
+            if counts != by_hand:
+                raise SystemExit("[train] launch counts differ from the "
+                                 "hand count")
+            t0 = time.perf_counter()
+            resumed = loop.train_loop(fresh(), itertools.repeat(batch),
+                                      step_fn, loop_cfg, seed=seed,
+                                      on_log=on_log)
+            log(f"[train] resumed from step {TRAIN_SAVE_AT} to "
+                f"{resumed.step} in {time.perf_counter() - t0:.2f} s")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic[0]
+        torch.use_deterministic_algorithms(deterministic[1],
+                                           warn_only=deterministic[2])
+        if deterministic[3] is None:
+            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = deterministic[3]
+
+    same = (resumed.step == state.step == TRAIN_STEPS
+            and resumed.opt_state["count"] == state.opt_state["count"]
+            and all(torch.equal(t, resumed.trainable[n])
+                    for n, t in state.trainable.items())
+            and all(torch.equal(t, resumed.frozen[n])
+                    for n, t in state.frozen.items())
+            and all(torch.equal(t, resumed.opt_state[m][n])
+                    for m in ("mu", "nu")
+                    for n, t in state.opt_state[m].items()))
+    diff = max(float((t - resumed.trainable[n]).abs().max())
+               for n, t in state.trainable.items())
+    start = dict(unet.named_parameters())
+    unchanged = [n for n, t in state.trainable.items()
+                 if torch.equal(t, start[n])]
+    moved = [n for n, t in state.frozen.items()
+             if not torch.equal(t, start[n].detach().to(t.dtype))]
+    log(f"[train] resumed step-{TRAIN_STEPS} state equals the "
+        f"uninterrupted one bit for bit: {same} (largest trainable "
+        f"difference {diff:.3e}); trainable leaves unchanged "
+        f"{len(unchanged)} of {len(state.trainable)}; frozen leaves changed "
+        f"{len(moved)} of {len(state.frozen)}")
+    if not same or unchanged or moved:
+        raise SystemExit("[train] resume, trainable or frozen check failed")
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=4,
@@ -2805,6 +3214,7 @@ def main(argv=None) -> int:
 
     phase_build()
     stats = phase_kernels(args.seed)
+    phase_train_kernels(args.seed)
     phase_tiny(args.seed)
     phase_tiny_options(args.seed)
     pipe = full_pipeline(args.seed)
@@ -2849,6 +3259,9 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     paths.update(phase_cli(args.seed, args.steps))
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["train"] = phase_train(args.seed)
     for name in KERNELS:
         if not sum(launches[name] for launches in paths.values()):
             raise SystemExit(f"{name} was never launched on a main path")

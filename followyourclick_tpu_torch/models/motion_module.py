@@ -33,6 +33,7 @@ package runs off the TPU.
 
 from __future__ import annotations
 
+import weakref
 from typing import Optional, Sequence
 
 import torch
@@ -115,12 +116,19 @@ class TemporalAttention(nn.Module):
 
     def qkv_weight(self) -> torch.Tensor:
         """``[Wq; Wk; Wv]`` of shape ``(3C, C)``, the operand of the bf16
-        block's q/k/v product, built once and again only when one of those
-        weights changes (another storage or an in-place write)."""
+        block's q/k/v product (a forward input only, outside autograd),
+        built once and again only when one of those weights changes: another
+        tensor object (a train step's cast, a ``functional_call``; held by
+        weak reference, so a new tensor at a freed one's address is not
+        taken for it) or an in-place write (``_version``)."""
         ws = (self.to_q.weight, self.to_k.weight, self.to_v.weight)
-        key = tuple((w.data_ptr(), w._version) for w in ws)
-        if key != self._qkv_key:
-            self._qkv, self._qkv_key = torch.cat(ws), key
+        with torch.no_grad():
+            key = tuple((w._version, w.data_ptr()) for w in ws)
+            held = self._qkv_key is not None and all(
+                ref() is w for ref, w in zip(self._qkv_key[0], ws))
+            if not held or key != self._qkv_key[1]:
+                self._qkv = torch.cat(ws)
+                self._qkv_key = (tuple(weakref.ref(w) for w in ws), key)
         return self._qkv
 
     def fused_route(self, c: int) -> bool:

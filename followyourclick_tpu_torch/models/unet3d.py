@@ -18,6 +18,11 @@ embedding, ``motion_module_decoder_only`` and the attention options of
 raise: ``resnet_time_scale_shift`` other than "default" and a
 ``class_embed_type``.
 
+``remat_blocks`` (JAX ``UNet3DConditionModel.remat_blocks``): under
+autograd each down, mid and up block is its own
+``torch.utils.checkpoint`` region, so the backward keeps the blocks'
+boundaries and one block's internals; a forward without grad is unchanged.
+
 Tensors are ``(B, F, H, W, C)``. CFG prefix sharing (exact): when
 ``cond.context`` has twice the sample's batch, the stem runs once and the
 hidden states duplicate at the first cross-attention.
@@ -26,11 +31,14 @@ hidden states duplicate at the first cross-attention.
 from __future__ import annotations
 
 import contextlib
+import operator
 from dataclasses import dataclass
 from typing import Optional
 
 import torch
 from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from followyourclick_tpu_torch.config import UNet3DConfig
 from followyourclick_tpu_torch.models.attention import CrossAttention
@@ -76,9 +84,10 @@ class UNetConditioning:
 
 
 class UNet3DConditionModel(nn.Module):
-    def __init__(self, config: UNet3DConfig):
+    def __init__(self, config: UNet3DConfig, remat_blocks: bool = False):
         super().__init__()
         cfg = self.config = config
+        self.remat_blocks = remat_blocks
         # declared by the JAX config, never read by the JAX UNet
         if cfg.class_embed_type is not None:
             raise NotImplementedError(
@@ -150,6 +159,10 @@ class UNet3DConditionModel(nn.Module):
                                        act="silu")
         self.conv_out = InflatedConv(c0, cfg.out_channels, 3)
         name_sites(self)
+        # each block's parameter names (remat_blocks), listed while they
+        # are registered: inside a functional_call they are not
+        for b in (*self.down_blocks, self.mid_block, *self.up_blocks):
+            b.param_names = [n for n, _ in b.named_parameters()]
 
     @staticmethod
     def conv_in_channels(cfg: UNet3DConfig) -> int:
@@ -165,6 +178,19 @@ class UNet3DConditionModel(nn.Module):
         if cfg.use_first_frame_condition_concat:
             c += cfg.in_channels
         return c
+
+    def _block(self, block: nn.Module, *args):
+        """``block(*args)``, a checkpoint region under ``remat_blocks``. The
+        region holds the parameter tensors the block has now (those a
+        ``functional_call`` put in place too), so that the backward's
+        recompute, which runs after such a call has put the module's own
+        back, reads the same ones."""
+        if not (self.remat_blocks and torch.is_grad_enabled()):
+            return block(*args)
+        params = {n: operator.attrgetter(n)(block)
+                  for n in block.param_names}
+        return checkpoint(lambda *a: functional_call(block, params, a),
+                          *args, use_reentrant=False)
 
     @contextlib.contextmanager
     def _ip_off(self):
@@ -257,8 +283,8 @@ class UNet3DConditionModel(nn.Module):
         extra = (context_2, emb_frame0)
         # level 0 (the outermost) always runs
         res_samples = [sample]
-        sample, res = self.down_blocks[0](sample, emb, context, pab, cache,
-                                          *extra)
+        sample, res = self._block(self.down_blocks[0], sample, emb, context,
+                                  pab, cache, *extra)
         res_samples += res
 
         def trunk(s):
@@ -266,13 +292,16 @@ class UNet3DConditionModel(nn.Module):
             DeepCache-cacheable interior."""
             skips = list(res_samples)
             for block in self.down_blocks[1:]:
-                s, res = block(s, emb, context, pab, cache, *extra)
+                s, res = self._block(block, s, emb, context, pab, cache,
+                                     *extra)
                 skips += res
-            s = self.mid_block(s, emb, context, pab, cache, *extra)
+            s = self._block(self.mid_block, s, emb, context, pab, cache,
+                            *extra)
             for block in self.up_blocks[:-1]:
                 res = skips[-self.n_skip:]
                 skips = skips[:-self.n_skip]
-                s = block(s, res, emb, context, pab, cache, *extra)
+                s = self._block(block, s, res, emb, context, pab, cache,
+                                *extra)
             return s
 
         deep_site = (pab is not None and (pab.reuse_deep or pab.record_deep)
@@ -283,8 +312,9 @@ class UNet3DConditionModel(nn.Module):
         else:
             sample = trunk(sample)
         # the last up block takes the level-0 skips, computed in either mode
-        sample = self.up_blocks[-1](sample, res_samples[:self.n_skip], emb,
-                                    context, pab, cache, *extra)
+        sample = self._block(self.up_blocks[-1], sample,
+                             res_samples[:self.n_skip], emb, context, pab,
+                             cache, *extra)
         if cfg.use_inflated_groupnorm:
             bo = sample.shape[0]
             sample = self.conv_norm_out(

@@ -24,6 +24,13 @@ plain route, as the JAX package does off the TPU; "flash" asked for by name
 runs ``flash_attention`` on either, which on a CPU tensor is its plain
 version ``flash_attention_ref``.
 
+Training's memory lever (JAX ``_batch_chunked_attention``, read from
+``FYC_ATTN_BATCH_CHUNK``): on the plain route without a bias, with a batch
+divisible by and larger than the chunk and more than 256 MiB of fp32
+scores, attention runs ``chunk`` batch rows at a time
+(:class:`BatchChunkedAttention`), and its backward recomputes each chunk
+from q, k and v; the rows are independent, so the result is exact.
+
 Mixed dtypes (``upcast_attention``: q and k in fp32, v in bf16) compute what
 the JAX plain path computes: fp32 logits and weights times v promoted, so v
 is cast up (exactly) and the route's kernel runs in fp32.
@@ -31,6 +38,7 @@ is cast up (exactly) and the route's kernel runs in fp32.
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
@@ -105,6 +113,50 @@ def _plain_attention(query, key, value, bias, scale):
     return out.transpose(1, 2)
 
 
+CHUNK_SCORE_BYTES = 256 * 1024 ** 2
+
+
+class BatchChunkedAttention(torch.autograd.Function):
+    """Plain attention ``chunk`` batch rows at a time; the backward saves
+    only q, k, v and recomputes each chunk's attention to differentiate
+    it (JAX ``ops/attention.py::_chunked_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, query, key, value, scale, chunk):
+        ctx.scale, ctx.chunk = scale, chunk
+        ctx.save_for_backward(query, key, value)
+        return torch.cat([_plain_attention(query[i:i + chunk],
+                                           key[i:i + chunk],
+                                           value[i:i + chunk], None, scale)
+                          for i in range(0, query.shape[0], chunk)])
+
+    @staticmethod
+    def backward(ctx, grad):
+        query, key, value = ctx.saved_tensors
+        chunk = ctx.chunk
+        grads = ([], [], [])
+        for i in range(0, query.shape[0], chunk):
+            with torch.enable_grad():
+                ins = [t[i:i + chunk].detach().requires_grad_()
+                       for t in (query, key, value)]
+                out = _plain_attention(*ins, None, ctx.scale)
+                for acc, g in zip(grads, torch.autograd.grad(
+                        out, ins, grad[i:i + chunk])):
+                    acc.append(g)
+        return (*(torch.cat(g) for g in grads), None, None)
+
+
+def batch_chunk(query_shape, key_shape, has_bias: bool) -> int:
+    """The chunk ``FYC_ATTN_BATCH_CHUNK`` asks for at this site, or 0 where
+    the JAX conditions do not hold."""
+    chunk = int(os.environ.get("FYC_ATTN_BATCH_CHUNK", "0"))
+    b, sq, h, _ = query_shape
+    if (chunk > 0 and not has_bias and b % chunk == 0 and b > chunk
+            and b * h * sq * key_shape[1] * 4 > CHUNK_SCORE_BYTES):
+        return chunk
+    return 0
+
+
 def dot_product_attention(query: torch.Tensor, key: torch.Tensor,
                           value: torch.Tensor,
                           bias: Optional[torch.Tensor] = None,
@@ -124,4 +176,7 @@ def dot_product_attention(query: torch.Tensor, key: torch.Tensor,
         return flash_attention(query, key, value, scale)
     if kind == "tiny" and query.device.type == "cuda":
         return temporal_attention(query, key, value, scale)
+    chunk = batch_chunk(query.shape, key.shape, bias is not None)
+    if chunk:
+        return BatchChunkedAttention.apply(query, key, value, scale, chunk)
     return _plain_attention(query, key, value, bias, scale)

@@ -30,6 +30,8 @@ softmax in fp32, the weights cast; ``p·v`` accumulated in fp32 and cast;
 ``o·Woᵀ + bo`` in fp32 and cast. The result is pre-residual.
 
 Not routed, as in the JAX package, which has no caller of the kernel.
+Forward only: a CUDA call under autograd raises (the JAX
+``_ln_cross_attn_bwd`` is not ported yet).
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from followyourclick_tpu_torch.ops import _build
+from followyourclick_tpu_torch.ops.autograd import refuse_grad
 from followyourclick_tpu_torch.ops.geglu import (
     down_bf16,
     layer_norm_cast,
@@ -236,6 +239,8 @@ def fused_ln_cross_attention(x: torch.Tensor, context: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"fused_ln_cross_attention: no kernel for "
                          f"{x.device}")
+    refuse_grad("fused_ln_cross_attention", x, context, ln_scale, ln_bias,
+                wq, wk, wv, wo, bo)
     if context.get_device() != x.get_device() or context.dtype != x.dtype:
         raise ValueError("fused_ln_cross_attention: context must share x's "
                          "device and dtype")

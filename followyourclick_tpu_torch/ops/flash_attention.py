@@ -18,15 +18,22 @@ to v's dtype before ``p·v``, which accumulates in fp32, then divided by
 ``l`` and cast. The kernel's running max differs from the plain version's
 global one only by where p is rounded.
 
-Forward only: the JAX backward ``_flash_vjp_bwd`` is a plain recompute for
-training, which the port has not reached yet.
+Under autograd (an input that requires grad) a call goes through
+:class:`FlashAttentionGrad`: it saves q, k and v, and its backward is the
+JAX ``_flash_vjp_bwd`` math, an fp32 recompute of the scores and the softmax
+Jacobian, run over ``B·H`` in the plain version's chunks so that no more
+than ``REF_CHUNK_BYTES`` of fp32 scores exist at once (the rows are
+independent, so the result is the unchunked one).
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from followyourclick_tpu_torch.ops import _build
+from followyourclick_tpu_torch.ops.autograd import needs_grad
 
 MAX_HEAD_DIM = 160
 MAX_BATCH_HEADS = 65535  # the grid's y extent, one row per batch·head
@@ -57,6 +64,48 @@ def flash_attention_ref(query: torch.Tensor, key: torch.Tensor,
         o = torch.bmm(s.to(value.dtype).float(), v[i:i + step].float())
         out[i:i + step] = (o / l_sum).to(query.dtype)
     return out.reshape(b, h, sq, d).transpose(1, 2)
+
+
+def _fold(t: torch.Tensor) -> torch.Tensor:
+    """``(B, S, H, D)`` → ``(B·H, S, D)``."""
+    b, s, h, d = t.shape
+    return t.transpose(1, 2).reshape(b * h, s, d)
+
+
+class FlashAttentionGrad(torch.autograd.Function):
+    """:func:`flash_attention` under autograd."""
+
+    @staticmethod
+    def forward(ctx, run, scale, query, key, value):
+        ctx.scale = scale
+        ctx.save_for_backward(query, key, value)
+        return run(query, key, value)
+
+    @staticmethod
+    def backward(ctx, grad):
+        query, key, value = ctx.saved_tensors
+        b, sq, h, d = query.shape
+        sk = key.shape[1]
+        q, k, v, g = (_fold(t) for t in (query, key, value, grad))
+        dq, dk, dv = (torch.empty(t.shape, dtype=torch.float32,
+                                  device=t.device) for t in (q, k, v))
+        step = max(1, REF_CHUNK_BYTES // (sq * sk * 4))
+        for i in range(0, b * h, step):
+            rows = slice(i, i + step)
+            qi, ki, vi, gi = (t[rows].float() for t in (q, k, v, g))
+            p = torch.softmax(torch.bmm(qi, ki.transpose(1, 2)) * ctx.scale,
+                              -1)
+            dv[rows] = torch.bmm(p.transpose(1, 2), gi)
+            dp = torch.bmm(gi, vi.transpose(1, 2))
+            ds = p * (dp - (dp * p).sum(-1, keepdim=True)) * ctx.scale
+            dq[rows] = torch.bmm(ds, ki)
+            dk[rows] = torch.bmm(ds.transpose(1, 2), qi)
+
+        def unfold(t, like):
+            return t.reshape(b, h, -1, d).transpose(1, 2).to(like.dtype)
+
+        return (None, None, unfold(dq, query), unfold(dk, key),
+                unfold(dv, value))
 
 
 def _check_args(query: torch.Tensor, key: torch.Tensor,
@@ -101,6 +150,14 @@ def flash_attention(query: torch.Tensor, key: torch.Tensor,
     without keeping the ``(Sq, Sk)`` scores."""
     if scale is None:
         scale = query.shape[-1] ** -0.5
+    run = functools.partial(_flash_attention, scale=scale)
+    if needs_grad(query, key, value):
+        return FlashAttentionGrad.apply(run, scale, query, key, value)
+    return run(query, key, value)
+
+
+def _flash_attention(query, key, value, *, scale):
+    """The route: the plain version on a CPU tensor, else the kernel."""
     if query.device.type == "cpu":
         return flash_attention_ref(query, key, value, scale)
     if query.device.type != "cuda":

@@ -23,6 +23,11 @@ JAX package, no path of the sampler reaches ``fused_geglu``: its caller,
 ``models/attention.GEGLUFeedForward``, runs on the card only when called
 outside ``_ln_ff_residual``.
 
+Under autograd (an input that requires grad) a call goes through
+:class:`LnGegluGrad` / :class:`GegluGrad`, which save the inputs and
+differentiate :func:`ln_geglu_fp32` / :func:`geglu_fp32` (the JAX
+``_ln_geglu_bwd`` / ``_geglu_bwd`` recompute: fp32, exact GELU).
+
 Weights are in ``nn.Linear`` layout: ``w1 (2·inner, C)``, ``w2 (C, inner)``
 (the transposes of the JAX kernel's ``(C, 2·inner)`` and ``(inner, C)``).
 
@@ -43,6 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from followyourclick_tpu_torch.ops import _build
+from followyourclick_tpu_torch.ops.autograd import Recompute, needs_grad
 
 
 def default_fast_gating(x: torch.Tensor) -> bool:
@@ -120,6 +126,29 @@ def geglu_ref(x, w1, b1, w2, b2, fast_gating: bool = False):
     """The plain PyTorch version of the LN-off mode (the Pallas ``_kernel``):
     ``gate(x · W1 + b1) · W2 + b2``, cast to ``x.dtype``."""
     return geglu_ff(x, w1, b1, w2, b2, fast_gating).to(x.dtype)
+
+
+def geglu_fp32(x, w1, b1, w2, b2):
+    """The feed-forward in fp32 with exact GELU (JAX ``_ref_fp32``)."""
+    h, gate = F.linear(x.float(), w1.float(), b1.float()).chunk(2, -1)
+    return F.linear(h * F.gelu(gate), w2.float(), b2.float())
+
+
+def ln_geglu_fp32(x, ln_scale, ln_bias, w1, b1, w2, b2, *, eps: float,
+                  residual: bool):
+    """LN → feed-forward (→ +x) in fp32 (JAX ``_ln_ref_fp32``)."""
+    xf = x.float()
+    out = geglu_fp32(F.layer_norm(xf, xf.shape[-1:], ln_scale.float(),
+                                  ln_bias.float(), eps), w1, b1, w2, b2)
+    return out + xf if residual else out
+
+
+class LnGegluGrad(Recompute):
+    """:func:`fused_ln_geglu` under autograd."""
+
+
+class GegluGrad(Recompute):
+    """:func:`fused_geglu` under autograd."""
 
 
 @functools.lru_cache(maxsize=None)
@@ -231,10 +260,22 @@ def fused_ln_geglu(x: torch.Tensor, ln_scale: torch.Tensor,
     """LN → GEGLU FF → (+x) over ``(R, C)`` rows."""
     if fast_gating is None:
         fast_gating = default_fast_gating(x)
+    args = (x, ln_scale, ln_bias, w1, b1, w2, b2)
+    run = functools.partial(_ln_geglu, eps=eps, residual=residual,
+                            fast=fast_gating)
+    if needs_grad(*args):
+        return LnGegluGrad.apply(
+            run, functools.partial(ln_geglu_fp32, eps=eps,
+                                   residual=residual), *args)
+    return run(*args)
+
+
+def _ln_geglu(x, ln_scale, ln_bias, w1, b1, w2, b2, *, eps, residual, fast):
+    """The route: the plain version on a CPU tensor, else the kernel."""
     params = (ln_scale, ln_bias, w1, b1, w2, b2)
     if x.device.type == "cpu":
         return ln_geglu_ref(x, *params, eps=eps, residual=residual,
-                            fast_gating=fast_gating)
+                            fast_gating=fast)
     if x.device.type != "cuda":
         raise ValueError(f"fused_ln_geglu: no kernel for {x.device}")
     _check("fused_ln_geglu", x, params[:2], params[2:])
@@ -243,7 +284,7 @@ def fused_ln_geglu(x: torch.Tensor, ln_scale: torch.Tensor,
         if x.dtype == torch.bfloat16:
             xn = torch.empty_like(x)
             ln_rows_bf16(x, ln_scale, ln_bias, xn, eps)
-            out = _ff_bf16(x, xn, w1, b1, w2, b2, fast_gating, residual)
+            out = _ff_bf16(x, xn, w1, b1, w2, b2, fast, residual)
         else:
             out = torch.empty_like(x)
             lib = _build.load_library()
@@ -251,7 +292,7 @@ def fused_ln_geglu(x: torch.Tensor, ln_scale: torch.Tensor,
                 x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
                 w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
                 out.data_ptr(), r, c, w2.shape[1], float(eps), int(residual),
-                int(fast_gating), rows_per_block(c), _stream(x)),
+                int(fast), rows_per_block(c), _stream(x)),
                 "fused_ln_geglu")
     fused_ln_geglu.launches += 1
     return out
@@ -267,22 +308,31 @@ def fused_geglu(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     residual-off mode of the all-on-chip kernel in fp32."""
     if fast_gating is None:
         fast_gating = default_fast_gating(x)
+    args = (x, w1, b1, w2, b2)
+    run = functools.partial(_geglu, fast=fast_gating)
+    if needs_grad(*args):
+        return GegluGrad.apply(run, geglu_fp32, *args)
+    return run(*args)
+
+
+def _geglu(x, w1, b1, w2, b2, *, fast):
+    """The route: the plain version on a CPU tensor, else the kernel."""
     if x.device.type == "cpu":
-        return geglu_ref(x, w1, b1, w2, b2, fast_gating)
+        return geglu_ref(x, w1, b1, w2, b2, fast)
     if x.device.type != "cuda":
         raise ValueError(f"fused_geglu: no kernel for {x.device}")
     _check("fused_geglu", x, (), (w1, b1, w2, b2))
     r, c = x.shape
     with torch.cuda.device(x.device):
         if x.dtype == torch.bfloat16:
-            out = _ff_bf16(x, x, w1, b1, w2, b2, fast_gating, residual=False)
+            out = _ff_bf16(x, x, w1, b1, w2, b2, fast, residual=False)
         else:
             out = torch.empty_like(x)
             lib = _build.load_library()
             _build.check(lib.fyc_geglu(
                 x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
                 b2.data_ptr(), out.data_ptr(), r, c, w2.shape[1],
-                int(fast_gating), rows_per_block(c), _stream(x)),
+                int(fast), rows_per_block(c), _stream(x)),
                 "fused_geglu")
     fused_geglu.launches += 1
     return out

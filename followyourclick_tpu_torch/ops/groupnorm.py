@@ -22,7 +22,8 @@ element), and summed in fp32; ``var = max(s2/n − (s1/n)², 0)``; the affine
 is folded into ``y = x·a + b`` in fp32; SiLU follows it; then the cast.
 
 Not routed, as in the JAX package (``models/layers.py:137-141``): the port's
-``GroupNorm`` module keeps its plain path.
+``GroupNorm`` module keeps its plain path. Forward only: a CUDA call under
+autograd raises (the JAX ``_gn_bwd`` is not ported yet).
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from followyourclick_tpu_torch.ops import _build
+from followyourclick_tpu_torch.ops.autograd import refuse_grad
 
 VEC = 8            # channels per vector of the kernel
 MAX_CHANNELS = 8192  # a block's scratch, (2·row_groups + 3)·C fp32 words
@@ -182,6 +184,7 @@ def fused_group_norm(x: torch.Tensor, scale: torch.Tensor,
         return group_norm_ref(x, scale, bias, groups, eps, act)
     if x.device.type != "cuda":
         raise ValueError(f"fused_group_norm: no kernel for {x.device}")
+    refuse_grad("fused_group_norm", x, scale, bias)
     _check(x, scale, bias, groups)
     path, count, rows = group_norm_path(*x.shape, x.dtype)
     out = torch.empty_like(x)

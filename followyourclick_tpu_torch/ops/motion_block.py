@@ -26,6 +26,13 @@ PyTorch version with the same numerics. On a CUDA tensor:
 Nothing else routes between them: the dtype alone chooses. Each wrapper
 call counts one launch, whatever the number of device kernels.
 
+Under autograd (an input that requires grad) the call goes through
+:class:`MotionBlockGrad`: it saves ``(x, pe, params)`` and differentiates
+:func:`motion_block_fp32`, the JAX ``_block_bwd`` recompute (exact GELU in
+either gate form), never the kernel's intermediates. ``qkv`` is a forward
+input only: ``Wq``, ``Wk`` and ``Wv`` take their gradients through
+``params``.
+
 ``params`` is the JAX kernel's 20-tensor tuple ``(l0s, l0b, wq0, wk0, wv0,
 wo0, bo0, l1s, l1b, wq1, wk1, wv1, wo1, bo1, lfs, lfb, w1, b1, w2, b2)``
 with every matrix in ``nn.Linear`` layout ``(out, in)``. ``qkv``, the two
@@ -47,6 +54,7 @@ import torch
 import torch.nn.functional as F
 
 from followyourclick_tpu_torch.ops import _build
+from followyourclick_tpu_torch.ops.autograd import Recompute, needs_grad
 from followyourclick_tpu_torch.ops.geglu import (
     default_fast_gating,
     down_bf16,
@@ -105,6 +113,33 @@ def motion_block_ref(x: torch.Tensor, pe: torch.Tensor, params, scale: float,
     lfs, lfb, w1, b1, w2, b2 = params[14:20]
     y = up_stage(layer_norm_cast(h, lfs, lfb, eps), w1, b1, fast_gating)
     return down_stage(y, w2, b2, h)
+
+
+def motion_block_fp32(x: torch.Tensor, pe: torch.Tensor, *params,
+                      scale: float, heads: int,
+                      eps: float = 1e-5) -> torch.Tensor:
+    """The block in fp32 with exact GELU (JAX ``_ref_fp32``): the math the
+    backward differentiates."""
+    x, pe = x.float(), pe.float()
+    params = [t.float() for t in params]
+    p, f, c = x.shape
+    h = x
+    for i in range(2):
+        ls, lb, wq, wk, wv, wo, bo = params[7 * i:7 * i + 7]
+        t = F.layer_norm(h, (c,), ls, lb, eps) + pe
+        q, k, v = (F.linear(t, w).reshape(p, f, heads, c // heads)
+                   for w in (wq, wk, wv))
+        s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+        o = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), v)
+        h = h + F.linear(o.reshape(p, f, c), wo, bo)
+    lfs, lfb, w1, b1, w2, b2 = params[14:20]
+    hv, gate = F.linear(F.layer_norm(h, (c,), lfs, lfb, eps), w1,
+                        b1).chunk(2, -1)
+    return h + F.linear(hv * F.gelu(gate), w2, b2)
+
+
+class MotionBlockGrad(Recompute):
+    """:func:`fused_motion_block` under autograd."""
 
 
 @functools.lru_cache(maxsize=None)
@@ -233,9 +268,19 @@ def fused_motion_block(x: torch.Tensor, pe: torch.Tensor, params,
     if fast_gating is None:
         fast_gating = default_fast_gating(x)
     params = tuple(params)
+    run = functools.partial(_motion_block, scale=scale, heads=heads, eps=eps,
+                            fast=fast_gating, qkv=qkv)
+    if needs_grad(x, pe, *params):
+        return MotionBlockGrad.apply(
+            run, functools.partial(motion_block_fp32, scale=scale,
+                                   heads=heads, eps=eps), x, pe, *params)
+    return run(x, pe, *params)
+
+
+def _motion_block(x, pe, *params, scale, heads, eps, fast, qkv):
+    """The route: the plain version on a CPU tensor, else the kernel."""
     if x.device.type == "cpu":
-        return motion_block_ref(x, pe, params, scale, heads, eps,
-                                fast_gating)
+        return motion_block_ref(x, pe, params, scale, heads, eps, fast)
     if x.device.type != "cuda":
         raise ValueError(f"fused_motion_block: no kernel for {x.device}")
     pe = pe.to(x.dtype).contiguous()
@@ -247,16 +292,14 @@ def fused_motion_block(x: torch.Tensor, pe: torch.Tensor, params,
     p, f, c = x.shape
     with torch.cuda.device(x.device):
         if qkv:
-            out = _block_bf16(x, pe, params, qkv, scale, heads, eps,
-                              fast_gating)
+            out = _block_bf16(x, pe, params, qkv, scale, heads, eps, fast)
         else:
             out = torch.empty_like(x)
             ptrs = (ctypes.c_void_p * 20)(*[t.data_ptr() for t in params])
             _build.check(_build.load_library().fyc_motion_block(
                 x.data_ptr(), pe.data_ptr(), ptrs, out.data_ptr(), p, f, c,
                 heads, positions_per_block(f, c), float(scale), float(eps),
-                int(fast_gating),
-                torch.cuda.current_stream(x.device).cuda_stream),
+                int(fast), torch.cuda.current_stream(x.device).cuda_stream),
                 "fused_motion_block")
     fused_motion_block.launches += 1
     return out

@@ -32,6 +32,11 @@ its plain PyTorch version, :func:`temporal_attention_ref` or
 the number of device kernels. Weights are in ``nn.Linear`` layout ``(out,
 in)``.
 
+Under autograd (an input that requires grad) a call goes through
+:class:`TemporalAttentionGrad` / :class:`TemporalBlockGrad`, which save the
+inputs and differentiate :func:`attention_fp32` / :func:`temporal_block_fp32`
+(the JAX ``_attn_bwd`` / ``_fused_vjp_bwd`` math: fp32, p never rounded).
+
 Numerics (as the Pallas kernels): logits in fp32 times ``scale``, the softmax
 in fp32, p cast to the working dtype before p·v, p·v accumulated in fp32 and
 cast; in the block, q, k and v cast after fp32 accumulation, o cast before
@@ -48,6 +53,7 @@ import torch
 import torch.nn.functional as F
 
 from followyourclick_tpu_torch.ops import _build
+from followyourclick_tpu_torch.ops.autograd import Recompute, needs_grad
 from followyourclick_tpu_torch.ops.geglu import down_bf16, linear_f32
 
 MAX_FRAMES = 32
@@ -82,6 +88,33 @@ def temporal_block_ref(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
     return linear_f32(o, wo, bo).to(x.dtype)
 
 
+def attention_fp32(query, key, value, *, scale: float) -> torch.Tensor:
+    """Per-head softmax attention in fp32 over ``(B, S, H, D)``: the math
+    the backward passes of the frame-axis and flash kernels differentiate."""
+    s = torch.einsum("bqhd,bkhd->bhqk", query.float(), key.float()) * scale
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1),
+                        value.float())
+
+
+def temporal_block_fp32(x, wq, wk, wv, wo, bo, *, scale: float,
+                        heads: int) -> torch.Tensor:
+    """The block in fp32 (JAX ``_fused_ref_fp32``)."""
+    b, s, c = x.shape
+    xf = x.float()
+    q, k, v = (F.linear(xf, w.float()).reshape(b, s, heads, c // heads)
+               for w in (wq, wk, wv))
+    o = attention_fp32(q, k, v, scale=scale).reshape(b, s, c)
+    return F.linear(o, wo.float(), bo.float())
+
+
+class TemporalAttentionGrad(Recompute):
+    """:func:`temporal_attention` under autograd."""
+
+
+class TemporalBlockGrad(Recompute):
+    """:func:`fused_temporal_block` under autograd."""
+
+
 def _check_dtype_device(name, tensors, like) -> None:
     if like.dtype not in _build.DTYPE_CODES:
         raise TypeError(f"{name}: dtype {like.dtype} not supported")
@@ -99,6 +132,16 @@ def temporal_attention(query: torch.Tensor, key: torch.Tensor,
     """Per-head softmax attention over ``S ≤ 32`` on ``(B, S, H, D)``."""
     if scale is None:
         scale = query.shape[-1] ** -0.5
+    run = functools.partial(_temporal_attention, scale=scale)
+    if needs_grad(query, key, value):
+        return TemporalAttentionGrad.apply(
+            run, functools.partial(attention_fp32, scale=scale), query, key,
+            value)
+    return run(query, key, value)
+
+
+def _temporal_attention(query, key, value, *, scale):
+    """The route: the plain version on a CPU tensor, else the kernel."""
     if query.device.type == "cpu":
         return temporal_attention_ref(query, key, value, scale)
     if query.device.type != "cuda":
@@ -195,10 +238,23 @@ def fused_temporal_block(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
                          scale: float | None = None, heads: int = 8,
                          qkv: torch.Tensor | None = None) -> torch.Tensor:
     """q/k/v projections → per-head frame attention → out-projection + bias
-    over ``(B, S, C)`` rows; ``qkv``: ``[Wq; Wk; Wv]`` for bf16."""
-    b, s, c = x.shape
+    over ``(B, S, C)`` rows; ``qkv``: ``[Wq; Wk; Wv]`` for bf16 (a forward
+    input only)."""
     if scale is None:
-        scale = (c // heads) ** -0.5
+        scale = (x.shape[-1] // heads) ** -0.5
+    args = (x, wq, wk, wv, wo, bo)
+    run = functools.partial(_temporal_block, scale=scale, heads=heads,
+                            qkv=qkv)
+    if needs_grad(*args):
+        return TemporalBlockGrad.apply(
+            run, functools.partial(temporal_block_fp32, scale=scale,
+                                   heads=heads), *args)
+    return run(*args)
+
+
+def _temporal_block(x, wq, wk, wv, wo, bo, *, scale, heads, qkv):
+    """The route: the plain version on a CPU tensor, else the kernel."""
+    b, s, c = x.shape
     weights = (wq, wk, wv, wo, bo)
     if x.device.type == "cpu":
         return temporal_block_ref(x, *weights, scale=scale, heads=heads)

@@ -126,7 +126,9 @@ def ddim_step(sched: DDIMSchedule, model_output: torch.Tensor,
 
 def _extract(sched: DDIMSchedule, timesteps: torch.Tensor,
              ndim: int) -> torch.Tensor:
-    vals = sched.alphas_cumprod[timesteps.cpu().long()]
+    # gathered where the timesteps live: a training step draws them on the
+    # card, and reading them back would stall its queue
+    vals = sched.alphas_cumprod.to(timesteps.device)[timesteps.long()]
     return vals.reshape(vals.shape + (1,) * (ndim - vals.ndim))
 
 

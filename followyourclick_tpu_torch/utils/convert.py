@@ -37,6 +37,11 @@ JAX layout's shapes): the reference tree of :func:`audit_params` and the
 base that :func:`merge_params` lays a partial checkpoint over, as the JAX
 loaders use a model's initialised parameters; ``load_jax_params(...,
 partial=True)`` then fills only what the checkpoint holds.
+
+The way back: :func:`flax_paths` gives each torch parameter name its flax
+path (the training mask is decided on those), and :func:`export_jax_params`
+writes a module's tensors, or a train state's, as a flax tree of numpy
+arrays that :func:`load_jax_params` and the JAX package read.
 """
 
 from __future__ import annotations
@@ -465,6 +470,62 @@ class ParamSlot:
         except ValueError:
             return False
         return tuple(got) == tuple(self.param.shape)
+
+
+def _jax_layout(module: nn.Module, pname: str,
+                value: np.ndarray) -> np.ndarray:
+    """The inverse of :func:`_torch_layout` (a linear kernel ``(in, out)``)."""
+    if pname != "weight":
+        return value
+    if isinstance(module, nn.Linear):
+        return value.T
+    if isinstance(module, nn.Conv2d):
+        return value.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+    if isinstance(module, nn.Conv1d):
+        return value.transpose(2, 1, 0)  # (out, in, K) -> (K, in, out)
+    return value
+
+
+def flax_paths(module: nn.Module) -> dict:
+    """Each torch parameter name of ``module`` → its flax path (a tuple)."""
+    out = {}
+    for mname, mod in module.named_modules():
+        for pname, _ in mod.named_parameters(recurse=False):
+            name = f"{mname}.{pname}" if mname else pname
+            out[name] = _flax_path(mname) + (_leaf_name(mod, pname),)
+    return out
+
+
+def export_jax_params(module: nn.Module,
+                      tensors: Mapping[str, torch.Tensor] | None = None,
+                      like: Mapping[str, Any] | None = None) -> dict:
+    """``module``'s parameters as a flax tree of fp32 numpy arrays, the
+    inverse of :func:`load_jax_params`; with ``tensors`` (torch names →
+    tensors, e.g. a train state's trainable leaves) those tensors only, in
+    place of the module's own. A linear kernel comes out ``(in, out)``;
+    with ``like`` (a flax tree whose leaves have ``.shape``) each leaf takes
+    ``like``'s shape, as a JAX ``Conv1x1`` kernel ``(1, 1, in, out)``."""
+    shapes = {} if like is None else _flatten(like)
+    left = set(tensors or ())
+    tree: dict = {}
+    for mname, mod in module.named_modules():
+        for pname, param in mod.named_parameters(recurse=False):
+            name = f"{mname}.{pname}" if mname else pname
+            if tensors is not None:
+                if name not in tensors:
+                    continue
+                param = tensors[name]
+                left.discard(name)
+            arr = _jax_layout(mod, pname,
+                              param.detach().float().cpu().numpy())
+            path = _flax_path(mname) + (_leaf_name(mod, pname),)
+            if path in shapes:
+                arr = arr.reshape(shapes[path].shape)
+            _set(tree, path, np.ascontiguousarray(arr))
+    if left:
+        raise ValueError(f"export_jax_params: no parameter named "
+                         f"{sorted(left)[:5]} in the module")
+    return tree
 
 
 def module_tree(module: nn.Module) -> dict:

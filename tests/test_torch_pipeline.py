@@ -207,9 +207,9 @@ def test_port_runs_without_jax():
     and a camera-conditioned UNet with a merged motion LoRA; then the CLI
     path from checkpoint files (a tiny SD directory written by
     ``chip_smoke.write_sd_directory``, the loaders, the tokenizer, the T2I
-    first frame, ``__call__``, the GIF) and the drift metrics; and find no
-    module of jax, flax, the JAX package, safetensors, transformers or cv2
-    loaded."""
+    first frame, ``__call__``, the GIF) and the drift metrics, then two
+    train steps through the training loop; and find no module of jax,
+    flax, the JAX package, safetensors, transformers or cv2 loaded."""
     code = textwrap.dedent("""
         import importlib
         import pkgutil
@@ -307,6 +307,27 @@ def test_port_runs_without_jax():
         assert video.shape == (1, 2, 64, 64, 3), video.shape
         assert os.path.exists(os.path.join(result["savedir"], name))
         assert drift_metrics(video, video)["rel_l2"] == 0.0
+        # training: two partitioned steps through the loop, one checkpoint
+        import itertools
+        from followyourclick_tpu_torch.config import NoiseScheduleConfig
+        from followyourclick_tpu_torch.schedulers.ddim import DDIMSchedule
+        from followyourclick_tpu_torch.training import loop
+        from followyourclick_tpu_torch.training import step as ts
+        tcfg = ts.TrainConfig()
+        state = ts.create_partitioned_train_state(pipe.unet, tcfg)
+        latents = ts.encode_batch(pipe.vae, torch.rand(1, 2, 64, 64, 3) * 2
+                                  - 1, torch.Generator().manual_seed(0))
+        batch = ts.TrainBatch(latents, ids, torch.ones(1, 8, 8, 1),
+                              torch.tensor([8.0]), torch.tensor([20.0]))
+        sched = DDIMSchedule.create(NoiseScheduleConfig(), 25)
+        state = loop.train_loop(
+            state, itertools.repeat(batch),
+            lambda s, b, g: ts.train_step_partitioned(
+                s, b, g, unet=pipe.unet, text_encoder=pipe.text_encoder,
+                sched=sched, cfg=tcfg),
+            loop.LoopConfig(output_dir=root, max_train_steps=2,
+                            checkpointing_steps=2, log_every=1))
+        assert state.step == 2
         print("LOADED", sorted(m for m in sys.modules
                                if m.split(".")[0] in (
                                    "jax", "flax", "followyourclick_tpu",
