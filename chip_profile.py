@@ -23,7 +23,14 @@ one-row manifest without an image over the synthetic SD-1.5 directory of
 ``chip_smoke.write_sd_directory`` (exact sampler, 4 steps), one run to warm
 up and one under the profiler, with the load, the T2I first frame and the
 request each timed and given its own device busy time and idle share (the
-device intervals inside that part's host range). For each path it prints
+device intervals inside that part's host range); the click front-end
+(``click``: SAM ``vit_h`` ``set_image`` and one click, then a
+``predict_batch`` of 64 points, with the encoder, the decoder and the
+postprocessing in ranges) and the SD fill (``fill``: the inpaint pipeline
+on the synthetic SD-1.5 directory, one 512² crop, 25 steps, with the text
+encoder, the VAE encode, each UNet step and the VAE decode in ranges),
+each part's device time by the correlation ids of its launches. For each
+path it prints
 the wall time (host clock, ending in ``torch.cuda.synchronize()``), the
 peak device memory of the profiled request, the device's busy time (the union of the kernel,
 memcpy and memset intervals of the trace), the device span, the idle share
@@ -235,6 +242,140 @@ def range_device_us(events, label):
     return us, n
 
 
+def profiled(acts, fn):
+    """``fn()`` once under the profiler: (wall s, peak GiB, trace events,
+    device intervals, busy s)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    events = trace_events(prof)
+    iv = device_intervals(events)
+    if not iv:
+        raise SystemExit("the trace holds no device activity")
+    return wall, peak, events, iv, busy_us(iv) / 1e6
+
+
+def report_parts(label, acts, fn, parts, out_dir):
+    """Profile ``fn`` with each ``(owner, attr)`` of ``parts`` (name →) in a
+    profiler range: the wall, peak memory, busy time and idle share, and
+    each part's calls and device ms (its launches' kernels by correlation
+    id); the kernel table to ``chiprun_out/profile_<label>.txt``."""
+    saved = {}
+    for name, (owner, attr) in parts.items():
+        saved[name] = getattr(owner, attr)
+        setattr(owner, attr, annotated(f"{label}_{name}", saved[name]))
+    try:
+        wall, peak, events, iv, busy = profiled(acts, fn)
+    finally:
+        for name, (owner, attr) in parts.items():
+            setattr(owner, attr, saved[name])
+    names = {f"{label}_{n}" for n in parts}
+    calls = collections.Counter(e["name"] for e in events
+                                if e.get("cat") == "user_annotation"
+                                and e.get("name") in names)
+    us, n = range_device_us(events, lambda e: e["name"] if e.get("cat") ==
+                            "user_annotation" and e["name"] in names
+                            else None)
+    chip_smoke.log(f"[{label}] wall {wall:.3f} s, peak device memory "
+                   f"{peak:.2f} GiB, device busy {busy:.3f} s; idle share of "
+                   f"wall {1 - busy / wall:.3f} ({chip_smoke.CARD})")
+    for name in parts:
+        key = f"{label}_{name}"
+        chip_smoke.log(f"[{label}] {name}: {calls[key]} calls, "
+                       f"{us[key] / 1e3:.2f} ms on the device "
+                       f"({n[key]} launches), {us[key] / 1e6 / wall:.3f} of "
+                       f"the wall")
+    by_name = collections.Counter()
+    for s, e, name in iv:
+        by_name[name] += e - s
+    rows = [f"{t / 1e3:12.2f} ms  {name}" for name, t in
+            by_name.most_common()]
+    (out_dir / f"profile_{label}.txt").write_text("\n".join(rows) + "\n")
+    for row in rows[:10]:
+        chip_smoke.log(f"[{label}] {row[:150]}")
+
+
+def profile_click(acts, out_dir, sam_type="vit_h", device="cuda"):
+    """The click path: ``set_image`` and one click's ``predict`` on the
+    image of ``chip_smoke.phase_click`` (vit_h, fp32), then a
+    ``predict_batch`` of ``chip_smoke.CLICK_BATCH`` points, warm, with the
+    encoder, the decoder (prompt encode + mask decode) and the
+    postprocessing in ranges."""
+    import numpy as np
+
+    from followyourclick_tpu_torch.sam import (
+        Sam,
+        SamPredictor,
+        build_sam,
+        sam_model_registry,
+    )
+    from followyourclick_tpu_torch.sam import predictor as predictor_mod
+
+    h, w = chip_smoke.CLICK_IMAGE
+    predictor = SamPredictor(build_sam(
+        sam_model_registry[sam_type], device,
+        torch.Generator(device=device).manual_seed(0)), device)
+    img = chip_smoke.click_image(0, h, w)
+    rs = np.random.RandomState(0)
+    pts = rs.uniform(0, 1, (chip_smoke.CLICK_BATCH, 1, 2)) * [w, h]
+
+    def click():
+        predictor.set_image(img)
+        predictor.predict(np.array([chip_smoke.CLICK_POINT]), np.array([1]))
+
+    def batch():
+        predictor.predict_batch(pts, np.ones((len(pts), 1), np.int32))
+
+    parts = {"encoder": (Sam, "encode_image"),
+             "decoder": (Sam, "predict_from_embedding"),
+             "postprocess": (predictor_mod, "postprocess_masks")}
+    for label, fn in (("click", click), ("click_batch", batch)):
+        fn()
+        report_parts(label, acts, fn, parts, out_dir)
+
+
+def profile_fill(acts, out_dir, cfg=None, device="cuda"):
+    """The fill path: the SD inpaint pipeline of ``cli.inpaint`` on the
+    synthetic SD-1.5 directory (bf16), one warm call on a 512² crop of the
+    click image with a seeded mask, ``chip_smoke.FILL_STEPS`` steps, CFG
+    7.5, with the text encoder, the VAE encode, each UNet step (the CFG
+    batch) and the VAE decode in ranges."""
+    import numpy as np
+
+    from followyourclick_tpu_torch.cli import inpaint as cli_inpaint
+    from followyourclick_tpu_torch.config import InferenceConfig
+
+    cfg = cfg or InferenceConfig()
+    with tempfile.TemporaryDirectory() as root:
+        sd = os.path.join(root, "sd15")
+        chip_smoke.write_sd_directory(sd, cfg, 0, device)
+        args = cli_inpaint.build_parser().parse_args(
+            ["fill", "--input_img", "unused.png", "--point_coords", "0", "0",
+             "--output_dir", root, "--text_prompt", chip_smoke.FILL_PROMPT,
+             "--sd_model_path", sd, "--device", device])
+        pipe = cli_inpaint.build_sd_pipeline(args, cfg)
+    img = chip_smoke.click_image(0, 512, 512)
+    mask = np.zeros((512, 512), np.uint8)
+    mask[128:384, 160:352] = 255
+
+    def fill():
+        pipe(img, mask, chip_smoke.FILL_PROMPT,
+             steps=chip_smoke.FILL_STEPS,
+             guidance_scale=chip_smoke.FILL_GUIDANCE, seed=0)
+
+    parts = {"text": (pipe.text_encoder, "forward"),
+             "vae_encode": (pipe.vae, "encode"),
+             "unet_step": (pipe.unet, "forward"),
+             "vae_decode": (pipe.vae, "decode")}
+    fill()
+    report_parts("fill", acts, fill, parts, out_dir)
+
+
 # the backward nodes of the kernels' autograd Functions
 GRAD_NODES = ("MotionBlockGradBackward", "LnGegluGradBackward",
               "GegluGradBackward", "TemporalAttentionGradBackward",
@@ -404,7 +545,7 @@ def main(argv=None) -> int:
         f"exact_{chip_smoke.BATCH}clips": (exact, chip_smoke.BATCH, False),
         "exact_ip_plus": (exact, 1, True),
     }
-    chosen = argv or [*paths, "cli"]
+    chosen = argv or [*paths, "cli", "click", "fill"]
     out_dir = Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)
     if chosen[:1] == ["train"]:
@@ -454,11 +595,13 @@ def main(argv=None) -> int:
         (out_dir / f"profile_{label}.txt").write_text("\n".join(rows) + "\n")
         for row in rows[:TOP]:
             chip_smoke.log(f"[{label}] {row[:150]}")
-    if "cli" in chosen:
-        pipe = None
-        gc.collect()
-        torch.cuda.empty_cache()
-        profile_cli(acts)
+    for name, fn in (("cli", profile_cli), ("click", profile_click),
+                     ("fill", profile_fill)):
+        if name in chosen:
+            pipe = None
+            gc.collect()
+            torch.cuda.empty_cache()
+            fn(acts) if name == "cli" else fn(acts, out_dir)
     return 0
 
 

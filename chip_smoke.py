@@ -116,7 +116,20 @@ result line:
    without PIL it writes no GIF, checks the videos the CLI hands to its
    writer (``captured_videos``) and says so).
 
-14. training (:func:`phase_train`), after the earlier pipeline is freed:
+15. the click front-end (:func:`phase_click`): SAM ``vit_h`` (1280 wide,
+   32 deep, 1024², fp32) with seeded weights on a seeded 768x1024 image:
+   ``set_image`` by CUDA events, one click → 3 masks and IoU, a
+   ``predict_batch`` of 64 points, the automatic mask generator at its
+   defaults and with both thresholds at 0, the ``torch.export`` decoder
+   against the eager one, ``vit_t`` card vs CPU; no hand-written kernel
+   launches. Then ``cli.click_mask`` on the image, and its ``mask_0.png``
+   as the ``mask`` column of a one-row manifest of phase 13's CLI (exact,
+   ``--steps``): click → video, launches equal to ``expected_launches``;
+16. fill and replace (:func:`phase_fill`): ``cli.inpaint fill`` and
+   ``replace`` on phase 13's SD-1.5 directory and the ``vit_h`` SAM, 512²
+   crops, 25 steps, CFG 7.5, bf16: exactly 16 ``fused_ln_geglu`` a step and
+   no other hand-written kernel; a tiny fp32 inpaint card vs CPU;
+17. training (:func:`phase_train`), after the earlier pipeline is freed:
    the default ``UNet3DConfig()`` with ``remat_blocks``, the VAE and CLIP
    with seeded random weights (zero-initialised layers given small ones),
    the partitioned state (bf16 frozen leaves, fp32 masters of the 421 M
@@ -145,9 +158,9 @@ Phase 2 also holds flash attention at the level-0 cross-frame shape of one
 clip (``CROSS_FRAME_FLASH``, 8192 keys) and the frame attention at the
 ``temporal_attention_dim_div = 2`` widths.
 
-Phases 5 to 14 are the main paths: each sets every kernel's launch count to
-0 before each request (phase 13: before each CLI run; phase 14: before
-the training loop) and checks the
+Phases 5 to 17 are the main paths: each sets every kernel's launch count to
+0 before each request (phases 13, 15 and 16: before each CLI run and
+before the click phase; phase 17: before the training loop) and checks the
 request's counts against those its :func:`expected_launches` gives at its
 batch (from ``request_plan``: the solver's calls, CFG or not, the
 per-frame pass) and, where given, against the counts worked out by hand
@@ -374,6 +387,10 @@ def routes_unet(unet_config):
             unet_config.motion_module, **ROUTES_MOTION))
 
 
+# the card's name and power limit (nvidia-smi), set by phase_build
+CARD = "card not queried"
+
+
 def log(*a):
     print(*a, flush=True)
 
@@ -448,10 +465,12 @@ OPTIONAL_PACKAGES = ("yaml", "safetensors", "imageio", "PIL", "cv2",
 def phase_build():
     from followyourclick_tpu_torch.ops import _build
 
+    global CARD
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    log(smi.stdout.strip().splitlines()[0])
+    CARD = smi.stdout.strip().splitlines()[0]
+    log(CARD)
     import importlib.util
 
     log("[build] optional packages: " + ", ".join(
@@ -2645,7 +2664,8 @@ def cli_run(label, argv, main_reads_files, write_gifs, expect_clips,
     return got, result, videos, rows, dt
 
 
-def phase_cli(seed, steps, cfg=None, device="cuda", clip=(16, 512, 512)):
+def phase_cli(seed, steps, cfg=None, device="cuda", clip=(16, 512, 512),
+              root=None):
     """Phase 13: the click-to-video CLI from checkpoint files at the default
     widths. A synthetic SD-1.5 directory (:func:`write_sd_directory`) and a
     two-row manifest without images; ``cli.inference`` runs (a) one clip a
@@ -2660,7 +2680,9 @@ def phase_cli(seed, steps, cfg=None, device="cuda", clip=(16, 512, 512)):
     video requests; the videos are finite, in [0, 1], of the expected
     shape; the GIFs exist (when PIL is installed). ``cfg``,
     ``device`` and ``clip`` (frames, height, width) default to the
-    full-width run on the card. Returns the two runs' launches."""
+    full-width run on the card. The SD directory is written under
+    ``root`` (a temporary directory when None), where phases 15 and 16
+    read it (``<root>/sd15``). Returns the two runs' launches."""
     import importlib.util
     import os
     import tempfile
@@ -2705,7 +2727,8 @@ def phase_cli(seed, steps, cfg=None, device="cuda", clip=(16, 512, 512)):
                          f"count {t2i_by_hand}")
     repo = Path(__file__).resolve().parent
     paths = {}
-    with tempfile.TemporaryDirectory() as root:
+    with (tempfile.TemporaryDirectory() if root is None
+          else contextlib.nullcontext(root)) as root:
         t0 = time.perf_counter()
         sd = os.path.join(root, "sd15")
         trees, mm_path = write_sd_directory(sd, cfg, seed, device)
@@ -2805,6 +2828,390 @@ def phase_cli(seed, steps, cfg=None, device="cuda", clip=(16, 512, 512)):
             paths[f"cli_{label.split()[0]}"] = got
             gc.collect()
             torch.cuda.empty_cache()
+    return paths
+
+
+# the click front-end (phases 15 and 16): SAM at 1024², fp32 (SamConfig's
+# default), on a seeded RGB image that is not square (the pad to 1024² and
+# the crop before the last resize)
+CLICK_IMAGE = (768, 1024)  # height, width
+CLICK_POINT = (612.0, 300.0)  # x, y
+CLICK_BATCH = 64  # point prompts in one predict_batch call
+CLICK_DILATE = 15
+# the exported decoder against the eager one, normalised max error
+EXPORT_REL = 1e-5
+# vit_t, fp32, card vs CPU: mask logits, normalised max error (summation
+# order only, TF32 off)
+SAM_TINY_REL = 1e-4
+FILL_STEPS = 25
+FILL_GUIDANCE = 7.5
+FILL_PROMPT = "a red car on the road"
+# a fill / replace step's launches by hand: the motion-free UNet's 16
+# spatial transformer blocks' LN-GEGLU on the CFG batch
+FILL_LAUNCHES_PER_STEP = {"fused_ln_geglu": 16}
+# tiny fp32 inpaint sample, card vs CPU, on the [0, 1] image
+FILL_TINY_ATOL = 2e-3
+
+
+def click_image(seed, height, width):
+    """A seeded (H, W, 3) uint8 RGB picture: a vertical gradient, three
+    filled ellipses and a little noise."""
+    rs = np.random.RandomState(seed)
+    yy, xx = np.mgrid[:height, :width].astype(np.float32)
+    img = np.stack([40 + 120 * yy / height, 80 + 60 * xx / width,
+                    160 - 100 * yy / height], axis=-1)
+    for _ in range(3):
+        cy, cx = rs.uniform(0.2, 0.8) * height, rs.uniform(0.2, 0.8) * width
+        ry = rs.uniform(0.08, 0.25) * height
+        rx = rs.uniform(0.08, 0.25) * width
+        inside = ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1
+        img[inside] = rs.uniform(0, 255, 3)
+    img += rs.normal(0, 4, img.shape)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def event_ms(fn, reps=1):
+    """Device milliseconds of each of ``reps`` calls by CUDA events (with
+    the host's enqueue time); returns (times, last result)."""
+    times, out = [], None
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return times, out
+
+
+def launches_zeroed():
+    """Set every kernel's launch count to 0; return the wrappers."""
+    wrappers = {**kernel_wrappers(), **unrouted_wrappers()}
+    for fn in wrappers.values():
+        fn.launches = 0
+    return wrappers
+
+
+def check_records(label, records, shape):
+    """AMG records: the keys, a box inside the image, the area its mask's,
+    sorted by area."""
+    h, w = shape
+    for r in records:
+        seg = r["segmentation"]
+        x, y, bw, bh = r["bbox"]
+        if seg.shape != (h, w) or int(seg.sum()) != r["area"] or not (
+                0 <= x <= x + bw <= w and 0 <= y <= y + bh <= h) or not (
+                np.isfinite(r["predicted_iou"])
+                and 0 <= r["stability_score"] <= 1):
+            raise SystemExit(f"[click] {label}: a malformed record {r['bbox']}"
+                             f" area {r['area']}")
+    areas = [r["area"] for r in records]
+    if areas != sorted(areas, reverse=True):
+        raise SystemExit(f"[click] {label}: records not sorted by area")
+
+
+def phase_click(seed, root, steps, cfg=None, device="cuda",
+                sam_type="vit_h", image_size=CLICK_IMAGE,
+                clip=(16, 512, 512)):
+    """Phase 15: the click front-end. SAM ``sam_type`` (fp32, seeded weights
+    drawn on the card) on :func:`click_image`: ``set_image`` (cold, then
+    warm, by CUDA events), one click → 3 masks and IoU, ``predict_batch``
+    of ``CLICK_BATCH`` points, the automatic mask generator at its
+    defaults and with both thresholds at 0 (so the boxes and the NMS run on
+    what random weights give), the ``torch.export`` decoder reloaded
+    against the eager one (``EXPORT_REL``), ``vit_t`` card vs CPU
+    (``SAM_TINY_REL``); no hand-written kernel may launch. Then the whole
+    journey: ``cli.click_mask`` on the image as a PNG (its ``mask_0.png``
+    must equal the dilated first mask of the click above), and that mask
+    as the ``mask`` column of a one-row manifest of ``cli.inference`` on
+    phase 13's SD-1.5 directory under ``root`` (exact, ``steps``), whose
+    launches must equal ``expected_launches``. Returns the launches by
+    path."""
+    from pathlib import Path
+
+    from PIL import Image
+
+    from followyourclick_tpu_torch.cli import click_mask
+    from followyourclick_tpu_torch.config import InferenceConfig
+    from followyourclick_tpu_torch.models.unet3d import UNet3DConditionModel
+    from followyourclick_tpu_torch.pipelines.animation import SampleSpec
+    from followyourclick_tpu_torch.sam import (
+        SamAutomaticMaskGenerator,
+        SamPredictor,
+        build_sam,
+        sam_model_registry,
+    )
+    from followyourclick_tpu_torch.sam.export import (
+        build_decoder_fn,
+        export_decoder,
+        load_decoder,
+    )
+    from followyourclick_tpu_torch.utils.image_ops import dilate
+
+    cfg = cfg or InferenceConfig()
+    height, width = image_size
+    wrappers = launches_zeroed()
+    torch.cuda.reset_peak_memory_stats()
+    sam_cfg = sam_model_registry[sam_type]
+    t0 = time.perf_counter()
+    model = build_sam(sam_cfg, device, torch.Generator(
+        device=device).manual_seed(seed))
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    log(f"[click] {sam_type}: {n / 1e6:.1f} M parameters, fp32, seeded "
+        f"weights on the card in {time.perf_counter() - t0:.2f} s")
+    predictor = SamPredictor(model, device)
+    img = click_image(seed, height, width)
+    enc, _ = event_ms(lambda: predictor.set_image(img), reps=3)
+    emb = predictor.get_image_embedding()
+    g = sam_cfg.image_embedding_size
+    if tuple(emb.shape) != (1, sam_cfg.prompt_embed_dim, *g) \
+            or not bool(torch.isfinite(emb).all()):
+        raise SystemExit(f"[click] embedding {tuple(emb.shape)} not finite "
+                         "or of the wrong shape")
+    dec, (masks, iou, low) = event_ms(lambda: predictor.predict(
+        np.array([CLICK_POINT]), np.array([1])), reps=3)
+    if masks.shape != (3, height, width) or masks.dtype != bool \
+            or iou.shape != (3,) or not np.isfinite(iou).all() \
+            or low.shape != (3, 4 * g[0], 4 * g[1]):
+        raise SystemExit(f"[click] predict: masks {masks.shape} iou "
+                         f"{iou} low-res {low.shape}")
+    rs = np.random.RandomState(seed)
+    pts = rs.uniform(0, 1, (CLICK_BATCH, 1, 2)) * [width, height]
+    batch_ms, (bm, biou) = event_ms(lambda: predictor.predict_batch(
+        pts, np.ones((CLICK_BATCH, 1), np.int32)), reps=2)
+    if bm.shape != (CLICK_BATCH, 3, height, width) \
+            or not np.isfinite(biou).all():
+        raise SystemExit(f"[click] predict_batch: {bm.shape}")
+    log(f"[click] {sam_type} {height}x{width}: set_image (encode) "
+        f"{' / '.join(f'{t:.2f}' for t in enc)} ms (cold / warm), one click "
+        f"(decode + postprocess, to the host) "
+        f"{' / '.join(f'{t:.2f}' for t in dec)} ms, predict_batch of "
+        f"{CLICK_BATCH} {' / '.join(f'{t:.2f}' for t in batch_ms)} ms; "
+        f"IoU {np.round(iou, 4).tolist()}, mask areas "
+        f"{masks.sum(axis=(1, 2)).tolist()} ({CARD})")
+    for label, kw in (("defaults", {}),
+                      ("thresholds 0", dict(pred_iou_thresh=0.0,
+                                            stability_score_thresh=0.0))):
+        amg = SamAutomaticMaskGenerator(predictor, **kw)
+        times, records = event_ms(lambda: amg.generate(img))
+        check_records(label, records, (height, width))
+        if kw and not records:
+            raise SystemExit("[click] AMG with thresholds 0 kept nothing")
+        log(f"[click] AMG {label} (32x32 points, batches of 64): "
+            f"{len(records)} records in {times[0]:.1f} ms; largest areas "
+            f"{[r['area'] for r in records[:5]]} ({CARD})")
+    blob = export_decoder(model, (height, width))
+    exported = load_decoder(blob)
+    eager = build_decoder_fn(model, (height, width))
+    coords = predictor.transform.apply_coords(
+        np.array([[CLICK_POINT, (0.0, 0.0)]]), (height, width))
+    args = (emb, torch.from_numpy(coords).to(device),
+            torch.tensor([[1.0, -1.0]], device=device),
+            torch.zeros(1, 1, 4 * g[0], 4 * g[1], device=device),
+            torch.zeros(1, 1, 1, 1, device=device))
+    with torch.inference_mode():
+        want = eager(*args)
+        got = exported(*args)
+    errs = [float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+            for a, b in zip(got, want)]
+    log(f"[click] torch.export decoder: {len(blob) / 2 ** 20:.2f} MiB, "
+        f"reloaded vs eager (masks, IoU, low-res) "
+        f"{['%.3e' % e for e in errs]} (tol {EXPORT_REL:g})")
+    if max(errs) > EXPORT_REL or got[0].shape != (1, 1, height, width):
+        raise SystemExit("[click] the exported decoder disagrees")
+    tiny = sam_model_registry["vit_t"]
+    small = click_image(seed + 1, 96, 80)
+    logits = []
+    for dev in ("cpu", device):
+        p = SamPredictor(build_sam(tiny, dev, torch.Generator().manual_seed(
+            seed)), dev)
+        p.set_image(small)
+        logits.append(p.predict(np.array([[40.0, 50.0]]), np.array([1]),
+                                return_logits=True)[0])
+    err = float(np.abs(logits[1] - logits[0]).max()
+                / np.abs(logits[0]).max())
+    log(f"[click] vit_t fp32 card vs CPU: logits {err:.3e} of their max "
+        f"(tol {SAM_TINY_REL:g})")
+    if err > SAM_TINY_REL:
+        raise SystemExit("[click] vit_t card and CPU disagree")
+    got = {name: fn.launches for name, fn in wrappers.items()}
+    log(f"[click] peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; launches "
+        f"{got} ({CARD})")
+    if any(got.values()):
+        raise SystemExit(f"[click] a hand-written kernel launched: {got}")
+    paths = {"click": got}
+    want_mask = dilate(masks[0].astype(np.uint8) * 255, CLICK_DILATE)
+    del predictor, model, eager, exported, emb, args
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the journey: click → mask file → click-to-video
+    frames, vh, vw = clip
+    sd = os.path.join(root, "sd15")
+    png = os.path.join(root, "click.png")
+    Image.fromarray(img).save(png)
+    t0 = time.perf_counter()
+    out = click_mask.main([
+        "--input_img", png, "--point_coords", *map(str, CLICK_POINT),
+        "--output_dir", os.path.join(root, "masks"), "--sam_model_type",
+        sam_type, "--dilate_kernel_size", str(CLICK_DILATE), "--seed",
+        str(seed), "--device", device])
+    torch.cuda.synchronize()
+    mask_png = os.path.join(out["out_dir"], "mask_0.png")
+    mask = np.asarray(Image.open(mask_png))
+    log(f"[click] cli.click_mask: {out['files']} in "
+        f"{time.perf_counter() - t0:.2f} s (build included); mask_0.png "
+        f"equals the click's dilated mask: {np.array_equal(mask, want_mask)}")
+    if not np.array_equal(mask, want_mask):
+        raise SystemExit("[click] cli.click_mask's mask_0.png is not the "
+                         "predictor's dilated mask")
+    manifest = os.path.join(root, "click.csv")
+    with open(manifest, "w") as f:
+        f.write(f"prompt,image,mask\n{CLI_PROMPTS[0]},{png},{mask_png}\n")
+    prompt_file = os.path.join(root, "click.yaml")
+    with open(prompt_file, "w") as f:
+        json.dump({"click": {"motion_module": [os.path.join(
+            sd, "motion_module.ckpt")], "steps": steps,
+            "guidance_scale": 8.0, "seed": [seed]}}, f)
+    repo = Path(__file__).resolve().parent
+    import importlib.util
+
+    reads = all(importlib.util.find_spec(m) for m in ("yaml", "PIL")) \
+        and cfg == InferenceConfig()
+    argv = ["--pretrained_model_path", sd, "--inference_config",
+            str(repo / "configs" / "inference" / "inference.yaml"),
+            "--config", prompt_file, "--file", manifest, "--seed", str(seed),
+            "--device", device, "--L", str(frames), "--H", str(vh), "--W",
+            str(vw), "--batch_size", "1", "--output_path",
+            os.path.join(root, "out_click")]
+    got, result, videos, rows, _ = cli_run("click row", argv, reads, True, 1,
+                                           cfg)
+    with torch.device("meta"):
+        meta_unet = UNet3DConditionModel(cfg.unet)
+    spec = SampleSpec(video_length=frames, height=vh, width=vw,
+                      num_inference_steps=steps)
+    want = {**dict.fromkeys({**KERNELS, **UNROUTED}, 0),
+            **expected_launches(meta_unet, spec, torch.bfloat16, 1)}
+    t2i_requests = [r for r in rows if r[0] == "sample"]
+    if got != want or t2i_requests:
+        raise SystemExit(f"[click row] launches {got}, want {want}; T2I "
+                         f"requests {t2i_requests} (the row has an image)")
+    (video,) = videos.values()
+    if video.shape != (1, frames, vh, vw, 3) or not np.isfinite(video).all() \
+            or video.min() < 0 or video.max() > 1:
+        raise SystemExit(f"[click row] video {video.shape}")
+    log(f"[click row] click → mask_0.png → {result['files']}: min "
+        f"{video.min():.4f} max {video.max():.4f} std {video.std():.4f}")
+    paths["click_to_video"] = got
+    return paths
+
+
+def phase_fill(seed, root, cfg=None, device="cuda", sam_type="vit_h",
+               image_size=CLICK_IMAGE, steps=FILL_STEPS, tiny_size=64):
+    """Phase 16: ``cli.inpaint fill`` and ``replace`` on phase 13's SD-1.5
+    directory under ``root`` and SAM ``sam_type`` (seeded), the image of
+    phase 15, ``steps`` steps at CFG 7.5 on 512² crops: each candidate's
+    pipeline call timed, the launches exactly ``FILL_LAUNCHES_PER_STEP`` a
+    step, outputs of the image's shape, a fill unchanged outside its mask;
+    then a tiny fp32 inpaint ``sample`` card vs CPU (``FILL_TINY_ATOL``).
+    Returns the launches by path."""
+    from PIL import Image
+
+    from followyourclick_tpu_torch.cli import inpaint as cli_inpaint
+    from followyourclick_tpu_torch.config import InferenceConfig
+    from followyourclick_tpu_torch.pipelines.inpaint import InpaintPipeline
+
+    cfg = cfg or InferenceConfig()
+    height, width = image_size
+    png = os.path.join(root, "click.png")
+    if not os.path.exists(png):
+        Image.fromarray(click_image(seed, height, width)).save(png)
+    img = np.asarray(Image.open(png).convert("RGB"))
+    calls = []
+    real_call = InpaintPipeline.__call__
+
+    def timed_call(self, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_call(self, *a, **kw)
+        torch.cuda.synchronize()
+        calls.append(time.perf_counter() - t0)
+        return out
+
+    paths = {}
+    for command, key in (("fill", "filled"), ("replace", "replaced")):
+        argv = [command, "--input_img", png, "--point_coords",
+                *map(str, CLICK_POINT), "--output_dir",
+                os.path.join(root, "out_" + command), "--sam_model_type",
+                sam_type, "--seed", str(seed), "--device", device,
+                "--sd_model_path", os.path.join(root, "sd15"),
+                "--text_prompt", FILL_PROMPT, "--steps", str(steps)]
+        wrappers = launches_zeroed()
+        calls.clear()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        InpaintPipeline.__call__ = timed_call
+        try:
+            result = cli_inpaint.main(argv, inference_config=cfg)
+        finally:
+            InpaintPipeline.__call__ = real_call
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = {name: fn.launches for name, fn in wrappers.items()}
+        n = len(result["scores"])
+        want = {name: n * steps * FILL_LAUNCHES_PER_STEP.get(name, 0)
+                for name in wrappers}
+        log(f"[{command}] {dt:.2f} s in all (SAM and SD load included); "
+            f"{n} candidates, pipeline calls "
+            f"{' / '.join(f'{t:.2f}' for t in calls)} s ({steps} steps, CFG "
+            f"{FILL_GUIDANCE}, 512² crops, bf16 on the card); peak device "
+            f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+            f"launches {got} ({CARD})")
+        if got != want:
+            raise SystemExit(f"[{command}] launches {got}, want {want}")
+        for i in range(n):
+            out = np.asarray(Image.open(os.path.join(
+                result["out_dir"], f"{key}_with_mask_{i}.png")))
+            mask = np.asarray(Image.open(os.path.join(
+                result["out_dir"], f"mask_{i}.png")))
+            if out.shape != img.shape or mask.shape != img.shape[:2]:
+                raise SystemExit(f"[{command}] output {i}: {out.shape}")
+            if command == "fill" and not np.array_equal(out[mask == 0],
+                                                         img[mask == 0]):
+                raise SystemExit(f"[fill] output {i} changed outside its "
+                                 "mask")
+            log(f"[{command}]   {key}_with_mask_{i}.png: mask area "
+                f"{int((mask > 0).sum())}, mean |out - in| "
+                f"{np.abs(out.astype(int) - img).mean():.2f}")
+        paths[command] = got
+    # the tiny configuration in fp32, card vs CPU, the same noise
+    tiny = cli_inpaint.tiny_inference_config()
+    args = cli_inpaint.build_parser().parse_args(
+        ["fill", "--input_img", png, "--point_coords", "0", "0",
+         "--output_dir", root, "--text_prompt", FILL_PROMPT,
+         "--device", "cpu", "--seed", str(seed)])
+    cpu = cli_inpaint.build_sd_pipeline(args)
+    card = InpaintPipeline(tiny, copy.deepcopy(cpu.unet),
+                           copy.deepcopy(cpu.vae),
+                           copy.deepcopy(cpu.text_encoder), device=device)
+    gen = torch.Generator().manual_seed(seed)
+    image = torch.rand(1, tiny_size, tiny_size, 3, generator=gen)
+    mask = (torch.rand(1, tiny_size // 8, tiny_size // 8, 1, generator=gen)
+            > 0.5).float()
+    noise = torch.randn(1, tiny_size // 8, tiny_size // 8, 4, generator=gen)
+    ids = torch.from_numpy(cli_inpaint.HashTokenizer()(
+        [FILL_PROMPT, ""]).input_ids)
+    outs = [p.sample(image, mask, ids[:1], ids[1:], 3, FILL_GUIDANCE,
+                     noise=noise).cpu() for p in (cpu, card)]
+    err = float((outs[1] - outs[0]).abs().max())
+    log(f"[fill] tiny fp32 inpaint, card vs CPU: {err:.3e} on [0, 1] (tol "
+        f"{FILL_TINY_ATOL:g})")
+    if err > FILL_TINY_ATOL or not bool(torch.isfinite(outs[1]).all()):
+        raise SystemExit("[fill] the tiny inpaint disagrees card vs CPU")
     return paths
 
 
@@ -3032,7 +3439,7 @@ def motion_module_cosines(got, want):
 
 
 def phase_train(seed, cfg=None, device="cuda", clip=TRAIN_CLIP):
-    """The trainer at full width (see the module docstring, phase 14);
+    """The trainer at full width (see the module docstring, phase 17);
     returns the kernels' launch counts over the uninterrupted run. ``cfg``,
     ``device``, ``clip``: a tiny rehearsal on the CPU (with ``torch.cuda``'s
     events stubbed)."""
@@ -3193,12 +3600,23 @@ def phase_train(seed, cfg=None, device="cuda", clip=TRAIN_CLIP):
     return counts
 
 
+def timed(fn):
+    """``fn`` with a log line of the seconds it took."""
+    def run(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        log(f"[smoke] {fn.__name__}: {time.perf_counter() - t0:.1f} s")
+        return out
+    return run
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=4,
                     help="DDIM steps per exact full-width request (4)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
               file=sys.stderr)
@@ -3212,13 +3630,13 @@ def main(argv=None) -> int:
         apply_schedule,
     )
 
-    phase_build()
-    stats = phase_kernels(args.seed)
-    phase_train_kernels(args.seed)
-    phase_tiny(args.seed)
-    phase_tiny_options(args.seed)
+    timed(phase_build)()
+    stats = timed(phase_kernels)(args.seed)
+    timed(phase_train_kernels)(args.seed)
+    timed(phase_tiny)(args.seed)
+    timed(phase_tiny_options)(args.seed)
     pipe = full_pipeline(args.seed)
-    phase_evaluation(pipe, args.seed)
+    timed(phase_evaluation)(pipe, args.seed)
     exact = SampleSpec(num_inference_steps=args.steps)
     serving = apply_schedule(SampleSpec(num_inference_steps=SERVING_STEPS),
                              SERVING_SCHEDULE)
@@ -3229,39 +3647,48 @@ def main(argv=None) -> int:
     batched_by_hand = {**exact_by_hand, "flash_attention":
                        BATCHED_FLASH_PER_EXACT_STEP * args.steps}
     paths = {
-        "exact": phase_requests(pipe, exact, "full", args.seed,
-                                exact_by_hand)[0],
-        SERVING_SCHEDULE: phase_requests(pipe, serving, "serving", args.seed,
-                                         SERVING_LAUNCHES)[0],
-        f"exact_{BATCH}clips": phase_requests(
+        "exact": timed(phase_requests)(pipe, exact, "full", args.seed,
+                                       exact_by_hand)[0],
+        SERVING_SCHEDULE: timed(phase_requests)(
+            pipe, serving, "serving", args.seed, SERVING_LAUNCHES)[0],
+        f"exact_{BATCH}clips": timed(phase_requests)(
             pipe, exact, "batched exact", args.seed, batched_by_hand,
             BATCH)[0],
-        f"{SERVING_SCHEDULE}_{BATCH}clips": phase_requests(
+        f"{SERVING_SCHEDULE}_{BATCH}clips": timed(phase_requests)(
             pipe, serving, "batched serving", args.seed,
             BATCHED_SERVING_LAUNCHES, BATCH)[0],
     }
-    paths.update(phase_sampler_options(pipe, args.seed))
+    paths.update(timed(phase_sampler_options)(pipe, args.seed))
     # one full-width pipeline at a time
     del pipe
     gc.collect()
     torch.cuda.empty_cache()
-    paths["camera_lora_exact"] = phase_camera(args.seed, exact,
-                                              exact_by_hand)
+    paths["camera_lora_exact"] = timed(phase_camera)(args.seed, exact,
+                                                     exact_by_hand)
     gc.collect()
     torch.cuda.empty_cache()
-    paths["exact_ip_plus"] = phase_ip(args.seed, exact, exact_by_hand)
+    paths["exact_ip_plus"] = timed(phase_ip)(args.seed, exact, exact_by_hand)
     gc.collect()
     torch.cuda.empty_cache()
-    paths.update(phase_t5(args.seed, exact, exact_by_hand, serving))
+    paths.update(timed(phase_t5)(args.seed, exact, exact_by_hand, serving))
     gc.collect()
     torch.cuda.empty_cache()
-    paths["routes_evaluation"] = phase_routes(args.seed)
+    paths["routes_evaluation"] = timed(phase_routes)(args.seed)
     gc.collect()
     torch.cuda.empty_cache()
-    paths.update(phase_cli(args.seed, args.steps))
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as root:
+        paths.update(timed(phase_cli)(args.seed, args.steps, root=root))
+        gc.collect()
+        torch.cuda.empty_cache()
+        paths.update(timed(phase_click)(args.seed, root, args.steps))
+        gc.collect()
+        torch.cuda.empty_cache()
+        paths.update(timed(phase_fill)(args.seed, root))
     gc.collect()
     torch.cuda.empty_cache()
-    paths["train"] = phase_train(args.seed)
+    paths["train"] = timed(phase_train)(args.seed)
     for name in KERNELS:
         if not sum(launches[name] for launches in paths.values()):
             raise SystemExit(f"{name} was never launched on a main path")
@@ -3300,6 +3727,7 @@ def main(argv=None) -> int:
                 **({"cross_frame": stats[name]["cross_frame"]}
                    if "cross_frame" in stats[name] else {})}
                for name, (src, rep) in {**KERNELS, **UNROUTED}.items()]
+    log(f"[smoke] {time.perf_counter() - t_start:.1f} s in all ({CARD})")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,2 +1,3 @@
-"""Command-line entry points: ``inference`` (click-to-video) and
-``animate`` (the prompt-YAML gallery sampler)."""
+"""Command-line entry points: ``inference`` (click-to-video), ``animate``
+(the prompt-YAML gallery sampler), ``click_mask`` (click → SAM masks) and
+``inpaint`` (click → SD fill / replace)."""

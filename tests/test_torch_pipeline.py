@@ -208,12 +208,18 @@ def test_port_runs_without_jax():
     path from checkpoint files (a tiny SD directory written by
     ``chip_smoke.write_sd_directory``, the loaders, the tokenizer, the T2I
     first frame, ``__call__``, the GIF) and the drift metrics, then two
-    train steps through the training loop; and find no module of jax,
-    flax, the JAX package, safetensors, transformers or cv2 loaded."""
+    train steps through the training loop; then the click front-end: the
+    click-mask CLI and a tiny ``inpaint fill`` (a ``vit_t`` SAM with
+    seeded weights); and find no module of jax, flax, the JAX package,
+    safetensors, transformers or cv2 loaded. jax, flax, the JAX package
+    and cv2 are banned from the start (``sys.modules[name] = None``: an
+    import of them raises)."""
     code = textwrap.dedent("""
         import importlib
         import pkgutil
         import sys
+        for banned in ("jax", "flax", "followyourclick_tpu", "cv2"):
+            sys.modules[banned] = None
         import torch
         import followyourclick_tpu_torch as port
         torch.set_num_threads(1)  # beside the suite's other workers
@@ -328,8 +334,24 @@ def test_port_runs_without_jax():
             loop.LoopConfig(output_dir=root, max_train_steps=2,
                             checkpointing_steps=2, log_every=1))
         assert state.step == 2
-        print("LOADED", sorted(m for m in sys.modules
-                               if m.split(".")[0] in (
+        # the click front-end: click -> masks, and a tiny SD fill
+        import numpy as np
+        from PIL import Image
+        from followyourclick_tpu_torch.cli import click_mask
+        from followyourclick_tpu_torch.cli import inpaint as inpaint_cli
+        png = os.path.join(root, "scene.png")
+        Image.fromarray((np.random.RandomState(0).rand(48, 64, 3) * 255
+                         ).astype(np.uint8)).save(png)
+        click = ["--input_img", png, "--point_coords", "30", "20",
+                 "--output_dir", root, "--sam_model_type", "vit_t",
+                 "--device", "cpu"]
+        out = click_mask.main(click)
+        assert out["files"] == ["mask_0.png", "mask_1.png", "mask_2.png"]
+        out = inpaint_cli.main(["fill", *click, "--text_prompt", "a cat",
+                                "--steps", "1"])
+        assert len(out["files"]) == 6, out
+        print("LOADED", sorted(m for m, mod in sys.modules.items()
+                               if mod is not None and m.split(".")[0] in (
                                    "jax", "flax", "followyourclick_tpu",
                                    "safetensors", "transformers", "cv2")))
     """)
