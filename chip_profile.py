@@ -57,25 +57,10 @@ import numpy as np
 import torch
 
 import chip_smoke
+from chip_smoke import busy_us, device_intervals, trace_events
 
 EXACT_STEPS = 4
 TOP = 30
-DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
-
-
-def trace_events(prof):
-    """The events of the profiler's Chrome trace."""
-    with tempfile.TemporaryDirectory() as d:
-        path = os.path.join(d, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            return json.load(f)["traceEvents"]
-
-
-def device_intervals(events):
-    """(start µs, end µs, name) of every device activity in the trace."""
-    return [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
-            if e.get("cat") in DEVICE_CATS and "dur" in e]
 
 
 def annotated(name, fn):
@@ -100,16 +85,6 @@ def by_wrapper(events):
         events, lambda e: e["name"] if e.get("cat") == "user_annotation"
         and e["name"] in names else None)
     return calls, us, n
-
-
-def busy_us(intervals):
-    """Length of the union of the intervals."""
-    total, end = 0.0, float("-inf")
-    for s, e, _ in sorted(intervals):
-        if e > end:
-            total += e - max(s, end)
-            end = e
-    return total
 
 
 def request(pipe, spec, seed, batch=1):

@@ -143,13 +143,29 @@ result line:
    against ``TRAIN_LAUNCHES``), and a fresh state resumed from that
    checkpoint to the same step, which must equal the uninterrupted state
    bit for bit; every trainable leaf must have moved and every frozen one
-   be bit-identical to its start.
+   be bit-identical to its start;
+18. LaMa removal (:func:`phase_remove`): seeded big-LaMa (51 M, fp32),
+   its BN statistics calibrated on one seeded input, written as a
+   Lightning-shaped ``best.ckpt``; ``cli.inpaint remove --lama_ckpt`` with
+   the ``vit_h`` SAM on phase 15's image (3 masks and removals read back,
+   each equal to the image outside its mask); one generator call at
+   768x1024 and 512² by CUDA events, its operations counted, one under
+   the profiler (FFT share, idle share); 512² card vs CPU
+   (``LAMA_CARD_CPU_ATOL``); ``cli.app.ClickSession`` upload, click,
+   remove; no hand-written kernel launches;
+19. LaMa's GAN training (:func:`phase_lama_train`): big-LaMa,
+   ``NLayerDiscriminator()`` and ResNet-PL on a seeded dilated ResNet-50,
+   three alternations at batch 4 of 256² by CUDA events: every loss term
+   finite, every parameter moved, the generator's BN statistics changed
+   and the discriminator's bit-identical; no launches; one tiny
+   alternation card vs CPU (``LAMA_TINY_REL``).
 
 Phase 2 is followed by the training kernels' checks
 (:func:`phase_train_kernels`): the motion block and LN-GEGLU at the
 training forward's shapes (``TRAIN_MOTION_SHAPES``, ``TRAIN_GEGLU_SHAPES``:
 row and position counts that are no powers of two) against their plain
-versions, and every autograd Function's backward against autograd through
+versions, and every autograd Function's backward (the unrouted
+GroupNorm's and LN-cross-attention's included) against autograd through
 the plain version.
 
 Phase 1 also prints which optional packages import (``OPTIONAL_PACKAGES``).
@@ -158,9 +174,10 @@ Phase 2 also holds flash attention at the level-0 cross-frame shape of one
 clip (``CROSS_FRAME_FLASH``, 8192 keys) and the frame attention at the
 ``temporal_attention_dim_div = 2`` widths.
 
-Phases 5 to 17 are the main paths: each sets every kernel's launch count to
+Phases 5 to 19 are the main paths: each sets every kernel's launch count to
 0 before each request (phases 13, 15 and 16: before each CLI run and
-before the click phase; phase 17: before the training loop) and checks the
+before the click phase; phase 17: before the training loop; phases 18-19:
+at their start) and checks the
 request's counts against those its :func:`expected_launches` gives at its
 batch (from ``request_plan``: the solver's calls, CFG or not, the
 per-frame pass) and, where given, against the counts worked out by hand
@@ -3265,8 +3282,12 @@ def phase_train_kernels(seed):
     """The two kernels of the training forward at its shapes (bf16, both
     gate forms) against their plain versions, and every autograd Function's
     backward against autograd through the plain version: the motion block
-    and LN-GEGLU at the training shapes, the other four at one shape
+    and LN-GEGLU at the training shapes, the other six at one shape
     each."""
+    from followyourclick_tpu_torch.ops.cross_attention import (
+        fused_ln_cross_attention,
+        ln_cross_attention_ref,
+    )
     from followyourclick_tpu_torch.ops.flash_attention import (
         flash_attention,
     )
@@ -3275,6 +3296,10 @@ def phase_train_kernels(seed):
         fused_ln_geglu,
         geglu_ref,
         ln_geglu_ref,
+    )
+    from followyourclick_tpu_torch.ops.groupnorm import (
+        fused_group_norm,
+        group_norm_ref,
     )
     from followyourclick_tpu_torch.ops.motion_block import (
         fused_motion_block,
@@ -3359,6 +3384,23 @@ def phase_train_kernels(seed):
     grad_check("flash_attention (4, 1792, 8, 40)", flash_attention,
                temporal_attention_ref, q,
                randn(gen, (4, 1792, 8, 40), 1.0, bf), failures)
+    # the unrouted GroupNorm (+SiLU) and LN-cross-attention at a 320-wide
+    # UNet site (77 text keys)
+    c, n = 320, 4096
+    ls = [leaf((2, n, c), 1.0, 2.0), leaf((c,), 0.05, 1.0),
+          leaf((c,), 0.05)]
+    grad_check(f"fused_group_norm (2, {n}, {c}) silu",
+               lambda *a: fused_group_norm(*a, 32, 1e-5, "silu"),
+               lambda *a: group_norm_ref(*a, 32, 1e-5, "silu"), ls,
+               randn(gen, (2, n, c), 1.0, bf), failures)
+    ls = [leaf((2, n, c), 1.0), leaf((2, 77, 768), 1.0),
+          leaf((c,), 0.05, 1.0), leaf((c,), 0.05), leaf((c, c), c ** -0.5),
+          leaf((c, 768), 768 ** -0.5), leaf((c, 768), 768 ** -0.5),
+          leaf((c, c), c ** -0.5), leaf((c,), 0.02)]
+    grad_check(f"fused_ln_cross_attention (2, {n}, {c}) 77 keys",
+               lambda *a: fused_ln_cross_attention(*a, heads=8),
+               lambda *a: ln_cross_attention_ref(*a, heads=8), ls,
+               randn(gen, (2, n, c), 1.0, bf), failures)
     torch.cuda.synchronize()
     if failures:
         raise SystemExit(f"training kernel checks failed: {failures}")
@@ -3600,6 +3642,407 @@ def phase_train(seed, cfg=None, device="cuda", clip=TRAIN_CLIP):
     return counts
 
 
+# phase 18: LaMa removal. The big-LaMa generator's times at two sizes, its
+# card-vs-CPU check at 512² (fp32, TF32 off: max |Δ| of the sigmoid output)
+REMOVE_SIZES = ((768, 1024), (512, 512))
+REMOVE_REPS = 5
+LAMA_CARD_CPU_ATOL = 1e-3
+# phase 19: LaMa's GAN training at the LaMa paper's 256² crops; the batch is
+# a choice (the paper's is larger and spread over cards)
+LAMA_TRAIN_SIZE = 256
+LAMA_TRAIN_BATCH = 4
+LAMA_TRAIN_STEPS = 3
+# one alternation of a tiny config, card vs CPU: losses relative, each
+# gradient and BN statistic against the largest of its network
+LAMA_TINY_REL = 1e-4
+LAMA_TINY = dict(ngf=8, n_downsampling=2, n_blocks=2)
+
+
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def trace_events(prof):
+    """The events of the profiler's Chrome trace."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            return json.load(f)["traceEvents"]
+
+
+def device_intervals(events):
+    """(start µs, end µs, name) of every device activity in the trace."""
+    return [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+            if e.get("cat") in DEVICE_CATS and "dur" in e]
+
+
+def busy_us(intervals):
+    """Length of the union of the intervals."""
+    total, end = 0.0, float("-inf")
+    for s, e, _ in sorted(intervals):
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total
+
+
+def device_profile(fn):
+    """``fn()`` once under ``torch.profiler`` (CPU and CUDA activities):
+    (wall s, device busy s, device seconds by kernel name)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = device_intervals(trace_events(prof))
+    if not spans:
+        raise SystemExit("the trace holds no device activity")
+    by_name = collections.Counter()
+    for s, e, name in spans:
+        by_name[name] += (e - s) / 1e6
+    return wall, busy_us(spans) / 1e6, by_name
+
+
+def calibrate_bn_(generator, x):
+    """Set every BN's running statistics to those of one train-mode pass
+    on ``x``, as a trained network's are its data's. Seeded statistics
+    (mean ≈ 0, variance ≈ 1) do not normalise what seeded convs give them:
+    big-LaMa's residual stream then grows block by block, to logits in the
+    thousands, where fp32 itself is far from fp64 on the sigmoid output
+    (:func:`phase_remove` prints both, before and after)."""
+    bns = [m for m in generator.modules()
+           if isinstance(m, torch.nn.BatchNorm2d)]
+    momenta = [m.momentum for m in bns]
+    for m in bns:
+        m.momentum = 1.0
+    generator.train()
+    with torch.no_grad():
+        generator(x)
+    for m, momentum in zip(bns, momenta):
+        m.momentum = momentum
+    return generator.eval()
+
+
+def lama_checkpoint(path, generator):
+    """``generator`` as a Lightning-shaped big-LaMa ``best.ckpt``: its
+    state under ``generator.``, a few discriminator and loss keys beside it
+    (which the loader drops) and plain metadata."""
+    state = {"generator." + k: v.cpu() for k, v in
+             generator.state_dict().items()}
+    state["discriminator.model0.0.weight"] = torch.zeros(64, 3, 4, 4)
+    state["discriminator.model0.0.bias"] = torch.zeros(64)
+    state["loss_resnet_pl.impl.conv1.weight"] = torch.zeros(64, 3, 3, 3)
+    torch.save({"epoch": 40, "global_step": 1000000,
+                "pytorch-lightning_version": "1.2.9", "state_dict": state},
+               path)
+
+
+def phase_remove(seed, root, device="cuda", sam_type="vit_h",
+                 image_size=CLICK_IMAGE, config=None, sizes=REMOVE_SIZES,
+                 cpu_size=512):
+    """Phase 18: LaMa removal. The seeded big-LaMa generator (``config``,
+    default ``LamaConfig()``), its BN statistics calibrated on a seeded
+    input (:func:`calibrate_bn_`), written as a Lightning-shaped
+    ``best.ckpt``; ``cli.inpaint remove --lama_ckpt`` on
+    :func:`click_image` with SAM ``sam_type``: three masks and three
+    removals, read back, each removal equal to the image outside its mask;
+    one generator call timed warm by CUDA events at ``sizes`` (median of
+    ``REMOVE_REPS``), its operations counted, one under the profiler (the
+    FFT kernels' share of the device time, the device's idle share); the
+    sigmoid output at ``cpu_size``² on the card against the port on the
+    CPU, same weights (``LAMA_CARD_CPU_ATOL``; beside it both against the
+    CPU's fp64, the error fp32 itself makes; also, unbounded, before the
+    calibration); then ``cli.app.ClickSession`` (upload, click, remove) on
+    the image. No hand-written kernel may launch. Returns the launches."""
+    from PIL import Image
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from followyourclick_tpu_torch.cli import inpaint as cli_inpaint
+    from followyourclick_tpu_torch.cli.app import ClickSession
+    from followyourclick_tpu_torch.cli.click_mask import build_predictor
+    from followyourclick_tpu_torch.inpaint.lama import (
+        LamaConfig,
+        LamaInpainter,
+        build_generator,
+    )
+
+    config = config or LamaConfig()
+    height, width = image_size
+    wrappers = launches_zeroed()
+    torch.cuda.reset_peak_memory_stats()
+    png = os.path.join(root, "click.png")
+    if not os.path.exists(png):
+        Image.fromarray(click_image(seed, height, width)).save(png)
+    img = np.asarray(Image.open(png).convert("RGB"))
+
+    def inputs(h, w, dev, g=None):
+        g = g or torch.Generator(device=dev).manual_seed(seed)
+        image = torch.rand(1, 3, h, w, generator=g, device=dev)
+        mask = torch.zeros(1, 1, h, w, device=dev)
+        mask[..., h // 4:h // 2, w // 3:2 * w // 3] = 1.0
+        return torch.cat([image * (1 - mask), mask], dim=1)
+
+    def card_vs_cpu(label):
+        """The sigmoid output at ``cpu_size``² on the card and on the CPU
+        (fp32, and fp64 as the exact answer); returns card vs CPU."""
+        cpu = build_generator(config, "cpu", state_dict={
+            k: v.cpu() for k, v in gen.state_dict().items()})
+        x = inputs(cpu_size, cpu_size, "cpu", torch.Generator().manual_seed(
+            seed))
+        logits = []
+        hook = cpu.model[-1].register_forward_hook(
+            lambda m, i, o: logits.append(i[0]))
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            want = cpu(x)
+            cpu_s = time.perf_counter() - t0
+            got = gen(x.to(device)).cpu()
+            exact = cpu.double()(x.double())
+        hook.remove()
+        err = float((got - want).abs().max())
+        log(f"[remove] generator {cpu_size}² fp32, {label}: logits in "
+            f"[{float(logits[0].min()):.1f}, {float(logits[0].max()):.1f}]; "
+            f"card vs CPU (TF32 off) max |Δ| of the sigmoid output "
+            f"{err:.3e}; against the CPU's fp64: card "
+            f"{float((got.double() - exact).abs().max()):.3e}, CPU fp32 "
+            f"{float((want.double() - exact).abs().max()):.3e}; the CPU "
+            f"fp32 call took {cpu_s:.2f} s")
+        return err
+
+    gen = build_generator(config, device, torch.Generator(
+        device=device).manual_seed(seed))
+    card_vs_cpu("seeded BN statistics (not held to a bound)")
+    calibrate_bn_(gen, inputs(cpu_size, cpu_size, device,
+                              torch.Generator(device=device).manual_seed(
+                                  seed + 1)))
+    n = sum(p.numel() for p in gen.parameters())
+    ckpt = os.path.join(root, "best.ckpt")
+    t0 = time.perf_counter()
+    lama_checkpoint(ckpt, gen)
+    log(f"[remove] big-LaMa ({config.n_blocks} FFC blocks, ngf "
+        f"{config.ngf}): {n / 1e6:.1f} M parameters, fp32; best.ckpt of "
+        f"{os.path.getsize(ckpt) / 2 ** 20:.1f} MiB written in "
+        f"{time.perf_counter() - t0:.2f} s")
+    argv = ["remove", "--input_img", png, "--point_coords",
+            *map(str, CLICK_POINT), "--output_dir",
+            os.path.join(root, "out_remove"), "--sam_model_type", sam_type,
+            "--seed", str(seed), "--device", device, "--lama_ckpt", ckpt,
+            "--dilate_kernel_size", str(CLICK_DILATE)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = cli_inpaint.main(argv, lama_config=config)
+    torch.cuda.synchronize()
+    log(f"[remove] cli.inpaint remove: {result['files']} in "
+        f"{time.perf_counter() - t0:.2f} s (SAM build and LaMa load "
+        "included)")
+    if len(result["scores"]) != 3:
+        raise SystemExit(f"[remove] {len(result['scores'])} results")
+    for i in range(3):
+        out = np.asarray(Image.open(os.path.join(
+            result["out_dir"], f"inpainted_with_mask_{i}.png")))
+        mask = np.asarray(Image.open(os.path.join(
+            result["out_dir"], f"mask_{i}.png")))
+        keep = mask == 0
+        if out.shape != img.shape or mask.shape != img.shape[:2] \
+                or not np.array_equal(out[keep], img[keep]):
+            raise SystemExit(f"[remove] output {i}: {out.shape}, or it "
+                             "changed outside its mask")
+        log(f"[remove]   inpainted_with_mask_{i}.png: mask area "
+            f"{int((~keep).sum())}, mean |out - in| in the mask "
+            f"{np.abs(out.astype(int) - img)[~keep].mean():.2f}")
+
+    times = {}
+    with torch.inference_mode():
+        for h, w in sizes:
+            x = inputs(h, w, device)
+            gen(x)
+            ms, out = event_ms(lambda: gen(x), reps=REMOVE_REPS)
+            if out.shape != (1, 3, h, w) or not bool(
+                    torch.isfinite(out).all()):
+                raise SystemExit(f"[remove] generator output {out.shape}")
+            times[(h, w)] = ms
+            log(f"[remove] generator {h}x{w}, fp32: "
+                f"{' / '.join(f'{t:.2f}' for t in ms)} ms, median "
+                f"{float(np.median(ms)):.2f} ms ({CARD})")
+        x = inputs(*sizes[0], device)
+        with FlopCounterMode(display=False) as flops:
+            gen(x)
+        wall, busy, by_name = device_profile(lambda: gen(x))
+    tflop = flops.get_total_flops() / 1e12
+    median = float(np.median(times[sizes[0]])) / 1e3
+    log(f"[remove] generator {sizes[0][0]}x{sizes[0][1]}: {tflop:.3f} TFLOP "
+        f"(torch.utils.flop_counter: convolutions, no FFT), "
+        f"{tflop / median:.1f} TFLOP/s at the median, "
+        f"{tflop * 1e12 / median / PEAK_FP32_OPS:.3f} of the fp32 peak; "
+        f"bound {tflop * 1e15 / PEAK_FP32_OPS:.2f} ms ({CARD})")
+    fft = sum(t for name, t in by_name.items() if "fft" in name.lower())
+    log(f"[remove] profiled generator call {sizes[0][0]}x{sizes[0][1]}: wall "
+        f"{wall * 1e3:.2f} ms, device busy {busy * 1e3:.2f} ms, idle share "
+        f"{1 - busy / wall:.3f}; FFT kernels {fft * 1e3:.2f} ms, "
+        f"{fft / busy:.3f} of the device time ({CARD})")
+    for name, t in by_name.most_common(6):
+        log(f"[remove]   {t * 1e3:9.3f} ms  {name[:110]}")
+    if card_vs_cpu(f"calibrated (bound {LAMA_CARD_CPU_ATOL:g})") \
+            > LAMA_CARD_CPU_ATOL:
+        raise SystemExit("[remove] the generator disagrees card vs CPU")
+    args = cli_inpaint.build_parser().parse_args(argv)
+    session = ClickSession(build_predictor(args), LamaInpainter(gen, device),
+                           CLICK_DILATE)
+    steps = {}
+    for label, fn in (("upload", lambda: session.upload(img)),
+                      ("click", lambda: session.click(*CLICK_POINT)),
+                      ("remove", session.remove)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        steps[label] = (time.perf_counter() - t0) * 1e3
+        if label != "upload" and (len(out) != 3 or any(
+                o.shape != img.shape for o in out)):
+            raise SystemExit(f"[remove] ClickSession.{label}")
+    got = {name: fn.launches for name, fn in wrappers.items()}
+    log(f"[remove] ClickSession upload / click / remove (3 masks): "
+        f"{' / '.join(f'{steps[k]:.1f}' for k in steps)} ms; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+        f"launches {got} ({CARD})")
+    if any(got.values()):
+        raise SystemExit(f"[remove] a hand-written kernel launched: {got}")
+    return got
+
+
+def phase_lama_train(seed, device="cuda", config=None,
+                     size=LAMA_TRAIN_SIZE, batch=LAMA_TRAIN_BATCH,
+                     steps=LAMA_TRAIN_STEPS, pl_layers=(3, 4, 6, 3)):
+    """Phase 19: LaMa's GAN training. The seeded big-LaMa generator
+    (``config``, default ``LamaConfig()``), ``NLayerDiscriminator()`` (ndf
+    64, 3 layers) and ResNet-PL on a seeded ``DilatedResNet50Encoder``;
+    ``steps`` generator + discriminator alternations of
+    ``LamaTrainConfig()`` on one seeded batch of ``batch`` ``size``² crops
+    with box masks, each timed by CUDA events. Every loss term finite,
+    every parameter of both networks moved, the generator's BN running
+    statistics changed and the discriminator's bit-identical to their
+    start, no hand-written kernel launched. Then one alternation of a tiny
+    configuration on the card against the same on the CPU
+    (``LAMA_TINY_REL``). Returns the launches."""
+    from followyourclick_tpu_torch.inpaint import train
+    from followyourclick_tpu_torch.inpaint.lama import (
+        BN_STATS,
+        LamaConfig,
+    )
+    from followyourclick_tpu_torch.inpaint.perceptual import (
+        DilatedResNet50Encoder,
+    )
+    from followyourclick_tpu_torch.utils.seeded_init import seeded_init_
+
+    config = config or LamaConfig()
+    cfg = train.LamaTrainConfig()
+    wrappers = launches_zeroed()
+    torch.cuda.reset_peak_memory_stats()
+    g = torch.Generator(device=device).manual_seed(seed)
+    gen, disc, gen_opt, discr_opt = train.init_training(
+        cfg, config, device=device, generator=g)
+    with torch.device("meta"):
+        enc = DilatedResNet50Encoder(pl_layers)
+    enc = seeded_init_(enc.to_empty(device=device), g, buffers=BN_STATS)
+    enc.eval().requires_grad_(False)
+    image = torch.rand(batch, 3, size, size, generator=g, device=device)
+    mask = torch.zeros(batch, 1, size, size, device=device)
+    corners = torch.randint(0, size // 2, (batch, 2), generator=g,
+                            device=device).tolist()
+    for i, (y, x) in enumerate(corners):
+        mask[i, :, y:y + size // 3, x:x + size // 2] = 1.0
+    data = {"image": image, "mask": mask}
+    g_start = {k: v.clone() for k, v in gen.state_dict().items()}
+    d_start = {k: v.clone() for k, v in disc.state_dict().items()}
+    ms, terms = [], {}
+    for _ in range(steps):
+        def alternation():
+            gm, inpainted = train.generator_step(gen, disc, cfg, gen_opt,
+                                                 data, enc)
+            return {**gm, **train.discriminator_step(disc, cfg, discr_opt,
+                                                     data, inpainted)}
+        t, terms = event_ms(alternation)
+        ms += t
+        bad = [k for k, v in terms.items() if not bool(torch.isfinite(v))]
+        if bad:
+            raise SystemExit(f"[lama train] loss terms not finite: {bad}")
+    got = {name: fn.launches for name, fn in wrappers.items()}
+    still = [k for k, p in list(gen.named_parameters())
+             + [("disc." + k, p) for k, p in disc.named_parameters()]
+             if torch.equal(p, (g_start if not k.startswith("disc.")
+                                else d_start)[k.removeprefix("disc.")])]
+    g_stats = [k for k in g_start if k.endswith(("running_mean",
+                                                 "running_var"))]
+    g_unmoved = [k for k in g_stats
+                 if torch.equal(gen.state_dict()[k], g_start[k])]
+    d_moved = [k for k, v in disc.named_buffers()
+               if not torch.equal(v, d_start[k])]
+    n_g = sum(p.numel() for p in gen.parameters())
+    n_d = sum(p.numel() for p in disc.parameters())
+    log(f"[lama train] {steps} alternations at batch {batch} of {size}² "
+        f"(generator {n_g / 1e6:.1f} M, discriminator {n_d / 1e6:.1f} M "
+        f"parameters, ResNet-PL on a {sum(pl_layers)}-block dilated "
+        f"ResNet-50, fp32): {' / '.join(f'{t:.1f}' for t in ms)} ms per "
+        f"alternation; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; last "
+        f"terms " + ", ".join(f"{k} {float(v):.4g}" for k, v in
+                              sorted(terms.items())) + f" ({CARD})")
+    n_leaves = len(list(gen.parameters())) + len(list(disc.parameters()))
+    log(f"[lama train] parameters unmoved {len(still)} of {n_leaves}; "
+        f"generator BN statistics unchanged {len(g_unmoved)} of "
+        f"{len(g_stats)}; discriminator BN buffers changed {len(d_moved)}; "
+        f"launches {got}")
+    if still or g_unmoved or d_moved or any(got.values()):
+        raise SystemExit("[lama train] a parameter did not move, a "
+                         "statistic moved wrongly, or a kernel launched")
+    del gen, disc, gen_opt, discr_opt, enc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # a tiny configuration, one alternation, card vs CPU on the same weights
+    sides = {}
+    tiny = LamaConfig(**LAMA_TINY)
+    for dev in ("cpu", device):
+        gen, disc, gen_opt, discr_opt = train.init_training(
+            cfg, tiny, ndf=8, n_layers=2, device="cpu",
+            generator=torch.Generator().manual_seed(seed))
+        gen, disc = gen.to(dev), disc.to(dev)
+        gen_opt, discr_opt = train.make_optimizers(cfg, gen, disc)
+        small = {k: torch.nn.functional.interpolate(
+            v[:2].cpu(), size=(64, 64)).to(dev) for k, v in data.items()}
+        gm, inpainted = train.generator_step(gen, disc, cfg, gen_opt, small)
+        dm = train.discriminator_step(disc, cfg, discr_opt, small, inpainted)
+        sides[dev] = ({k: float(v) for k, v in {**gm, **dm}.items()},
+                      [p.grad.cpu() for p in gen.parameters()],
+                      [p.grad.cpu() for p in disc.parameters()],
+                      [v.cpu() for k, v in gen.state_dict().items()
+                       if k.endswith(("running_mean", "running_var"))])
+    (loss_c, g_c, d_c, s_c), (loss_g, g_g, d_g, s_g) = (sides["cpu"],
+                                                        sides[device])
+    loss_err = max(abs(loss_g[k] - loss_c[k]) / max(abs(loss_c[k]), 1e-30)
+                   for k in loss_c)
+
+    def worst(a, b):
+        scale = max(float(t.abs().max()) for t in a)
+        return max(float((x - y).abs().max()) for x, y in zip(a, b)) / scale
+
+    errs = {"losses": loss_err, "generator gradients": worst(g_c, g_g),
+            "discriminator gradients": worst(d_c, d_g),
+            "generator BN statistics": worst(s_c, s_g)}
+    log("[lama train] tiny fp32 alternation, card vs CPU: " + ", ".join(
+        f"{k} {v:.3e}" for k, v in errs.items()) + f" (tol {LAMA_TINY_REL:g})")
+    if max(errs.values()) > LAMA_TINY_REL:
+        raise SystemExit("[lama train] the tiny alternation disagrees card "
+                         "vs CPU")
+    return got
+
+
 def timed(fn):
     """``fn`` with a log line of the seconds it took."""
     def run(*args, **kwargs):
@@ -3689,6 +4132,13 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     paths["train"] = timed(phase_train)(args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        paths["remove"] = timed(phase_remove)(args.seed, root)
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["lama_train"] = timed(phase_lama_train)(args.seed)
     for name in KERNELS:
         if not sum(launches[name] for launches in paths.values()):
             raise SystemExit(f"{name} was never launched on a main path")

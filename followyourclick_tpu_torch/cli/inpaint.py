@@ -1,13 +1,16 @@
-"""Inpaint-Anything CLI: click → fill / replace (and remove, not ported).
+"""Inpaint-Anything CLI: click → remove / fill / replace.
 
 Port of ``followyourclick_tpu/cli/inpaint.py`` with the same subcommands
 and flags (``--input_img --point_coords --point_labels --output_dir
---sam_model_type --sam_ckpt --seed``; ``fill`` and ``replace`` add
-``--text_prompt --sd_model_path --steps``, ``fill`` ``--dilate_kernel_size``,
-``replace`` ``--target_size``), plus ``--device`` (the card unless told
-otherwise). ``remove`` (LaMa) parses and then raises: LaMa is not ported
-yet (ROADMAP Queue 1).
+--sam_model_type --sam_ckpt --seed``; ``remove`` adds
+``--dilate_kernel_size --lama_ckpt``; ``fill`` and ``replace`` add
+``--text_prompt --sd_model_path --steps``, ``fill``
+``--dilate_kernel_size``, ``replace`` ``--target_size``), plus ``--device``
+(the card unless told otherwise).
 
+``remove`` runs big-LaMa (``inpaint/lama.py``): the generator of
+``--lama_ckpt`` (a Lightning ``best.ckpt`` or a bare state dict, loaded
+strictly by ``inpaint/convert.py``), or seeded random weights without it.
 With ``--sd_model_path`` the SD-1.5 directory loads through
 ``utils/loaders`` into the motion-free UNet, the VAE and the CLIP text
 tower (fp32, then bf16 on the card), with the port's CLIP tokenizer over
@@ -15,11 +18,11 @@ tower (fp32, then bf16 on the card), with the port's CLIP tokenizer over
 weights and a hash tokenizer stand-in run (plumbing only; the outputs are
 noise). Images are read and written by PIL:
 ``<output_dir>/<image stem>/mask_<i>.png`` and
-``{filled,replaced}_with_mask_<i>.png``.
+``{inpainted,filled,replaced}_with_mask_<i>.png``.
 
-    python -m followyourclick_tpu_torch.cli.inpaint fill --input_img in.png \
-        --point_coords 200 300 --text_prompt "a teddy bear" --output_dir out \
-        --sam_ckpt sam_vit_h.pth --sd_model_path sd-v1-5
+    python -m followyourclick_tpu_torch.cli.inpaint remove --input_img in.png \
+        --point_coords 200 300 --output_dir out --sam_ckpt sam_vit_h.pth \
+        --lama_ckpt big-lama/models/best.ckpt
 """
 
 from __future__ import annotations
@@ -179,42 +182,63 @@ def build_sd_pipeline(args, inference_config=None):
                            device=device)
 
 
+def build_lama(args, lama_config=None):
+    """The LaMa inpainter the flags ask for, on ``args.device``:
+    ``lama_config`` (default: big-LaMa, ``LamaConfig()``) with the weights
+    of ``--lama_ckpt``, or seeded from ``--seed``."""
+    from followyourclick_tpu_torch.inpaint.convert import lama_from_checkpoint
+    from followyourclick_tpu_torch.inpaint.lama import (
+        LamaConfig,
+        LamaInpainter,
+    )
+
+    cfg = lama_config or LamaConfig()
+    if args.lama_ckpt:
+        return LamaInpainter(lama_from_checkpoint(cfg, args.lama_ckpt,
+                                                  args.device), args.device)
+    return LamaInpainter.init_random(cfg, seed=args.seed, device=args.device)
+
+
 def write_rgb(path, rgb: np.ndarray) -> None:
     from PIL import Image
 
     Image.fromarray(np.ascontiguousarray(rgb, np.uint8)).save(str(path))
 
 
-def main(argv=None, inference_config=None) -> dict:
+def main(argv=None, inference_config=None, lama_config=None) -> dict:
     """Runs the CLI; returns the output directory, the files written and
     the masks' scores. ``inference_config`` replaces ``InferenceConfig()``
-    for an SD directory of other widths."""
+    for an SD directory of other widths, ``lama_config`` ``LamaConfig()``
+    for a LaMa checkpoint of other widths."""
     args = build_parser().parse_args(argv)
-    if args.command == "remove":
-        raise NotImplementedError(
-            "inpaint remove needs LaMa, which the PyTorch port does not have "
-            "yet (ROADMAP.md, Queue 1: LaMa, its CLI and cli/app.py)")
 
     from followyourclick_tpu_torch.inpaint.fill import (
         fill_anything,
         replace_anything,
     )
+    from followyourclick_tpu_torch.inpaint.remove import remove_anything
 
     img = read_rgb(args.input_img)
     point_wh = (args.point_coords[0], args.point_coords[1])
     out_dir = Path(args.output_dir) / Path(args.input_img).stem
     out_dir.mkdir(parents=True, exist_ok=True)
     predictor = build_predictor(args)
-    pipeline = build_sd_pipeline(args, inference_config)
-    if args.command == "fill":
+    if args.command == "remove":
+        results = remove_anything(
+            img, point_wh, predictor, build_lama(args, lama_config),
+            dilate_kernel_size=args.dilate_kernel_size)
+        key, prefix = "inpainted", "inpainted_with_mask"
+    elif args.command == "fill":
         results = fill_anything(
-            img, point_wh, args.text_prompt, predictor, pipeline,
+            img, point_wh, args.text_prompt, predictor,
+            build_sd_pipeline(args, inference_config),
             dilate_kernel_size=args.dilate_kernel_size, seed=args.seed,
             steps=args.steps)
         key, prefix = "filled", "filled_with_mask"
     else:
         results = replace_anything(
-            img, point_wh, args.text_prompt, predictor, pipeline,
+            img, point_wh, args.text_prompt, predictor,
+            build_sd_pipeline(args, inference_config),
             seed=args.seed, steps=args.steps, target_size=args.target_size)
         key, prefix = "replaced", "replaced_with_mask"
     files = []

@@ -5,7 +5,8 @@ backward is plain fp32 math: it recomputes the function in fp32 from the
 saved inputs and differentiates that (``ops/motion_block.py::_block_bwd``,
 ``ops/geglu.py::_ln_geglu_bwd`` and ``_geglu_bwd``,
 ``ops/temporal_attention.py::_attn_bwd`` and ``_fused_vjp_bwd``,
-``ops/flash_attention.py::_flash_vjp_bwd``). :class:`Recompute` is that
+``ops/flash_attention.py::_flash_vjp_bwd``, ``ops/groupnorm.py::_gn_bwd``,
+``ops/cross_attention.py::_ln_cross_attn_bwd``). :class:`Recompute` is that
 pattern as a ``torch.autograd.Function``: the forward runs the wrapper's
 route (the kernel on a CUDA tensor, the plain version on a CPU one) and
 saves its tensor inputs as they are, never the kernel's intermediates; the
@@ -15,9 +16,7 @@ no backward kernel, as in the JAX package.
 
 A wrapper reached under ``torch.enable_grad()`` with an input that requires
 grad goes through its subclass of :class:`Recompute` (one per wrapper, so a
-profiler names each backward); a kernel without one raises there
-(:func:`refuse_grad`) rather than hand back a tensor autograd cannot see
-through.
+profiler names each backward).
 """
 
 from __future__ import annotations
@@ -59,11 +58,3 @@ def needs_grad(*tensors: torch.Tensor) -> bool:
     """Whether autograd records a call on ``tensors`` here."""
     return torch.is_grad_enabled() and any(t.requires_grad
                                            for t in tensors)
-
-
-def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
-    """Raise if a kernel that has no backward is reached under grad."""
-    if needs_grad(*tensors):
-        raise RuntimeError(
-            f"{name}: the kernel has no backward; call it outside autograd "
-            "(torch.no_grad) or use its plain version")

@@ -30,8 +30,10 @@ softmax in fp32, the weights cast; ``p·v`` accumulated in fp32 and cast;
 ``o·Woᵀ + bo`` in fp32 and cast. The result is pre-residual.
 
 Not routed, as in the JAX package, which has no caller of the kernel.
-Forward only: a CUDA call under autograd raises (the JAX
-``_ln_cross_attn_bwd`` is not ported yet).
+Under autograd the call goes through :class:`LnCrossAttentionGrad`
+(``ops/autograd.Recompute``): the kernels forward, and the gradients of
+:func:`ln_cross_attention_fp32`, as the JAX ``_ln_cross_attn_bwd`` takes
+them.
 """
 
 from __future__ import annotations
@@ -42,7 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from followyourclick_tpu_torch.ops import _build
-from followyourclick_tpu_torch.ops.autograd import refuse_grad
+from followyourclick_tpu_torch.ops.autograd import Recompute, needs_grad
 from followyourclick_tpu_torch.ops.geglu import (
     down_bf16,
     layer_norm_cast,
@@ -76,6 +78,28 @@ def ln_cross_attention_ref(x, context, ln_scale, ln_bias, wq, wk, wv, wo, bo,
     w = torch.softmax(q @ k.transpose(-1, -2) * scale, dim=-1).to(dt)
     o = (w.float() @ v.float()).to(dt).transpose(1, 2).reshape(b, s, -1)
     return linear_f32(o, wo, bo).to(dt)
+
+
+def ln_cross_attention_fp32(x, context, ln_scale, ln_bias, wq, wk, wv, wo,
+                            bo, *, heads: int, scale: float,
+                            eps: float) -> torch.Tensor:
+    """LN → cross-attention → out projection in fp32 (JAX ``_ref_fp32``),
+    the reference of the backward."""
+    b, s, _ = x.shape
+    d = wq.shape[0] // heads
+    xf = x.float()
+    xn = F.layer_norm(xf, xf.shape[-1:], ln_scale.float(), ln_bias.float(),
+                      eps)
+    q = F.linear(xn, wq.float()).reshape(b, s, heads, d).transpose(1, 2)
+    k, v = (F.linear(context.float(), w.float()).reshape(
+        b, -1, heads, d).transpose(1, 2) for w in (wk, wv))
+    w = torch.softmax(q @ k.transpose(-1, -2) * scale, dim=-1)
+    o = (w @ v).transpose(1, 2).reshape(b, s, heads * d)
+    return F.linear(o, wo.float(), bo.float())
+
+
+class LnCrossAttentionGrad(Recompute):
+    """:func:`fused_ln_cross_attention` under autograd."""
 
 
 def q_stage(xn: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
@@ -230,17 +254,27 @@ def fused_ln_cross_attention(x: torch.Tensor, context: torch.Tensor,
     if context.shape[1] > MAX_KV:
         raise ValueError(f"short-kv kernel requires Skv <= {MAX_KV}, got "
                          f"{context.shape[1]}")
-    d = wq.shape[0] // heads
     if scale is None:
-        scale = d ** -0.5
+        scale = (wq.shape[0] // heads) ** -0.5
+    args = (x, context, ln_scale, ln_bias, wq, wk, wv, wo, bo)
+    kw = dict(heads=heads, scale=scale, eps=eps)
+    run = functools.partial(_ln_cross_attention, **kw)
+    if needs_grad(*args):
+        return LnCrossAttentionGrad.apply(
+            run, functools.partial(ln_cross_attention_fp32, **kw), *args)
+    return run(*args)
+
+
+def _ln_cross_attention(x, context, ln_scale, ln_bias, wq, wk, wv, wo, bo, *,
+                        heads, scale, eps):
+    """The route: the plain version on a CPU tensor, else the kernels."""
     if x.device.type == "cpu":
         return ln_cross_attention_ref(x, context, ln_scale, ln_bias, wq, wk,
                                       wv, wo, bo, heads, scale, eps)
     if x.device.type != "cuda":
         raise ValueError(f"fused_ln_cross_attention: no kernel for "
                          f"{x.device}")
-    refuse_grad("fused_ln_cross_attention", x, context, ln_scale, ln_bias,
-                wq, wk, wv, wo, bo)
+    d = wq.shape[0] // heads
     if context.get_device() != x.get_device() or context.dtype != x.dtype:
         raise ValueError("fused_ln_cross_attention: context must share x's "
                          "device and dtype")

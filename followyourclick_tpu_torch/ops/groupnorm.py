@@ -22,8 +22,10 @@ element), and summed in fp32; ``var = max(s2/n − (s1/n)², 0)``; the affine
 is folded into ``y = x·a + b`` in fp32; SiLU follows it; then the cast.
 
 Not routed, as in the JAX package (``models/layers.py:137-141``): the port's
-``GroupNorm`` module keeps its plain path. Forward only: a CUDA call under
-autograd raises (the JAX ``_gn_bwd`` is not ported yet).
+``GroupNorm`` module keeps its plain path. Under autograd the call goes
+through :class:`GroupNormGrad` (``ops/autograd.Recompute``): the kernel
+forward, and the gradients of :func:`group_norm_fp32`, as the JAX
+``_gn_bwd`` takes them.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from followyourclick_tpu_torch.ops import _build
-from followyourclick_tpu_torch.ops.autograd import refuse_grad
+from followyourclick_tpu_torch.ops.autograd import Recompute, needs_grad
 
 VEC = 8            # channels per vector of the kernel
 MAX_CHANNELS = 8192  # a block's scratch, (2·row_groups + 3)·C fp32 words
@@ -119,6 +121,24 @@ def group_norm_ref(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return y.to(x.dtype)
 
 
+def group_norm_fp32(x: torch.Tensor, scale: torch.Tensor,
+                    bias: torch.Tensor, groups: int = 32, eps: float = 1e-5,
+                    act: str | None = None) -> torch.Tensor:
+    """GroupNorm(+SiLU) in fp32 with the plain statistics (JAX
+    ``_ref_fp32``), the reference of the backward."""
+    b, n, c = x.shape
+    xf = x.float().reshape(b, n, groups, c // groups)
+    mean = xf.mean(dim=(1, 3), keepdim=True)
+    var = ((xf - mean) ** 2).mean(dim=(1, 3), keepdim=True)
+    y = ((xf - mean) * torch.rsqrt(var + eps)).reshape(b, n, c)
+    y = y * scale.float() + bias.float()
+    return F.silu(y) if act == "silu" else y
+
+
+class GroupNormGrad(Recompute):
+    """:func:`fused_group_norm` under autograd."""
+
+
 def _check(x, scale, bias, groups) -> None:
     """Raise on what the kernels do not take."""
     if x.dtype not in _build.DTYPE_CODES:
@@ -180,11 +200,21 @@ def fused_group_norm(x: torch.Tensor, scale: torch.Tensor,
     statistics per (batch row, group) over N and the group's channels."""
     if act not in (None, "silu"):
         raise ValueError(f"fused_group_norm: act={act!r}")
+    args = (x, scale, bias)
+    kw = dict(groups=groups, eps=eps, act=act)
+    run = functools.partial(_group_norm, **kw)
+    if needs_grad(*args):
+        return GroupNormGrad.apply(
+            run, functools.partial(group_norm_fp32, **kw), *args)
+    return run(*args)
+
+
+def _group_norm(x, scale, bias, *, groups, eps, act):
+    """The route: the plain version on a CPU tensor, else the kernel."""
     if x.device.type == "cpu":
         return group_norm_ref(x, scale, bias, groups, eps, act)
     if x.device.type != "cuda":
         raise ValueError(f"fused_group_norm: no kernel for {x.device}")
-    refuse_grad("fused_group_norm", x, scale, bias)
     _check(x, scale, bias, groups)
     path, count, rows = group_norm_path(*x.shape, x.dtype)
     out = torch.empty_like(x)

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from followyourclick_tpu_torch.sam.sam import Sam, SamConfig, build_sam
+from followyourclick_tpu_torch.utils.convert import state_dict_from_tree
 
 
 def load_sam_checkpoint(path: str) -> Dict[str, torch.Tensor]:
@@ -64,15 +65,6 @@ def _ln2d(tree):
 def _attention(tree):
     return {name: _linear(tree[name])
             for name in ("q_proj", "k_proj", "v_proj", "out_proj")}
-
-
-def _flat(prefix: str, tree: Mapping[str, Any], out: dict) -> None:
-    for k, v in tree.items():
-        name = f"{prefix}.{k}" if prefix else k
-        if isinstance(v, Mapping):
-            _flat(name, v, out)
-        else:
-            out[name] = torch.from_numpy(np.array(v, dtype=np.float32))
 
 
 def sam_state_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
@@ -153,11 +145,9 @@ def sam_state_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             str(j): _linear(dec["iou_prediction_head"][f"layer{j}"])
             for j in range(len(dec["iou_prediction_head"]))}},
     }
-    out: Dict[str, torch.Tensor] = {}
-    _flat("", {"image_encoder": image_encoder,
-               "prompt_encoder": prompt_encoder,
-               "mask_decoder": mask_decoder}, out)
-    return out
+    return state_dict_from_tree({"image_encoder": image_encoder,
+                                 "prompt_encoder": prompt_encoder,
+                                 "mask_decoder": mask_decoder})
 
 
 def sam_from_checkpoint(config: SamConfig, path: Optional[str] = None,

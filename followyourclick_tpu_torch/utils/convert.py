@@ -398,6 +398,17 @@ def _flatten(tree: Mapping[str, Any], prefix: tuple = ()) -> dict:
     return out
 
 
+def state_dict_from_tree(tree: Mapping[str, Any]) -> dict:
+    """A nested tree of arrays already in torch layouts → a flat state dict
+    of CPU tensors (dotted names; integer arrays int64, the rest fp32)."""
+    out = {}
+    for path, v in _flatten(tree).items():
+        v = np.asarray(v)
+        out[".".join(path)] = torch.from_numpy(np.array(
+            v, dtype=np.int64 if v.dtype.kind in "iu" else np.float32))
+    return out
+
+
 def _flax_path(torch_name: str) -> tuple:
     """``down_blocks.0.resnets.1.norm1`` → ``(down_blocks_0, resnets_1, norm1)``."""
     segs: list[str] = []

@@ -5,8 +5,10 @@ Every parameter (and each buffer named in ``buffers``) is drawn from one
 order, so a seed gives the same weights on every device a generator of
 that type runs on. Kernels of linear layers and convs: N(0, 1/fan_in) (a
 transposed conv's fan-in is its input channels); embeddings and the named
-buffers: N(0, 1); norm scales (a 1-D ``weight``): 1 + N(0, 0.05²); biases
-and every other parameter (positions, tables): N(0, 0.02²).
+buffers: N(0, 1), but for BN running statistics (``running_mean``:
+N(0, 0.02²); ``running_var``: 1 + N(0, 0.05²)); norm scales (a 1-D
+``weight``): 1 + N(0, 0.05²); biases and every other parameter (positions,
+tables): N(0, 0.02²).
 """
 
 from __future__ import annotations
@@ -28,11 +30,13 @@ def seeded_init_(module: nn.Module, generator: torch.Generator,
         for name, p in tensors:
             z = torch.randn(p.shape, generator=generator,
                             device=generator.device, dtype=torch.float32)
-            if name in buffers or (name == "weight"
-                                   and isinstance(mod, nn.Embedding)):
-                pass
-            elif name == "weight" and p.ndim == 1:
+            if name == "running_mean":
+                z = 0.02 * z
+            elif name == "running_var" or (name == "weight" and p.ndim == 1):
                 z = 1.0 + 0.05 * z
+            elif name in buffers or (name == "weight"
+                                     and isinstance(mod, nn.Embedding)):
+                pass
             elif name == "weight" and isinstance(mod, nn.ConvTranspose2d):
                 z = z / math.sqrt(p.shape[0])
             elif name == "weight":

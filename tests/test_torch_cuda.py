@@ -647,6 +647,52 @@ def test_cross_attention_kernel_matches_plain(card, dtype, b, s, c, heads,
                  FP32_REL if dtype == F32 else BF16_REL)
 
 
+def grads_against_plain(route, plain, leaves, cot, bound):
+    """``route`` under autograd (its Function: the kernel forward, the fp32
+    recompute backward) against autograd through ``plain`` on fp32 copies
+    of the leaves: each gradient within ``bound`` of its largest."""
+    got = torch.autograd.grad(route(*leaves), leaves, cot)
+    ref = [t.detach().float().requires_grad_() for t in leaves]
+    want = torch.autograd.grad(plain(*ref), ref, cot.float())
+    for g, w in zip(got, want):
+        assert g.dtype == leaves[0].dtype
+        assert_close(g, w, bound)
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("b,n,c,groups,act", GROUP_NORM_SHAPES[:4])
+def test_group_norm_backward_matches_plain(card, dtype, b, n, c, groups,
+                                           act):
+    rs = np.random.RandomState(n + c + 1)
+    leaves = [(_randn(rs, (b, n, c), 1.0, dtype) + 2.0).requires_grad_(),
+              (1.0 + _randn(rs, (c,), 0.05, dtype)).requires_grad_(),
+              _randn(rs, (c,), 0.05, dtype).requires_grad_()]
+    before = fused_group_norm.launches
+    grads_against_plain(
+        lambda *a: fused_group_norm(*a, groups, 1e-5, act),
+        lambda *a: group_norm_ref(*a, groups, 1e-5, act), leaves,
+        _randn(rs, (b, n, c), 1.0, dtype),
+        FP32_REL if dtype == F32 else BF16_REL)
+    assert fused_group_norm.launches == before + 1  # the forward only
+
+
+@pytest.mark.parametrize("dtype,b,s,c,heads,skv", [
+    (F32, 2, 100, 64, 4, 7), (F32, 3, 333, 320, 8, 77),
+    (BF16, 3, 333, 320, 8, 77), (BF16, 2, 256, 640, 8, 77)])
+def test_cross_attention_backward_matches_plain(card, dtype, b, s, c, heads,
+                                                skv):
+    rs = np.random.RandomState(s + skv + 1)
+    leaves = [t.requires_grad_() for t in cross_args(rs, b, s, c, skv,
+                                                     dtype)]
+    before = fused_ln_cross_attention.launches
+    grads_against_plain(
+        lambda *a: fused_ln_cross_attention(*a, heads=heads),
+        lambda *a: ln_cross_attention_ref(*a, heads=heads), leaves,
+        _randn(rs, (b, s, c), 1.0, dtype),
+        FP32_REL if dtype == F32 else BF16_REL)
+    assert fused_ln_cross_attention.launches == before + 1
+
+
 # The bf16 call's four launches one by one, each against its plain stage on
 # the same inputs (the kernels' own outputs feed the next stage), then the
 # wrapper against the plain call twice, bit for bit: D = 40, 80, 160 and 16,

@@ -6,8 +6,9 @@ it with ``--noconftest``, as
 whole-block kernel, under autograd: the gradients of its parameters through
 the kernels' autograd Functions are non-zero and match those through the
 plain versions (the wrappers swapped by ``chip_smoke.wrappers_replaced``)
-to a cosine of 0.99 each; the two kernels without a backward raise under
-grad on the card.
+to a cosine of 0.99 each; the two unrouted kernels of the UNet's sites
+(GroupNorm, LN-cross-attention) give their plain versions' gradients under
+autograd, their forward launches counted as before.
 """
 
 import pytest
@@ -56,25 +57,49 @@ def test_motion_module_grads_through_kernels(card):
         assert cos >= 0.99, (name, cos)
 
 
-def test_unported_backward_raises(card):
+def test_unrouted_kernels_backward(card):
+    """GroupNorm + SiLU and LN-cross-attention at a 320-wide UNet site,
+    bf16: gradients through their Functions against autograd through the
+    plain versions in fp32, cosine 0.99 each; one forward launch each."""
     from followyourclick_tpu_torch.ops.cross_attention import (
         fused_ln_cross_attention,
+        ln_cross_attention_ref,
     )
-    from followyourclick_tpu_torch.ops.groupnorm import fused_group_norm
+    from followyourclick_tpu_torch.ops.groupnorm import (
+        fused_group_norm,
+        group_norm_ref,
+    )
 
     bf = torch.bfloat16
-    x = torch.randn(2, 64, 320, device=card, dtype=bf, requires_grad=True)
-    scale = torch.ones(320, device=card, dtype=bf)
-    with pytest.raises(RuntimeError, match="no backward"):
-        fused_group_norm(x, scale, torch.zeros_like(scale), 32)
-    with torch.no_grad():
-        assert fused_group_norm(x, scale, torch.zeros_like(scale),
-                                32).shape == x.shape
-    ctx = torch.randn(2, 77, 768, device=card, dtype=bf)
-    w = [torch.randn(320, 320, device=card, dtype=bf) * 0.05,
-         torch.randn(320, 768, device=card, dtype=bf) * 0.05,
-         torch.randn(320, 768, device=card, dtype=bf) * 0.05,
-         torch.randn(320, 320, device=card, dtype=bf) * 0.05]
-    with pytest.raises(RuntimeError, match="no backward"):
-        fused_ln_cross_attention(x, ctx, scale, torch.zeros_like(scale), *w,
-                                 torch.zeros_like(scale), heads=8)
+    gen = torch.Generator(device=card).manual_seed(0)
+
+    def leaf(shape, s=1.0, base=0.0):
+        return (base + s * torch.randn(shape, generator=gen, device=card)
+                ).to(bf).requires_grad_()
+
+    def check(route, plain, leaves, out_shape):
+        cot = torch.randn(out_shape, generator=gen, device=card).to(bf)
+        got = torch.autograd.grad(route(*leaves), leaves, cot)
+        ref = [t.detach().float().requires_grad_() for t in leaves]
+        want = torch.autograd.grad(plain(*ref), ref, cot.float())
+        for g, w in zip(got, want):
+            a, b = g.double().flatten(), w.double().flatten()
+            assert bool(a.any()) and g.dtype == bf
+            assert float(a @ b) / float(a.norm() * b.norm()) >= 0.99
+
+    gn = [leaf((2, 4096, 320), 1.0, 2.0), leaf((320,), 0.05, 1.0),
+          leaf((320,), 0.05)]
+    before = fused_group_norm.launches
+    check(lambda *a: fused_group_norm(*a, 32, 1e-5, "silu"),
+          lambda *a: group_norm_ref(*a, 32, 1e-5, "silu"), gn,
+          (2, 4096, 320))
+    assert fused_group_norm.launches == before + 1
+    ca = [leaf((2, 4096, 320)), leaf((2, 77, 768)), leaf((320,), 0.05, 1.0),
+          leaf((320,), 0.05), leaf((320, 320), 320 ** -0.5),
+          leaf((320, 768), 768 ** -0.5), leaf((320, 768), 768 ** -0.5),
+          leaf((320, 320), 320 ** -0.5), leaf((320,), 0.02)]
+    before = fused_ln_cross_attention.launches
+    check(lambda *a: fused_ln_cross_attention(*a, heads=8),
+          lambda *a: ln_cross_attention_ref(*a, heads=8), ca,
+          (2, 4096, 320))
+    assert fused_ln_cross_attention.launches == before + 1

@@ -15,7 +15,10 @@ runs at 128². Checked:
   pixel-equal masks as the JAX CLIs (OpenCV writes the JAX files, PIL the
   port's; pixels are compared), fills within 1;
 - the port's ``cli.inpaint fill`` files equal its own ``fill_anything``;
-- ``cli.inpaint remove`` raises (LaMa is not ported).
+- ``cli.inpaint remove`` from a tiny LaMa checkpoint file (Lightning-shaped,
+  ``tests/test_torch_lama.py``): the same file names, pixel-equal masks and
+  removals within 1 of the JAX CLI's (whose LaMa is the JAX converter's of
+  the same weights), each removal equal to the input outside its mask.
 """
 
 import os
@@ -179,11 +182,41 @@ def test_inpaint_cli_fill(setup, filled, monkeypatch):
         assert out["scores"][i] == r["score"]
 
 
-def test_inpaint_cli_remove_raises(setup):
-    with pytest.raises(NotImplementedError, match="LaMa"):
-        inpaint_cli.main(["remove", "--input_img", str(setup["png"]),
-                          "--point_coords", "1", "2", "--output_dir",
-                          str(setup["root"] / "remove")])
+def test_inpaint_cli_remove(setup, monkeypatch):
+    from followyourclick_tpu.inpaint import lama as jlama
+    from tests.test_torch_lama import (
+        jax_vars,
+        lightning_file,
+        port_model,
+        tiny,
+    )
+
+    s = setup
+    cfg, jcfg = tiny()
+    gen = port_model(cfg, seed=5)
+    ckpt = s["root"] / "best.ckpt"
+    lightning_file(ckpt, gen)
+    monkeypatch.setattr(jinpaint_cli, "_build_lama", lambda args: (
+        jlama.LamaInpainter(jlama.FFCResNetGenerator(jcfg),
+                            jax_vars(gen, jcfg))))
+    argv = ["remove", "--input_img", str(s["png"]), "--point_coords",
+            *map(str, POINT), "--sam_model_type", "vit_t", "--sam_ckpt",
+            str(s["ckpt"]), "--lama_ckpt", str(ckpt)]
+    jinpaint_cli.main(argv + ["--output_dir", str(s["root"] / "jax_remove")])
+    out = inpaint_cli.main(argv + ["--output_dir", str(s["root"] / "remove"),
+                                   "--device", "cpu"], lama_config=cfg)
+    jdir = s["root"] / "jax_remove" / "scene"
+    want = [f"{p}_{i}.png" for i in range(3)
+            for p in ("mask", "inpainted_with_mask")]
+    assert out["files"] == want
+    assert sorted(os.listdir(out["out_dir"])) == sorted(os.listdir(jdir)) \
+        == sorted(want)
+    for i in range(3):
+        mask = read(os.path.join(out["out_dir"], f"mask_{i}.png"))
+        assert np.array_equal(mask, read(jdir / f"mask_{i}.png"))
+        got = read(os.path.join(out["out_dir"], f"inpainted_with_mask_{i}.png"))
+        close_images(got, read(jdir / f"inpainted_with_mask_{i}.png"))
+        assert np.array_equal(got[mask == 0], s["img"][mask == 0])
 
 
 def test_hash_tokenizer_is_stable_across_processes():

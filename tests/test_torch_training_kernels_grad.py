@@ -6,7 +6,8 @@ through its ``torch.autograd.Function`` (``ops/autograd.Recompute`` and
 ``ops/flash_attention.FlashAttentionGrad``); on a CPU tensor its forward is
 the plain version and its backward the fp32 recompute the card runs too.
 The same numpy inputs and cotangent go to the port's Function and to
-``jax.vjp`` of the JAX wrapper run with ``interpret=True`` (flash under
+``jax.vjp`` of the JAX wrapper run with ``interpret=True`` (the unrouted
+GroupNorm and LN-cross-attention too; flash under
 ``pltpu.force_tpu_interpret_mode``; its backward is the same recompute);
 fp32 gradients must agree within 1e-5 of the largest magnitude of each JAX
 gradient. The batch-chunked attention (the
@@ -24,14 +25,19 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from followyourclick_tpu.ops import attention as jattn
+from followyourclick_tpu.ops import cross_attention as jca
 from followyourclick_tpu.ops import flash_attention as jfa
 from followyourclick_tpu.ops import geglu as jgeglu
+from followyourclick_tpu.ops import groupnorm as jgn
 from followyourclick_tpu.ops import motion_block as jmb
 from followyourclick_tpu.ops import temporal_attention as jta
 from followyourclick_tpu_torch.ops import attention as tattn
-from followyourclick_tpu_torch.ops.autograd import refuse_grad
+from followyourclick_tpu_torch.ops.cross_attention import (
+    fused_ln_cross_attention,
+)
 from followyourclick_tpu_torch.ops.flash_attention import flash_attention
 from followyourclick_tpu_torch.ops.geglu import fused_geglu, fused_ln_geglu
+from followyourclick_tpu_torch.ops.groupnorm import fused_group_norm
 from followyourclick_tpu_torch.ops.motion_block import fused_motion_block
 from followyourclick_tpu_torch.ops.temporal_attention import (
     fused_temporal_block,
@@ -179,14 +185,48 @@ def test_no_grad_keeps_the_plain_route():
         assert temporal_attention(qg, qg, qg).grad_fn is None
 
 
-def test_refuse_grad():
-    """A kernel without a backward raises under grad, not outside it."""
-    x = torch.zeros(2, requires_grad=True)
-    with pytest.raises(RuntimeError, match="no backward"):
-        refuse_grad("fused_group_norm", x)
-    with torch.no_grad():
-        refuse_grad("fused_group_norm", x)
-    refuse_grad("fused_group_norm", x.detach())
+@pytest.mark.parametrize("act", [None, "silu"])
+def test_group_norm_grad(act):
+    b, n, c, groups = 2, 24, 32, 8
+    rs = np.random.RandomState(8)
+    x = (1.5 + rs.randn(b, n, c)).astype(np.float32)
+    scale = (1.0 + 0.1 * rs.randn(c)).astype(np.float32)
+    bias = (0.1 * rs.randn(c)).astype(np.float32)
+    cot = rs.randn(b, n, c).astype(np.float32)
+    got, out = port_grads(
+        lambda *a: fused_group_norm(*a, groups=groups, act=act),
+        [x, scale, bias], cot)
+    assert type(out.grad_fn).__name__ == "GroupNormGradBackward"
+    want, _ = jax_grads(
+        lambda *a: jgn.fused_group_norm(*a, groups=groups, act=act,
+                                        interpret=True), [x, scale, bias],
+        cot)
+    close(got, want)
+
+
+@pytest.mark.parametrize("skv", [7, 77])
+def test_cross_attention_grad(skv):
+    b, s, c, ck, heads, d = 2, 20, 32, 24, 4, 8
+    rs = np.random.RandomState(skv)
+    x = rs.randn(b, s, c).astype(np.float32)
+    ctx = rs.randn(b, skv, ck).astype(np.float32)
+    ls = (1.0 + 0.1 * rs.randn(c)).astype(np.float32)
+    lb = (0.1 * rs.randn(c)).astype(np.float32)
+    wq = (rs.randn(c, heads * d) * c ** -0.5).astype(np.float32)
+    wk, wv = ((rs.randn(ck, heads * d) * ck ** -0.5).astype(np.float32)
+              for _ in range(2))
+    wo = (rs.randn(heads * d, c) * (heads * d) ** -0.5).astype(np.float32)
+    bo = (0.02 * rs.randn(c)).astype(np.float32)
+    args = [x, ctx, ls, lb, wq, wk, wv, wo, bo]
+    cot = rs.randn(b, s, c).astype(np.float32)
+    got, out = port_grads(
+        lambda *a: fused_ln_cross_attention(*a, heads=heads), args, cot,
+        transpose={4, 5, 6, 7})
+    assert type(out.grad_fn).__name__ == "LnCrossAttentionGradBackward"
+    want, _ = jax_grads(
+        lambda *a: jca.fused_ln_cross_attention(*a, heads=heads, block_s=8,
+                                                interpret=True), args, cot)
+    close(got, want)
 
 
 def test_batch_chunked_attention(monkeypatch):
