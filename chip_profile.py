@@ -57,7 +57,7 @@ import numpy as np
 import torch
 
 import chip_smoke
-from chip_smoke import busy_us, device_intervals, trace_events
+from chip_smoke import busy_us, device_intervals, profiled, trace_events
 
 EXACT_STEPS = 4
 TOP = 30
@@ -215,24 +215,6 @@ def range_device_us(events, label):
             us[name] += e["dur"]
             n[name] += 1
     return us, n
-
-
-def profiled(acts, fn):
-    """``fn()`` once under the profiler: (wall s, peak GiB, trace events,
-    device intervals, busy s)."""
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    events = trace_events(prof)
-    iv = device_intervals(events)
-    if not iv:
-        raise SystemExit("the trace holds no device activity")
-    return wall, peak, events, iv, busy_us(iv) / 1e6
 
 
 def report_parts(label, acts, fn, parts, out_dir):

@@ -3647,6 +3647,9 @@ def phase_train(seed, cfg=None, device="cuda", clip=TRAIN_CLIP):
 REMOVE_SIZES = ((768, 1024), (512, 512))
 REMOVE_REPS = 5
 LAMA_CARD_CPU_ATOL = 1e-3
+# with the seeded BN statistics the card's distance from the CPU's fp64 may
+# be at most this many times the CPU fp32's own
+LAMA_FP64_RATIO = 2.0
 # phase 19: LaMa's GAN training at the LaMa paper's 256² crops; the batch is
 # a choice (the paper's is larger and spread over cards)
 LAMA_TRAIN_SIZE = 256
@@ -3688,24 +3691,22 @@ def busy_us(intervals):
     return total
 
 
-def device_profile(fn):
-    """``fn()`` once under ``torch.profiler`` (CPU and CUDA activities):
-    (wall s, device busy s, device seconds by kernel name)."""
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
+def profiled(acts, fn):
+    """``fn()`` once under the profiler with activities ``acts``: (wall s,
+    peak GiB, trace events, device intervals, busy s)."""
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    spans = device_intervals(trace_events(prof))
-    if not spans:
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    events = trace_events(prof)
+    iv = device_intervals(events)
+    if not iv:
         raise SystemExit("the trace holds no device activity")
-    by_name = collections.Counter()
-    for s, e, name in spans:
-        by_name[name] += (e - s) / 1e6
-    return wall, busy_us(spans) / 1e6, by_name
+    return wall, peak, events, iv, busy_us(iv) / 1e6
 
 
 def calibrate_bn_(generator, x):
@@ -3756,9 +3757,12 @@ def phase_remove(seed, root, device="cuda", sam_type="vit_h",
     FFT kernels' share of the device time, the device's idle share); the
     sigmoid output at ``cpu_size``² on the card against the port on the
     CPU, same weights (``LAMA_CARD_CPU_ATOL``; beside it both against the
-    CPU's fp64, the error fp32 itself makes; also, unbounded, before the
-    calibration); then ``cli.app.ClickSession`` (upload, click, remove) on
-    the image. No hand-written kernel may launch. Returns the launches."""
+    CPU's fp64, the error fp32 itself makes; before the calibration the
+    card's distance from fp64 at most ``LAMA_FP64_RATIO`` times the CPU
+    fp32's); ``LamaInpainter`` on the card with a box hole at a size that
+    pads, equal to the input outside the hole and to the CPU's uint8 within
+    1; then ``cli.app.ClickSession`` (upload, click, remove) on the image.
+    No hand-written kernel may launch. Returns the launches."""
     from PIL import Image
 
     from torch.utils.flop_counter import FlopCounterMode
@@ -3781,16 +3785,21 @@ def phase_remove(seed, root, device="cuda", sam_type="vit_h",
         Image.fromarray(click_image(seed, height, width)).save(png)
     img = np.asarray(Image.open(png).convert("RGB"))
 
+    def box(h, w, dev):
+        mask = torch.zeros(1, 1, h, w, device=dev)
+        mask[..., h // 4:h // 2, w // 3:2 * w // 3] = 1.0
+        return mask
+
     def inputs(h, w, dev, g=None):
         g = g or torch.Generator(device=dev).manual_seed(seed)
         image = torch.rand(1, 3, h, w, generator=g, device=dev)
-        mask = torch.zeros(1, 1, h, w, device=dev)
-        mask[..., h // 4:h // 2, w // 3:2 * w // 3] = 1.0
+        mask = box(h, w, dev)
         return torch.cat([image * (1 - mask), mask], dim=1)
 
     def card_vs_cpu(label):
         """The sigmoid output at ``cpu_size``² on the card and on the CPU
-        (fp32, and fp64 as the exact answer); returns card vs CPU."""
+        (fp32, and fp64 as the exact answer): (card vs CPU, card vs fp64,
+        CPU fp32 vs fp64, the CPU generator)."""
         cpu = build_generator(config, "cpu", state_dict={
             k: v.cpu() for k, v in gen.state_dict().items()})
         x = inputs(cpu_size, cpu_size, "cpu", torch.Generator().manual_seed(
@@ -3803,21 +3812,28 @@ def phase_remove(seed, root, device="cuda", sam_type="vit_h",
             want = cpu(x)
             cpu_s = time.perf_counter() - t0
             got = gen(x.to(device)).cpu()
-            exact = cpu.double()(x.double())
+            exact = copy.deepcopy(cpu).double()(x.double())
         hook.remove()
         err = float((got - want).abs().max())
+        card64 = float((got.double() - exact).abs().max())
+        cpu64 = float((want.double() - exact).abs().max())
         log(f"[remove] generator {cpu_size}² fp32, {label}: logits in "
             f"[{float(logits[0].min()):.1f}, {float(logits[0].max()):.1f}]; "
             f"card vs CPU (TF32 off) max |Δ| of the sigmoid output "
-            f"{err:.3e}; against the CPU's fp64: card "
-            f"{float((got.double() - exact).abs().max()):.3e}, CPU fp32 "
-            f"{float((want.double() - exact).abs().max()):.3e}; the CPU "
-            f"fp32 call took {cpu_s:.2f} s")
-        return err
+            f"{err:.3e}; against the CPU's fp64: card {card64:.3e}, CPU "
+            f"fp32 {cpu64:.3e} (ratio {card64 / cpu64:.3f}); the CPU fp32 "
+            f"call took {cpu_s:.2f} s")
+        return err, card64, cpu64, cpu
 
     gen = build_generator(config, device, torch.Generator(
         device=device).manual_seed(seed))
-    card_vs_cpu("seeded BN statistics (not held to a bound)")
+    _, card64, cpu64, _ = card_vs_cpu(
+        f"seeded BN statistics (card vs fp64 at most {LAMA_FP64_RATIO:g}× "
+        "the CPU fp32's)")
+    if card64 > LAMA_FP64_RATIO * cpu64:
+        raise SystemExit("[remove] with seeded BN statistics the card is "
+                         f"{card64 / cpu64:.3f}× as far from fp64 as the "
+                         "CPU's fp32")
     calibrate_bn_(gen, inputs(cpu_size, cpu_size, device,
                               torch.Generator(device=device).manual_seed(
                                   seed + 1)))
@@ -3873,7 +3889,14 @@ def phase_remove(seed, root, device="cuda", sam_type="vit_h",
         x = inputs(*sizes[0], device)
         with FlopCounterMode(display=False) as flops:
             gen(x)
-        wall, busy, by_name = device_profile(lambda: gen(x))
+        # the profile resets the peak: the phase's peak is the larger
+        peak = torch.cuda.max_memory_allocated()
+        wall, _, _, spans, busy = profiled(
+            [torch.profiler.ProfilerActivity.CPU,
+             torch.profiler.ProfilerActivity.CUDA], lambda: gen(x))
+    by_name = collections.Counter()
+    for start, end, name in spans:
+        by_name[name] += (end - start) / 1e6
     tflop = flops.get_total_flops() / 1e12
     median = float(np.median(times[sizes[0]])) / 1e3
     log(f"[remove] generator {sizes[0][0]}x{sizes[0][1]}: {tflop:.3f} TFLOP "
@@ -3888,9 +3911,27 @@ def phase_remove(seed, root, device="cuda", sam_type="vit_h",
         f"{fft / busy:.3f} of the device time ({CARD})")
     for name, t in by_name.most_common(6):
         log(f"[remove]   {t * 1e3:9.3f} ms  {name[:110]}")
-    if card_vs_cpu(f"calibrated (bound {LAMA_CARD_CPU_ATOL:g})") \
-            > LAMA_CARD_CPU_ATOL:
+    err, _, _, cpu = card_vs_cpu(f"calibrated (bound {LAMA_CARD_CPU_ATOL:g})")
+    if err > LAMA_CARD_CPU_ATOL:
         raise SystemExit("[remove] the generator disagrees card vs CPU")
+    # LamaInpainter on the card with a partial mask, at a size that pads to
+    # a multiple of 8: the pixels outside the hole are the input's, bit for
+    # bit, and the uint8 output is the CPU's within one (the truncation)
+    h, w = cpu_size - 3, cpu_size - 2
+    crop = np.ascontiguousarray(img[:h, :w])
+    hole = box(h, w, "cpu")[0, 0].numpy().astype(np.uint8)
+    on_card = LamaInpainter(gen, device)(crop, hole)
+    on_cpu = LamaInpainter(cpu, "cpu")(crop, hole)
+    keep = hole == 0
+    same = bool(np.array_equal(on_card[keep], crop[keep]))
+    diff = np.abs(on_card.astype(int) - on_cpu)
+    log(f"[remove] LamaInpainter {h}x{w} on the card, a box hole of "
+        f"{int(hole.sum())} pixels: the other {int(keep.sum())} equal to "
+        f"the input bit for bit: {same}; card vs CPU uint8 max |Δ| "
+        f"{int(diff.max())} (bound 1), {int((diff > 0).sum())} values "
+        "differ")
+    if on_card.shape != crop.shape or not same or diff.max() > 1:
+        raise SystemExit("[remove] LamaInpainter with a box mask")
     args = cli_inpaint.build_parser().parse_args(argv)
     session = ClickSession(build_predictor(args), LamaInpainter(gen, device),
                            CLICK_DILATE)
@@ -3909,7 +3950,8 @@ def phase_remove(seed, root, device="cuda", sam_type="vit_h",
     got = {name: fn.launches for name, fn in wrappers.items()}
     log(f"[remove] ClickSession upload / click / remove (3 masks): "
         f"{' / '.join(f'{steps[k]:.1f}' for k in steps)} ms; peak device "
-        f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+        f"memory {max(peak, torch.cuda.max_memory_allocated()) / 2 ** 30:.2f}"
+        " GiB; "
         f"launches {got} ({CARD})")
     if any(got.values()):
         raise SystemExit(f"[remove] a hand-written kernel launched: {got}")

@@ -186,16 +186,18 @@ def build_lama(args, lama_config=None):
     """The LaMa inpainter the flags ask for, on ``args.device``:
     ``lama_config`` (default: big-LaMa, ``LamaConfig()``) with the weights
     of ``--lama_ckpt``, or seeded from ``--seed``."""
-    from followyourclick_tpu_torch.inpaint.convert import lama_from_checkpoint
+    from followyourclick_tpu_torch.inpaint.convert import load_lama_checkpoint
     from followyourclick_tpu_torch.inpaint.lama import (
         LamaConfig,
         LamaInpainter,
+        build_generator,
     )
 
     cfg = lama_config or LamaConfig()
     if args.lama_ckpt:
-        return LamaInpainter(lama_from_checkpoint(cfg, args.lama_ckpt,
-                                                  args.device), args.device)
+        state = load_lama_checkpoint(args.lama_ckpt)
+        return LamaInpainter(build_generator(cfg, args.device,
+                                             state_dict=state), args.device)
     return LamaInpainter.init_random(cfg, seed=args.seed, device=args.device)
 
 

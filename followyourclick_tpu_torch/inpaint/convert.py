@@ -22,16 +22,12 @@ torch's transposed convolution does, so the stored values are not flipped.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
 
-from followyourclick_tpu_torch.inpaint.lama import (
-    FFCResNetGenerator,
-    LamaConfig,
-    build_generator,
-)
+from followyourclick_tpu_torch.inpaint.lama import LamaConfig
 from followyourclick_tpu_torch.utils.convert import state_dict_from_tree
 
 
@@ -53,17 +49,6 @@ def load_lama_checkpoint(path: str) -> Dict[str, torch.Tensor]:
     the CPU."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     return generator_state(ckpt.get("state_dict", ckpt))
-
-
-def lama_from_checkpoint(config: LamaConfig = LamaConfig(),
-                         path: Optional[str] = None, device="cuda",
-                         generator: Optional[torch.Generator] = None
-                         ) -> FFCResNetGenerator:
-    """The checkpoint at ``path`` loaded strictly into a generator on
-    ``device``, or, without ``path``, seeded random weights from
-    ``generator``."""
-    state = load_lama_checkpoint(path) if path else None
-    return build_generator(config, device, generator, state)
 
 
 def _conv(p):

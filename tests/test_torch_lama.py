@@ -202,8 +202,7 @@ def test_load_lightning_checkpoint(tmp_path):
     lightning_file(tmp_path / "best.ckpt", model)
     state = convert.load_lama_checkpoint(str(tmp_path / "best.ckpt"))
     assert sorted(state) == sorted(model.state_dict())
-    loaded = convert.lama_from_checkpoint(cfg, str(tmp_path / "best.ckpt"),
-                                          "cpu")
+    loaded = lama.build_generator(cfg, "cpu", state_dict=state)
     # the JAX converter on the same file's tensors
     sd = torch.load(tmp_path / "best.ckpt", weights_only=True)["state_dict"]
     variables = jconvert.convert_lama_state_dict(
@@ -234,8 +233,9 @@ def test_strict_load_rejects_other_widths(tmp_path):
     cfg, _ = tiny()
     torch.save(port_model(cfg).state_dict(), tmp_path / "g.pth")
     with pytest.raises(RuntimeError):
-        convert.lama_from_checkpoint(lama.LamaConfig(**{**TINY, "ngf": 16}),
-                                     str(tmp_path / "g.pth"), "cpu")
+        lama.build_generator(lama.LamaConfig(**{**TINY, "ngf": 16}), "cpu",
+                             state_dict=convert.load_lama_checkpoint(
+                                 str(tmp_path / "g.pth")))
 
 
 def test_inpainter_matches_jax():

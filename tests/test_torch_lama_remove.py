@@ -144,8 +144,6 @@ def test_smoke_phases_rehearse_on_the_cpu(monkeypatch, tmp_path):
     """``chip_smoke`` phases 18-19 at a tiny LaMa, a ``vit_t`` SAM and
     small images on the CPU (the card's events, memory statistics and
     profiler stubbed): every check they make on the card passes."""
-    import collections
-
     import chip_smoke
 
     for name, fn in (("Event", _Event), ("synchronize", lambda *a: None),
@@ -153,8 +151,8 @@ def test_smoke_phases_rehearse_on_the_cpu(monkeypatch, tmp_path):
                      ("max_memory_allocated", lambda *a: 0),
                      ("empty_cache", lambda *a: None)):
         monkeypatch.setattr(torch.cuda, name, fn)
-    monkeypatch.setattr(chip_smoke, "device_profile", lambda fn: (
-        fn(), 1.0, 0.5, collections.Counter({"fft_r2c": 0.1}))[1:])
+    monkeypatch.setattr(chip_smoke, "profiled", lambda acts, fn: (
+        fn(), 1.0, 0.0, [], [(0.0, 1e5, "fft_r2c")], 0.5)[1:])
     cfg = lama.LamaConfig(ngf=8, n_downsampling=2, n_blocks=2)
     got = chip_smoke.phase_remove(0, str(tmp_path), device="cpu",
                                   sam_type="vit_t", image_size=(72, 96),
