@@ -29,15 +29,19 @@ device intervals inside that part's host range); the click front-end
 postprocessing in ranges) and the SD fill (``fill``: the inpaint pipeline
 on the synthetic SD-1.5 directory, one 512² crop, 25 steps, with the text
 encoder, the VAE encode, each UNet step and the VAE decode in ranges),
-each part's device time by the correlation ids of its launches. For each
-path it prints
+each part's device time by the correlation ids of its launches; the
+motion score (``flow``: :func:`profile_flow`, the device time by aten op
+and input shapes). For each path it prints
 the wall time (host clock, ending in ``torch.cuda.synchronize()``), the
 peak device memory of the profiled request, the device's busy time (the union of the kernel,
 memcpy and memset intervals of the trace), the device span, the idle share
 of the wall time, each kernel wrapper's device time, calls, device launches
 and share of the wall, and the 30 kernels that take the most device time;
 the whole table goes to
-``chiprun_out/profile_<path>.txt``. Needs torch with CUDA and the CUDA
+``chiprun_out/profile_<path>.txt``. The process keeps PyTorch's precision
+flags; every path goes through entry points that run under
+``utils/backend_flags.checked_precision``, but the training step's
+functions, which run under it here. Needs torch with CUDA and the CUDA
 toolkit; imports no JAX.
 """
 
@@ -474,21 +478,151 @@ def profile_train(argv, out_dir: Path) -> int:
     return 0
 
 
+def profile_flow(acts, out_dir, seed=0, device="cuda"):
+    """The motion score of ``chip_smoke.phase_motion_score`` (seeded RAFT
+    with calibrated BN, a 16-frame 512² clip, 12 iterations): one warm call
+    under the profiler with the shapes recorded, the device time by aten
+    op and input shapes (which convolution takes the time, and by which
+    cuDNN algorithm's kernels); then, as a diagnostic of cuDNN's choice
+    alone, the same call with ``torch.backends.cudnn.benchmark`` on (not a
+    setting of the port), warm, median of 3, set back after."""
+    from followyourclick_tpu_torch.flow.api import compute_motion_score
+
+    frames = chip_smoke.flow_clip(seed, *chip_smoke.FLOW_CLIP)
+    model = chip_smoke.flow_model(seed, frames, device)
+
+    def call():
+        return compute_motion_score(model, frames, chip_smoke.FLOW_ITERS)
+
+    call()
+    ms, _ = chip_smoke.event_ms(call, reps=3)
+    with torch.profiler.profile(activities=acts, record_shapes=True) as prof:
+        call()
+        torch.cuda.synchronize()
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+
+    rows = sorted(prof.key_averages(group_by_input_shape=True),
+                  key=device_us, reverse=True)
+    lines = [f"{device_us(e) / 1e3:10.2f} ms {e.count:6d}  {e.key}  "
+             f"{e.input_shapes}" for e in rows if device_us(e) > 0]
+    (out_dir / "profile_flow.txt").write_text("\n".join(lines) + "\n")
+    chip_smoke.log(f"[flow] motion score, warm: "
+                   f"{' / '.join(f'{t:.1f}' for t in ms)} ms "
+                   f"({chip_smoke.CARD}); device time by op and shapes:")
+    for line in lines[:12]:
+        chip_smoke.log(f"[flow]   {line[:220]}")
+    saved = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        call()
+        bench, _ = chip_smoke.event_ms(call, reps=3)
+    finally:
+        torch.backends.cudnn.benchmark = saved
+    chip_smoke.log(f"[flow] the same call with cudnn.benchmark on "
+                   f"(diagnostic): {' / '.join(f'{t:.1f}' for t in bench)} "
+                   f"ms")
+    conv_diagnostic(model, device)
+
+
+def conv_diagnostic(model, device):
+    """The motion encoder's 3x3 convs at the motion score's shapes (15
+    pairs at 512²: (15, 256, 64, 64) in), fp32, each way median of 5 by
+    CUDA events, beside the bound of their operations at the fp32 peak:
+    cuDNN as called, with ``cudnn.benchmark`` over every algorithm
+    (``benchmark_limit`` 0), in channels-last memory, as unfold + one
+    cuBLAS product (plain ops), and with TF32 on (outside the port's
+    contract) — which of them the card runs at a sane rate."""
+    import torch.nn.functional as F
+
+    from followyourclick_tpu_torch.utils.backend_flags import (
+        checked_precision,
+    )
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    x = torch.randn(15, 256, 64, 64, generator=gen, device=device)
+    for name, conv in (("corr_net.1", model.decoder.encoder.corr_net[1]),
+                       ("out_net.0", model.decoder.encoder.out_net[0])):
+        w, b = conv.conv.weight, conv.conv.bias
+        ops = 2 * x.shape[0] * 64 * 64 * w.numel()
+        with checked_precision(), torch.no_grad():
+            want = F.conv2d(x, w, b, padding=1)
+
+        def unfold():
+            cols = F.unfold(x, 3, padding=1)              # (B, 2304, HW)
+            out = w.reshape(w.shape[0], -1) @ cols + b[:, None]
+            return out.reshape(x.shape[0], -1, 64, 64)
+
+        ways = {"cuDNN as called": lambda: F.conv2d(x, w, b, padding=1),
+                "unfold + cuBLAS": unfold}
+        xl = x.contiguous(memory_format=torch.channels_last)
+        wl = w.contiguous(memory_format=torch.channels_last)
+        ways["channels-last"] = lambda: F.conv2d(xl, wl, b, padding=1)
+        rows = []
+        with checked_precision(), torch.no_grad():
+            for label, fn in ways.items():
+                fn()
+                ms, out = chip_smoke.event_ms(fn, reps=5)
+                err = float((out - want).abs().max())
+                rows.append((label, float(np.median(ms)), err))
+            saved = (torch.backends.cudnn.benchmark,
+                     torch.backends.cudnn.benchmark_limit)
+            torch.backends.cudnn.benchmark = True
+            torch.backends.cudnn.benchmark_limit = 0
+            try:
+                fn = ways["cuDNN as called"]
+                fn()
+                ms, out = chip_smoke.event_ms(fn, reps=5)
+                rows.append(("cuDNN, benchmark over every algorithm",
+                             float(np.median(ms)),
+                             float((out - want).abs().max())))
+            finally:
+                (torch.backends.cudnn.benchmark,
+                 torch.backends.cudnn.benchmark_limit) = saved
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            with torch.no_grad():
+                fn = ways["cuDNN as called"]
+                fn()
+                ms, out = chip_smoke.event_ms(fn, reps=5)
+                rows.append(("cuDNN, TF32 on (outside the contract)",
+                             float(np.median(ms)),
+                             float((out - want).abs().max())))
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+        for label, ms, err in rows:
+            chip_smoke.log(f"[flow conv] {name} {tuple(x.shape)} x "
+                           f"{tuple(w.shape)}: {label} {ms:.3f} ms (bound "
+                           f"{ops / chip_smoke.PEAK_FP32_OPS * 1e3:.3f} ms "
+                           f"at the fp32 peak), max |Δ| from cuDNN's fp32 "
+                           f"{err:.2e} ({chip_smoke.CARD})")
+
+
 def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device; this script runs only on the "
               "card", file=sys.stderr)
         return 1
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-
     argv = list(sys.argv[1:] if argv is None else argv)
 
     from followyourclick_tpu_torch.pipelines.animation import SampleSpec
     from followyourclick_tpu_torch.pipelines.serving_schedules import (
         apply_schedule,
     )
+    from followyourclick_tpu_torch.utils.backend_flags import precision_flags
+
+    # the process keeps PyTorch's flags: the requests, the CLI, the click
+    # and the fill go through entry points that set the port's contract;
+    # the training step's functions run under it here
+    defaults = precision_flags()
+
+    def check_flags(label):
+        if precision_flags() != defaults:
+            raise SystemExit(f"{label}: the precision flags are "
+                             f"{precision_flags()} after it, not {defaults}")
 
     chip_smoke.phase_build()
     exact = SampleSpec(num_inference_steps=EXACT_STEPS)
@@ -502,11 +636,12 @@ def main(argv=None) -> int:
         f"exact_{chip_smoke.BATCH}clips": (exact, chip_smoke.BATCH, False),
         "exact_ip_plus": (exact, 1, True),
     }
-    chosen = argv or [*paths, "cli", "click", "fill"]
+    chosen = argv or [*paths, "cli", "click", "fill", "flow"]
     out_dir = Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)
     if chosen[:1] == ["train"]:
-        return profile_train(chosen[1:], out_dir)
+        with chip_smoke.checked_precision():
+            return profile_train(chosen[1:], out_dir)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     pipe = None
@@ -552,13 +687,15 @@ def main(argv=None) -> int:
         (out_dir / f"profile_{label}.txt").write_text("\n".join(rows) + "\n")
         for row in rows[:TOP]:
             chip_smoke.log(f"[{label}] {row[:150]}")
+        check_flags(label)
     for name, fn in (("cli", profile_cli), ("click", profile_click),
-                     ("fill", profile_fill)):
+                     ("fill", profile_fill), ("flow", profile_flow)):
         if name in chosen:
             pipe = None
             gc.collect()
             torch.cuda.empty_cache()
             fn(acts) if name == "cli" else fn(acts, out_dir)
+            check_flags(name)
     return 0
 
 

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's click-to-video sampler and trainer on one card.
+"""Drive the PyTorch port's click-to-video sampler, trainer and flow stack on
+one card.
 
     python3 chip_smoke.py [--steps 4] [--seed 0]
 
@@ -95,7 +96,11 @@ result line:
    by CUDA events and on the device, and against fp32; phase 4's check of
    an evaluation with the T5 states; an exact request cold and warm; a
    ``pab488_deep4_cfg4_ex`` request, whose recording steps cache
-   ``attn_t5_out`` beside ``attn2_out``;
+   ``attn_t5_out`` beside ``attn2_out``; then a text request
+   (:func:`phase_t5_text`): a tiny SD directory and a tiny T5 directory
+   with a ``tokenizer.json`` through ``assemble_pipeline_from_pretrained``,
+   a prompt's T5 ids equal to ``T5_TEXT_IDS``, the request through
+   ``__call__`` equal to the same ids through ``sample``;
 12. the routes: one full-width bf16 evaluation with cross-frame and
    in-block temporal attention and RoPE / LoRA motion modules, phase 4's
    check, its launches equal to ``ROUTES_LAUNCHES``;
@@ -158,7 +163,30 @@ result line:
    three alternations at batch 4 of 256² by CUDA events: every loss term
    finite, every parameter moved, the generator's BN statistics changed
    and the discriminator's bit-identical; no launches; one tiny
-   alternation card vs CPU (``LAMA_TINY_REL``).
+   alternation card vs CPU (``LAMA_TINY_REL``);
+20. the motion score (:func:`phase_motion_score`): seeded RAFT at the
+   widths of ``configs/flow/raft_flyingchairs.yaml`` (5.26 M, fp32), BN
+   calibrated, ``flow.api.compute_motion_score`` on a seeded 16-frame 512²
+   clip (15 pairs in one batch, 12 iterations) by CUDA events, peak memory,
+   one call under the profiler (idle share, device time by kernel); card
+   vs CPU on 2 pairs of 256² at 32 iterations (``FLOW_CARD_CPU_ATOL``, and
+   against the CPU's fp64, ``FLOW_FP64_RATIO``); one GMA call card vs CPU;
+   a synthetic mmflow-named ``.pth`` loaded strictly; no launches;
+21. flow training through ``cli.flow_tools`` (:func:`phase_flow_train`) on
+   synthetic FlyingChairs: ``train`` at the published 368x496 crop, batch
+   2, 12 iterations, 3 steps (loss finite, warm ms a step, peak, every
+   tensor moved), a second ``train`` resumed from the first run's
+   checkpoint (the same loss, the update within ``FLOW_RESUME_REL``),
+   ``test`` on a synthetic Sintel pair at 436x1024 (32 iterations),
+   ``benchmark`` at 448x1024, ``flops``; no launches.
+
+The numerics contract: the script leaves the process's precision flags at
+PyTorch's defaults. The phases that call modules directly (2-12, the
+training kernels, phase 17's step comparison, phase 18's generator calls
+and the calibration passes) run under ``utils/backend_flags
+.checked_precision``; the phases that go through the port's entry points
+(the text request, 13, 15-21) do not, and after each the flags must be
+the process's again.
 
 Phase 2 is followed by the training kernels' checks
 (:func:`phase_train_kernels`): the motion block and LN-GEGLU at the
@@ -174,9 +202,9 @@ Phase 2 also holds flash attention at the level-0 cross-frame shape of one
 clip (``CROSS_FRAME_FLASH``, 8192 keys) and the frame attention at the
 ``temporal_attention_dim_div = 2`` widths.
 
-Phases 5 to 19 are the main paths: each sets every kernel's launch count to
+Phases 5 to 21 are the main paths: each sets every kernel's launch count to
 0 before each request (phases 13, 15 and 16: before each CLI run and
-before the click phase; phase 17: before the training loop; phases 18-19:
+before the click phase; phase 17: before the training loop; phases 18-21:
 at their start) and checks the
 request's counts against those its :func:`expected_launches` gives at its
 batch (from ``request_plan``: the solver's calls, CFG or not, the
@@ -2304,6 +2332,182 @@ def fan_in_init_(t5, gen):
                 p.normal_(0.0, p.shape[1] ** -0.5, generator=gen)
 
 
+# a tiny T5 SentencePiece vocabulary (Unigram pieces and log-probabilities):
+# the special tokens at T5's ids (pad 0, eos 1, unk 2), whole words, then
+# single characters, so every ASCII letter of a prompt has a piece
+T5_TINY_PIECES = (
+    [("<pad>", 0.0), ("</s>", 0.0), ("<unk>", 0.0)]
+    + [(w, -2.0 - 0.25 * i) for i, w in enumerate(
+        ["▁a", "▁the", "▁car", "▁cat", "▁drives", "▁on", "▁road", "▁red",
+         "▁sun", "▁garden", "▁blue", "▁dog", "▁runs", "▁in", "▁é"])]
+    + [(c, -6.0 - 0.05 * i) for i, c in enumerate(
+        ["▁", *"abcdefghijklmnopqrstuvwxyz", "é", "ü"])])
+# the T5 encoder of the text request: HF config.json fields (vocab at least
+# the tokenizer's)
+T5_TINY_HF = {"vocab_size": 64, "d_model": 16, "d_kv": 4, "d_ff": 24,
+              "num_layers": 2, "num_heads": 2,
+              "feed_forward_proj": "gated-gelu"}
+# the text request's prompt and the ids T5TokenizerFast (and the JAX
+# package's tokenize_2) give it over T5_TINY_PIECES: held on the CPU by
+# tests/test_torch_t5_tokenizer.py, on the card by phase_t5_text
+T5_TEXT_PROMPT = "a red car drives on the road"
+T5_TEXT_IDS = [3, 10, 5, 7, 8, 4, 9, 1]
+
+
+def write_t5_tokenizer(root, pieces=T5_TINY_PIECES):
+    """``tokenizer.json`` (and the ``tokenizer_config.json`` transformers
+    reads) of a T5 Unigram tokenizer over ``pieces``, in the layout
+    ``T5TokenizerFast.save_pretrained`` writes: NFKC, right strip and runs
+    of spaces to one ``▁``, the Metaspace pre-tokenizer, the ``$A </s>``
+    template."""
+    os.makedirs(root, exist_ok=True)
+    special = ["<pad>", "</s>", "<unk>"]
+    meta = {"type": "Metaspace", "replacement": "▁",
+            "prepend_scheme": "always", "split": True}
+    spec = {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": [{"id": i, "content": t, "single_word": False,
+                          "lstrip": False, "rstrip": False,
+                          "normalized": False, "special": True}
+                         for i, t in enumerate(special)],
+        "normalizer": {"type": "Sequence", "normalizers": [
+            {"type": "NFKC"},
+            {"type": "Strip", "strip_left": False, "strip_right": True},
+            {"type": "Replace", "pattern": {"Regex": " {2,}"},
+             "content": "▁"}]},
+        "pre_tokenizer": meta,
+        "post_processor": {
+            "type": "TemplateProcessing",
+            "single": [{"Sequence": {"id": "A", "type_id": 0}},
+                       {"SpecialToken": {"id": "</s>", "type_id": 0}}],
+            "pair": [{"Sequence": {"id": "A", "type_id": 0}},
+                     {"SpecialToken": {"id": "</s>", "type_id": 0}},
+                     {"Sequence": {"id": "B", "type_id": 0}},
+                     {"SpecialToken": {"id": "</s>", "type_id": 0}}],
+            "special_tokens": {"</s>": {"id": "</s>", "ids": [1],
+                                        "tokens": ["</s>"]}}},
+        "decoder": meta,
+        "model": {"type": "Unigram", "unk_id": 2,
+                  "vocab": [[p, s] for p, s in pieces],
+                  "byte_fallback": False}}
+    with open(os.path.join(root, "tokenizer.json"), "w",
+              encoding="utf-8") as f:
+        json.dump(spec, f, ensure_ascii=False)
+    with open(os.path.join(root, "tokenizer_config.json"), "w") as f:
+        json.dump({"tokenizer_class": "T5TokenizerFast", "eos_token": "</s>",
+                   "unk_token": "<unk>", "pad_token": "<pad>",
+                   "extra_ids": 0, "model_max_length": 512}, f)
+
+
+def write_t5_directory(root, seed, device="cuda"):
+    """A tiny T5 encoder directory as a user would download one:
+    ``config.json`` (``T5_TINY_HF``), ``model.safetensors`` (seeded weights
+    in the HF names) and the tokenizer of :func:`write_t5_tokenizer`."""
+    hf = T5_TINY_HF
+    d, kv, ff, heads = hf["d_model"], hf["d_kv"], hf["d_ff"], hf["num_heads"]
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def w(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device=device)
+                ).cpu()
+
+    state = {"shared.weight": w(hf["vocab_size"], d),
+             "encoder.final_layer_norm.weight": 1 + w(d, scale=0.05),
+             "encoder.block.0.layer.0.SelfAttention.relative_attention_bias."
+             "weight": w(32, heads)}
+    state["encoder.embed_tokens.weight"] = state["shared.weight"]
+    for i in range(hf["num_layers"]):
+        p = f"encoder.block.{i}.layer"
+        for n in "qkv":
+            state[f"{p}.0.SelfAttention.{n}.weight"] = w(heads * kv, d,
+                                                         scale=d ** -0.5)
+        state[f"{p}.0.SelfAttention.o.weight"] = w(d, heads * kv,
+                                                   scale=(heads * kv) ** -0.5)
+        state[f"{p}.0.layer_norm.weight"] = 1 + w(d, scale=0.05)
+        for n in ("wi_0", "wi_1"):
+            state[f"{p}.1.DenseReluDense.{n}.weight"] = w(ff, d,
+                                                          scale=d ** -0.5)
+        state[f"{p}.1.DenseReluDense.wo.weight"] = w(d, ff, scale=ff ** -0.5)
+        state[f"{p}.1.layer_norm.weight"] = 1 + w(d, scale=0.05)
+    os.makedirs(root, exist_ok=True)
+    with open(os.path.join(root, "config.json"), "w") as f:
+        json.dump(hf, f)
+    write_safetensors(os.path.join(root, "model.safetensors"),
+                      {k: v.contiguous() for k, v in state.items()})
+    write_t5_tokenizer(root)
+
+
+def phase_t5_text(seed, root, device="cuda"):
+    """Phase 11's text request: a tiny SD-1.5 directory
+    (:func:`tiny_config` with the T5 cross-attention,
+    :func:`write_sd_directory`) and a tiny T5 directory with its
+    ``tokenizer.json`` (:func:`write_t5_directory`) through
+    ``assemble_pipeline_from_pretrained(t5_path=...)`` in fp32 on
+    ``device``; ``tokenize_2`` of ``T5_TEXT_PROMPT`` must give
+    ``T5_TEXT_IDS``; a request with the prompt as text through
+    ``__call__`` must equal the same request through ``sample`` with the
+    ids (the same noise), and a request whose T5 ids alone differ must not.
+    Returns the text request's launches."""
+    from followyourclick_tpu_torch.pipelines.animation import SampleSpec
+    from followyourclick_tpu_torch.utils.loaders import (
+        assemble_pipeline_from_pretrained,
+    )
+    from followyourclick_tpu_torch.utils.t5_tokenizer import T5Tokenizer
+
+    base = tiny_config()
+    cfg = dataclasses.replace(base, unet=dataclasses.replace(
+        base.unet, use_text_encoder_2=True,
+        text_encoder_2_dim=T5_TINY_HF["d_model"]))
+    sd, t5_dir = os.path.join(root, "sd_tiny"), os.path.join(root, "t5_tiny")
+    _, mm = write_sd_directory(sd, base, seed, device, torch.float32)
+    write_t5_directory(t5_dir, seed, device)
+    pipe = assemble_pipeline_from_pretrained(
+        sd, cfg, motion_module_path=mm, t5_path=t5_dir,
+        dtype=torch.float32, device=device)
+    if not isinstance(pipe.tokenizer_2, T5Tokenizer):
+        raise SystemExit("t5 text: the loader built no T5 tokenizer")
+    unzero_(pipe.unet, torch.Generator(device=device).manual_seed(seed))
+    ids, mask, neg, neg_mask = pipe.tokenize_2([T5_TEXT_PROMPT], [""])
+    n = len(T5_TEXT_IDS)
+    if ids[0, :n].tolist() != T5_TEXT_IDS or ids[0, n:].any() \
+            or mask[0].sum() != n or neg[0, 0] != 1 or neg_mask[0].sum() != 1:
+        raise SystemExit(f"t5 text: tokenize_2 gave {ids[0, :n + 2]}")
+    spec = SampleSpec(video_length=4, height=64, width=64,
+                      num_inference_steps=2)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    latents = torch.randn(1, 8, 8, 4, generator=gen, device=device)
+    click = (torch.rand(1, 8, 8, 1, generator=gen, device=device) > 0.5
+             ).float()
+    noise = torch.randn(1, 4, 8, 8, 4, generator=gen, device=device)
+    wrappers = launches_zeroed()
+    text = pipe(T5_TEXT_PROMPT, "", spec, latents, click, noise=noise)
+    got = {name: fn.launches for name, fn in wrappers.items()}
+    clip_ids, clip_neg = pipe.tokenize([T5_TEXT_PROMPT], [""])
+
+    def by_ids(t5_ids):
+        return pipe.sample(
+            torch.from_numpy(clip_ids), torch.from_numpy(clip_neg), latents,
+            click, torch.tensor([8.0]), torch.tensor([20.0]), spec,
+            noise=noise, t5_input_ids=torch.from_numpy(t5_ids),
+            t5_attention_mask=torch.from_numpy(mask),
+            t5_neg_input_ids=torch.from_numpy(neg),
+            t5_neg_attention_mask=torch.from_numpy(neg_mask)).cpu().numpy()
+
+    same = float(np.abs(text - by_ids(ids)).max())
+    other = ids.copy()
+    other[0, :n - 1] = other[0, 1:n][::-1]
+    moved = float(np.abs(text - by_ids(other)).max())
+    log(f"[t5] text request through the loader's T5 tokenizer "
+        f"({T5_TEXT_PROMPT!r} → {T5_TEXT_IDS}): video "
+        f"{tuple(text.shape)}, max |text − ids| {same:.3e}, with other T5 "
+        f"ids {moved:.3e}; launches {got}")
+    if text.shape != (1, 4, 64, 64, 3) or not np.isfinite(text).all() \
+            or same > 0 or moved == 0:
+        raise SystemExit("t5 text: the text request differs from the ids "
+                         "request, or the T5 ids do not reach the video")
+    return got
+
+
 def phase_routes(seed):
     """One full-width bf16 UNet evaluation with the options that change
     routes (:func:`routes_unet`: cross-frame and in-block temporal
@@ -3513,15 +3717,17 @@ def phase_train(seed, cfg=None, device="cuda", clip=TRAIN_CLIP):
         f"frames {clip[1]}x{clip[2]} by encode_batch")
     kw = dict(unet=unet, text_encoder=text, sched=sched, cfg=tcfg)
 
-    # step 1, kernel route against plain route, on the same draws
+    # step 1, kernel route against plain route, on the same draws (the
+    # step functions alone, under the flags train_loop sets)
     draws = ts.draw_step(batch.latents, sched, tcfg,
                          torch.Generator(device=device).manual_seed(seed))
-    loss_k, grads_k = ts.partitioned_loss_and_grads(state, batch, draws,
-                                                    **kw)
     plain = plain_versions()
-    with wrappers_replaced(lambda name, fn: plain[name]):
-        loss_p, grads_p = ts.partitioned_loss_and_grads(state, batch, draws,
+    with checked_precision():
+        loss_k, grads_k = ts.partitioned_loss_and_grads(state, batch, draws,
                                                         **kw)
+        with wrappers_replaced(lambda name, fn: plain[name]):
+            loss_p, grads_p = ts.partitioned_loss_and_grads(
+                state, batch, draws, **kw)
     loss_k, loss_p = float(loss_k), float(loss_p)
     rel = abs(loss_k - loss_p) / abs(loss_p)
     cos, worst_leaf = motion_module_cosines(grads_k, grads_p)
@@ -3709,9 +3915,9 @@ def profiled(acts, fn):
     return wall, peak, events, iv, busy_us(iv) / 1e6
 
 
-def calibrate_bn_(generator, x):
+def calibrate_bn_(generator, *inputs):
     """Set every BN's running statistics to those of one train-mode pass
-    on ``x``, as a trained network's are its data's. Seeded statistics
+    on ``inputs``, as a trained network's are its data's. Seeded statistics
     (mean ≈ 0, variance ≈ 1) do not normalise what seeded convs give them:
     big-LaMa's residual stream then grows block by block, to logits in the
     thousands, where fp32 itself is far from fp64 on the sigmoid output
@@ -3723,7 +3929,7 @@ def calibrate_bn_(generator, x):
         m.momentum = 1.0
     generator.train()
     with torch.no_grad():
-        generator(x)
+        generator(*inputs)
     for m, momentum in zip(bns, momenta):
         m.momentum = momentum
     return generator.eval()
@@ -3807,7 +4013,7 @@ def phase_remove(seed, root, device="cuda", sam_type="vit_h",
         logits = []
         hook = cpu.model[-1].register_forward_hook(
             lambda m, i, o: logits.append(i[0]))
-        with torch.inference_mode():
+        with torch.inference_mode(), checked_precision():
             t0 = time.perf_counter()
             want = cpu(x)
             cpu_s = time.perf_counter() - t0
@@ -3834,9 +4040,10 @@ def phase_remove(seed, root, device="cuda", sam_type="vit_h",
         raise SystemExit("[remove] with seeded BN statistics the card is "
                          f"{card64 / cpu64:.3f}× as far from fp64 as the "
                          "CPU's fp32")
-    calibrate_bn_(gen, inputs(cpu_size, cpu_size, device,
-                              torch.Generator(device=device).manual_seed(
-                                  seed + 1)))
+    with checked_precision():
+        calibrate_bn_(gen, inputs(cpu_size, cpu_size, device,
+                                  torch.Generator(device=device).manual_seed(
+                                      seed + 1)))
     n = sum(p.numel() for p in gen.parameters())
     ckpt = os.path.join(root, "best.ckpt")
     t0 = time.perf_counter()
@@ -3874,7 +4081,7 @@ def phase_remove(seed, root, device="cuda", sam_type="vit_h",
             f"{np.abs(out.astype(int) - img)[~keep].mean():.2f}")
 
     times = {}
-    with torch.inference_mode():
+    with torch.inference_mode(), checked_precision():
         for h, w in sizes:
             x = inputs(h, w, device)
             gen(x)
@@ -4085,6 +4292,368 @@ def phase_lama_train(seed, device="cuda", config=None,
     return got
 
 
+# phase 20: the motion score of a seeded 16-frame 512² clip (15 pairs, 12
+# GRU iterations) at the widths of configs/flow/raft_flyingchairs.yaml
+# (mmflow raft_8x2_100k_flyingchairs_368x496), median of FLOW_REPS warm
+# calls; card vs CPU on FLOW_CPU_PAIRS pairs of FLOW_CPU_SIZE² at 32
+# iterations (the test configuration's), fp32 with the flags of
+# utils/backend_flags. Seeded weights with calibrated BN give flows of
+# ~110 px there, and the CPU's own fp32 lies 5e-4 to 1e-3 px from its fp64
+# and from itself at another thread count: the card's flow must lie within
+# FLOW_CARD_CPU_ATOL px of the CPU's and no farther from the CPU's fp64
+# than FLOW_FP64_RATIO times the CPU's fp32
+FLOW_CLIP = (16, 512, 512)
+FLOW_ITERS = 12
+FLOW_REPS = 5
+FLOW_CPU_PAIRS, FLOW_CPU_SIZE, FLOW_CPU_ITERS = 2, 256, 32
+FLOW_CARD_CPU_ATOL = 5e-3
+FLOW_FP64_RATIO = 2.0
+FLOW_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "configs", "flow", "raft_flyingchairs.yaml")
+# phase 21: flow training through cli.flow_tools on synthetic FlyingChairs
+# (384x512 .ppm pairs and .flo flows): the published crop and mmflow's
+# per-card batch (8 cards x 2), FLOW_TRAIN_STEPS steps with a checkpoint
+# after each; `test` on one synthetic Sintel pair at Sintel's 436x1024 (32
+# iterations), `benchmark` at its 448x1024 default, `flops`
+FLOW_CHAIRS = (4, 384, 512)   # samples, height, width
+FLOW_CROP = (368, 496)
+FLOW_BATCH = 2
+FLOW_TRAIN_STEPS = 3
+FLOW_SINTEL = (436, 1024)
+# a resumed step against the uninterrupted one: the same state and batch
+# give the same loss; the card's backward is nondeterministic (atomic adds
+# in the gathers' and cuDNN's backward), and Adam's update divides each
+# gradient by its own size, so a few of the smallest gradients flip: the
+# whole update may move by this much, relative L2
+FLOW_RESUME_REL = 1e-2
+
+
+def flow_clip(seed, frames, height, width):
+    """A seeded clip of a smooth random texture sliding a few pixels a
+    frame, as uint8 (F, H, W, 3)."""
+    rs = np.random.RandomState(seed)
+    big = rs.rand(height // 8 + 8, width // 8 + 8, 3).astype(np.float32)
+    big = np.kron(big, np.ones((8, 8, 1), np.float32))
+    out = []
+    for f in range(frames):
+        dy, dx = 2 * f, 3 * f
+        out.append(big[dy % 64:dy % 64 + height, dx % 64:dx % 64 + width])
+    return (np.stack(out) * 255).astype(np.uint8)
+
+
+def flow_model(seed, frames, device, gma=False):
+    """A seeded RAFT (or GMA) on ``device`` with its context BN statistics
+    calibrated on the first pairs of ``frames``."""
+    from followyourclick_tpu_torch.flow.api import init_model
+    from followyourclick_tpu_torch.flow.raft import RAFTConfig
+    from followyourclick_tpu_torch.utils.backend_flags import (
+        checked_precision,
+    )
+
+    model = init_model(RAFTConfig(use_gma=gma), seed=seed, device=device)
+    x = torch.from_numpy((frames[:3].astype(np.float32) - 127.5) / 127.5)
+    x = x.permute(0, 3, 1, 2).contiguous().to(device)
+    with checked_precision():
+        calibrate_bn_(model, x[:-1], x[1:], 1)
+    return model
+
+
+def phase_motion_score(seed, root, device="cuda", clip=FLOW_CLIP,
+                       cpu_size=FLOW_CPU_SIZE):
+    """Phase 20: ``flow.api.compute_motion_score`` on a seeded
+    ``FLOW_CLIP`` clip (all 15 pairs in one batch, ``FLOW_ITERS``
+    iterations) with seeded RAFT at the published widths, BN calibrated:
+    median of ``FLOW_REPS`` warm calls by CUDA events, peak memory, one call
+    under the profiler (idle share, device time by kernel); card vs CPU
+    through ``inference_model`` (``FLOW_CPU_*``, against the CPU's fp32 and
+    fp64); one GMA call card vs CPU; a synthetic mmflow-named state dict
+    written to a ``.pth`` and loaded through
+    ``load_mmflow_raft_checkpoint`` and ``init_model``, which must give the
+    same flow bit for bit. No hand-written kernel may launch. ``device``,
+    ``clip`` (frames, height, width) and ``cpu_size``: a rehearsal on the
+    CPU. Returns the launches."""
+    from followyourclick_tpu_torch.flow.api import (
+        compute_motion_score,
+        inference_model,
+        init_model,
+    )
+    from followyourclick_tpu_torch.flow.convert import (
+        load_mmflow_raft_checkpoint,
+    )
+    from followyourclick_tpu_torch.flow.raft import RAFT
+
+    frames = flow_clip(seed, *clip)
+    model = flow_model(seed, frames, device)
+    n = sum(p.numel() for p in model.parameters())
+    wrappers = launches_zeroed()
+    t0 = time.perf_counter()
+    score = compute_motion_score(model, frames, FLOW_ITERS)
+    cold = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    ms, scores = event_ms(lambda: compute_motion_score(model, frames,
+                                                       FLOW_ITERS),
+                          reps=FLOW_REPS)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    pairs = clip[0] - 1
+    corr0 = pairs * (clip[1] // 8 * clip[2] // 8) ** 2 * 4 / 2 ** 30
+    log(f"[flow] RAFT ({n / 1e6:.2f} M parameters, fp32) motion score of a "
+        f"{clip[0]}-frame {clip[1]}x{clip[2]} clip ({pairs} "
+        f"pairs, {FLOW_ITERS} iterations): {score:.4f}; cold {cold:.2f} s, "
+        f"warm {' / '.join(f'{t:.2f}' for t in ms)} ms, median "
+        f"{float(np.median(ms)):.2f} ms; peak device memory {peak:.2f} GiB "
+        f"(level-0 correlation {corr0:.2f} GiB) ({CARD})")
+    if not np.isfinite(score) or score <= 0 \
+            or abs(scores - score) > 1e-6 * score:
+        raise SystemExit("[flow] the motion score is not finite and "
+                         "positive, or changes between calls")
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    wall, _, _, spans, busy = profiled(
+        acts, lambda: compute_motion_score(model, frames, FLOW_ITERS))
+    by_name = collections.Counter()
+    for start, end, name in spans:
+        by_name[name] += (end - start) / 1e6
+    log(f"[flow] profiled motion score: wall {wall * 1e3:.2f} ms, device "
+        f"busy {busy * 1e3:.2f} ms, idle share {1 - busy / wall:.3f}; "
+        f"{len(spans)} device intervals ({CARD})")
+    for name, t in by_name.most_common(8):
+        log(f"[flow]   {t * 1e3:9.3f} ms  {name[:110]}")
+
+    # card vs CPU, and both against the CPU's fp64
+    small = flow_clip(seed + 1, FLOW_CPU_PAIRS + 1, cpu_size, cpu_size)
+    state = {k: v.cpu() for k, v in model.state_dict().items()}
+    cpu = init_model(checkpoint=state, device="cpu")
+    got = inference_model(model, small[:-1], small[1:], FLOW_CPU_ITERS)
+    t0 = time.perf_counter()
+    want = inference_model(cpu, small[:-1], small[1:], FLOW_CPU_ITERS)
+    cpu_s = time.perf_counter() - t0
+    exact = inference_model(copy.deepcopy(cpu).double(), small[:-1],
+                            small[1:], FLOW_CPU_ITERS)
+    err = float(np.abs(got - want).max())
+    card64 = float(np.abs(got.astype(np.float64) - exact).max())
+    cpu64 = float(np.abs(want.astype(np.float64) - exact).max())
+    log(f"[flow] RAFT {FLOW_CPU_PAIRS} pairs {cpu_size}², "
+        f"{FLOW_CPU_ITERS} iterations, max |flow| {np.abs(want).max():.2f} "
+        f"px: card vs CPU {err:.3e} px (bound {FLOW_CARD_CPU_ATOL:g}); "
+        f"against the CPU's fp64: card {card64:.3e}, CPU fp32 {cpu64:.3e} "
+        f"(ratio {card64 / cpu64:.3f}, bound {FLOW_FP64_RATIO:g}); the CPU "
+        f"fp32 call took {cpu_s:.2f} s")
+    if got.shape != want.shape or err > FLOW_CARD_CPU_ATOL \
+            or card64 > FLOW_FP64_RATIO * cpu64:
+        raise SystemExit("[flow] RAFT disagrees card vs CPU")
+    gma = flow_model(seed + 2, small, device, gma=True)
+    gma_cpu = init_model(gma.config, checkpoint={
+        k: v.cpu() for k, v in gma.state_dict().items()}, device="cpu")
+    g_got = inference_model(gma, small[:-1], small[1:], FLOW_ITERS)
+    g_want = inference_model(gma_cpu, small[:-1], small[1:], FLOW_ITERS)
+    g_err = float(np.abs(g_got - g_want).max())
+    log(f"[flow] GMA ({sum(p.numel() for p in gma.parameters()) / 1e6:.2f} "
+        f"M parameters) {FLOW_CPU_PAIRS} pairs {cpu_size}², "
+        f"{FLOW_ITERS} iterations: max |flow| {np.abs(g_want).max():.2f} "
+        f"px, card vs CPU {g_err:.3e} px (bound {FLOW_CARD_CPU_ATOL:g})")
+    if not np.isfinite(g_got).all() or g_err > FLOW_CARD_CPU_ATOL:
+        raise SystemExit("[flow] GMA disagrees card vs CPU")
+
+    # an mmflow-named checkpoint file
+    path = os.path.join(root, "raft_8x2_100k_flyingchairs_368x496.pth")
+    torch.save({"meta": {"iter": 100000}, "state_dict": state}, path)
+    loaded = load_mmflow_raft_checkpoint(path, RAFT().to(device).eval())
+    again = init_model(checkpoint=path, device=device)
+    flows = [inference_model(m, small[:-1], small[1:], FLOW_ITERS)
+             for m in (model, loaded, again)]
+    log(f"[flow] mmflow checkpoint {os.path.getsize(path) / 2 ** 20:.1f} "
+        f"MiB loaded strictly; flow of the loaded models minus the "
+        f"original's: {float(np.abs(flows[1] - flows[0]).max()):.1e} / "
+        f"{float(np.abs(flows[2] - flows[0]).max()):.1e}")
+    if not (np.array_equal(flows[0], flows[1])
+            and np.array_equal(flows[0], flows[2])):
+        raise SystemExit("[flow] the loaded checkpoint gives another flow")
+    got = {name: fn.launches for name, fn in wrappers.items()}
+    if any(got.values()):
+        raise SystemExit(f"[flow] a hand-written kernel launched: {got}")
+    return got
+
+
+def write_flying_chairs(root, seed, chairs=FLOW_CHAIRS):
+    """``chairs`` (samples, height, width) synthetic FlyingChairs samples
+    under ``root``: ``NNNNN_img1.ppm`` / ``_img2.ppm`` (binary P6) and
+    ``_flow.flo``."""
+    from followyourclick_tpu_torch.flow.flow_io import write_flow
+
+    n, h, w = chairs
+    rs = np.random.RandomState(seed)
+    os.makedirs(root, exist_ok=True)
+    for i in range(n):
+        clip = flow_clip(seed + i, 2, h, w)
+        for k in (0, 1):
+            with open(os.path.join(root, f"{i:05d}_img{k + 1}.ppm"),
+                      "wb") as f:
+                f.write(f"P6\n{w} {h}\n255\n".encode() + clip[k].tobytes())
+        write_flow((3 * rs.randn(h, w, 2)).astype(np.float32),
+                   os.path.join(root, f"{i:05d}_flow.flo"))
+
+
+def cli_lines(argv):
+    """``cli.flow_tools.main(argv)`` with its standard output captured:
+    (seconds, the lines it printed)."""
+    import io
+
+    from followyourclick_tpu_torch.cli import flow_tools
+
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        flow_tools.main(argv)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out.getvalue().splitlines()
+
+
+def phase_flow_train(seed, root, device="cuda", chairs=FLOW_CHAIRS,
+                     crop=FLOW_CROP, sintel_size=FLOW_SINTEL,
+                     bench_size=None):
+    """Phase 21: ``cli.flow_tools`` on synthetic data. ``train`` from the
+    published config (``FLOW_CONFIG``, a checkpoint after every step) on
+    :func:`write_flying_chairs` at ``FLOW_CROP`` x ``FLOW_BATCH`` for
+    ``FLOW_TRAIN_STEPS`` steps: each step's loss finite, warm ms per step
+    (the loop's host clock, which the loss read waits for), peak memory,
+    every parameter and BN statistic moved from the seeded start; a second
+    ``train`` in another work dir resumed from the first run's
+    second-to-last checkpoint takes the last step on the same batch (its
+    loss equal within 1e-6, its update within ``FLOW_RESUME_REL``);
+    ``test`` of the last checkpoint on one synthetic Sintel pair at
+    ``FLOW_SINTEL`` (32 iterations), ``benchmark`` at its
+    448x1024 default, ``flops``. No hand-written kernel may launch.
+    ``device``, ``chairs``, ``crop``, ``sintel_size`` and ``bench_size``:
+    a rehearsal on the CPU. Returns the launches."""
+    import ast
+    import shutil
+
+    import yaml
+
+    from followyourclick_tpu_torch.flow.api import init_model
+    from followyourclick_tpu_torch.flow.flow_io import write_flow
+    from followyourclick_tpu_torch.flow.raft import RAFT
+
+    data = os.path.join(root, "chairs")
+    write_flying_chairs(data, seed, chairs)
+    with open(FLOW_CONFIG) as f:
+        cfg = yaml.safe_load(f)
+    cfg["train"]["checkpoint_every"] = 1
+    config = os.path.join(root, "raft.yaml")
+    with open(config, "w") as f:
+        yaml.safe_dump(cfg, f)
+    wrappers = launches_zeroed()
+    common = ["--device", device, "--seed", str(seed)]
+
+    def train(work, steps):
+        s, lines = cli_lines(common + [
+            "train", "--config", config, "--data-root", data,
+            "--work-dir", work, "--max-steps", str(steps), "--batch-size",
+            str(FLOW_BATCH), "--crop", *map(str, crop)])
+        logs = {}
+        for line in lines:
+            if line.startswith("iter "):
+                step, metrics = line[5:].split(": ", 1)
+                logs[int(step)] = ast.literal_eval(metrics)
+        return s, logs
+
+    torch.cuda.reset_peak_memory_stats()
+    first = os.path.join(root, "work_a")
+    secs, logs = train(first, FLOW_TRAIN_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    warm = [logs[s]["time"] * 1e3 for s in sorted(logs)[1:]]
+    log(f"[flow train] cli.flow_tools train, RAFT, crop {crop[0]}x"
+        f"{crop[1]} x {FLOW_BATCH}, {cfg['train']['iters']} "
+        f"iterations: {FLOW_TRAIN_STEPS} steps in {secs:.2f} s (model "
+        f"build, data, checkpoints included); step ms cold "
+        f"{logs[0]['time'] * 1e3:.1f}, warm "
+        f"{' / '.join(f'{t:.1f}' for t in warm)}; peak device memory "
+        f"{peak:.2f} GiB ({CARD})")
+    for step in sorted(logs):
+        log(f"[flow train]   iter {step}: loss {logs[step]['loss']:.4f}, "
+            f"EPE {logs[step]['epe']:.4f}, grad norm "
+            f"{logs[step]['grad_norm']:.3f}")
+    if sorted(logs) != list(range(FLOW_TRAIN_STEPS)) or not all(
+            np.isfinite(m["loss"]) for m in logs.values()):
+        raise SystemExit("[flow train] a step is missing or its loss is "
+                         "not finite")
+    last = torch.load(os.path.join(first, f"iter_{FLOW_TRAIN_STEPS}.pth"),
+                      map_location="cpu", weights_only=True)["state_dict"]
+    start = init_model(seed=seed, device=device).state_dict()
+    still = [k for k, v in last.items() if not k.endswith(
+        "num_batches_tracked") and torch.equal(v, start[k].cpu())]
+    if still:
+        raise SystemExit(f"[flow train] {len(still)} tensors never moved, "
+                         f"e.g. {still[:3]}")
+
+    second = os.path.join(root, "work_b")
+    os.makedirs(second)
+    step = FLOW_TRAIN_STEPS - 1
+    shutil.copy(os.path.join(first, f"iter_{step}.pth"), second)
+    _, resumed = train(second, FLOW_TRAIN_STEPS)
+    before = torch.load(os.path.join(first, f"iter_{step}.pth"),
+                        map_location="cpu", weights_only=True)["state_dict"]
+    again = torch.load(os.path.join(second, f"iter_{FLOW_TRAIN_STEPS}.pth"),
+                       map_location="cpu", weights_only=True)["state_dict"]
+    with torch.device("meta"):
+        params = dict(RAFT().named_parameters())
+    names = [k for k in last if k in params]
+    upd_a = torch.cat([(last[k] - before[k]).double().flatten()
+                       for k in names])
+    upd_b = torch.cat([(again[k] - before[k]).double().flatten()
+                       for k in names])
+    upd_rel = float((upd_a - upd_b).norm() / upd_a.norm())
+    loss_rel = abs(resumed[step]["loss"] - logs[step]["loss"]) / abs(
+        logs[step]["loss"])
+    log(f"[flow train] resumed from iter_{step}.pth: logged steps "
+        f"{sorted(resumed)}, step {step} loss {resumed[step]['loss']:.6f} "
+        f"vs {logs[step]['loss']:.6f} uninterrupted (relative "
+        f"{loss_rel:.2e}); its update against the uninterrupted one: "
+        f"relative L2 {upd_rel:.3e} (bound {FLOW_RESUME_REL:g}), max |Δ| "
+        f"{float((upd_a - upd_b).abs().max()):.3e}")
+    if sorted(resumed) != [step] or loss_rel > 1e-6 \
+            or upd_rel > FLOW_RESUME_REL:
+        raise SystemExit("[flow train] the resumed step differs from the "
+                         "uninterrupted one")
+
+    sintel = os.path.join(root, "sintel")
+    h, w = sintel_size
+    clip = flow_clip(seed + 9, 2, h, w)
+    from PIL import Image
+
+    os.makedirs(os.path.join(sintel, "clean", "alley_1"))
+    os.makedirs(os.path.join(sintel, "flow", "alley_1"))
+    for k in (0, 1):
+        Image.fromarray(clip[k]).save(os.path.join(
+            sintel, "clean", "alley_1", f"frame_{k + 1:04d}.png"))
+    write_flow(np.zeros((h, w, 2), np.float32),
+               os.path.join(sintel, "flow", "alley_1", "frame_0001.flo"))
+    secs, lines = cli_lines(common + [
+        "test", "--config", config, "--checkpoint",
+        os.path.join(first, f"iter_{FLOW_TRAIN_STEPS}.pth"),
+        "--data-root", sintel, "--dataset", "Sintel", "--iters", "32"])
+    epe = json.loads(lines[-1])["EPE"]
+    log(f"[flow train] cli.flow_tools test, Sintel {h}x{w}, 32 iterations: "
+        f"EPE against a zero flow {epe:.3f} in {secs:.2f} s")
+    secs, lines = cli_lines(common + [
+        "benchmark", "--config", config, "--warmup", "2", "--max-iter", "5",
+        *(["--size", *map(str, bench_size)] if bench_size else [])])
+    bench = json.loads(lines[-1])
+    log(f"[flow train] cli.flow_tools benchmark, RAFT {bench['size']}: "
+        f"{bench['fps']} pairs/s ({CARD}; {secs:.2f} s)")
+    _, lines = cli_lines(["flops", "--config", config])
+    flops = json.loads(lines[-1])
+    log(f"[flow train] cli.flow_tools flops: {flops}")
+    if not np.isfinite(epe) or bench["fps"] <= 0 or flops["gflops"] <= 0:
+        raise SystemExit("[flow train] test, benchmark or flops failed")
+    got = {name: fn.launches for name, fn in wrappers.items()}
+    if any(got.values()):
+        raise SystemExit(f"[flow train] a hand-written kernel launched: "
+                         f"{got}")
+    return got
+
+
 def timed(fn):
     """``fn`` with a log line of the seconds it took."""
     def run(*args, **kwargs):
@@ -4092,6 +4661,44 @@ def timed(fn):
         out = fn(*args, **kwargs)
         log(f"[smoke] {fn.__name__}: {time.perf_counter() - t0:.1f} s")
         return out
+    run.__name__ = fn.__name__
+    return run
+
+
+def checked_precision():
+    """The port's numerics contract (``utils/backend_flags``): TF32 and
+    bf16 reduced-precision reduction off inside the block."""
+    from followyourclick_tpu_torch.utils.backend_flags import (
+        checked_precision as contract,
+    )
+
+    return contract()
+
+
+def direct(fn):
+    """A phase that calls modules directly: run under the contract the
+    entry points set for themselves."""
+    def run(*args, **kwargs):
+        with checked_precision():
+            return fn(*args, **kwargs)
+    run.__name__ = fn.__name__
+    return run
+
+
+def via_entry_points(fn, defaults):
+    """A phase that goes through the port's entry points, under the
+    process's flags: afterwards they must be ``defaults`` again (each entry
+    point sets the contract and gives the caller's values back)."""
+    from followyourclick_tpu_torch.utils.backend_flags import precision_flags
+
+    def run(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        if precision_flags() != defaults:
+            raise SystemExit(f"{fn.__name__}: the precision flags are "
+                             f"{precision_flags()} after it, not the "
+                             f"process's {defaults}")
+        return out
+    run.__name__ = fn.__name__
     return run
 
 
@@ -4106,22 +4713,30 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device; this script runs only on the card",
               file=sys.stderr)
         return 1
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
     from followyourclick_tpu_torch.pipelines.animation import SampleSpec
     from followyourclick_tpu_torch.pipelines.serving_schedules import (
         apply_schedule,
     )
+    from followyourclick_tpu_torch.utils.backend_flags import precision_flags
+
+    # PyTorch's defaults (cuDNN TF32 and bf16 reduced-precision reduction
+    # on): the phases that call modules directly run under the port's
+    # contract (direct), the others through entry points that set it
+    defaults = precision_flags()
+    log(f"[smoke] precision flags (matmul TF32, cuDNN TF32, bf16 reduced "
+        f"reduction) of the process: {defaults}")
+
+    def entry(fn):
+        return timed(via_entry_points(fn, defaults))
 
     timed(phase_build)()
-    stats = timed(phase_kernels)(args.seed)
-    timed(phase_train_kernels)(args.seed)
-    timed(phase_tiny)(args.seed)
-    timed(phase_tiny_options)(args.seed)
+    stats = timed(direct(phase_kernels))(args.seed)
+    timed(direct(phase_train_kernels))(args.seed)
+    timed(direct(phase_tiny))(args.seed)
+    timed(direct(phase_tiny_options))(args.seed)
     pipe = full_pipeline(args.seed)
-    timed(phase_evaluation)(pipe, args.seed)
+    timed(direct(phase_evaluation))(pipe, args.seed)
     exact = SampleSpec(num_inference_steps=args.steps)
     serving = apply_schedule(SampleSpec(num_inference_steps=SERVING_STEPS),
                              SERVING_SCHEDULE)
@@ -4131,56 +4746,70 @@ def main(argv=None) -> int:
                      "flash_attention": 0}
     batched_by_hand = {**exact_by_hand, "flash_attention":
                        BATCHED_FLASH_PER_EXACT_STEP * args.steps}
+    requests = timed(direct(phase_requests))
     paths = {
-        "exact": timed(phase_requests)(pipe, exact, "full", args.seed,
-                                       exact_by_hand)[0],
-        SERVING_SCHEDULE: timed(phase_requests)(
-            pipe, serving, "serving", args.seed, SERVING_LAUNCHES)[0],
-        f"exact_{BATCH}clips": timed(phase_requests)(
-            pipe, exact, "batched exact", args.seed, batched_by_hand,
-            BATCH)[0],
-        f"{SERVING_SCHEDULE}_{BATCH}clips": timed(phase_requests)(
+        "exact": requests(pipe, exact, "full", args.seed, exact_by_hand)[0],
+        SERVING_SCHEDULE: requests(pipe, serving, "serving", args.seed,
+                                   SERVING_LAUNCHES)[0],
+        f"exact_{BATCH}clips": requests(pipe, exact, "batched exact",
+                                        args.seed, batched_by_hand,
+                                        BATCH)[0],
+        f"{SERVING_SCHEDULE}_{BATCH}clips": requests(
             pipe, serving, "batched serving", args.seed,
             BATCHED_SERVING_LAUNCHES, BATCH)[0],
     }
-    paths.update(timed(phase_sampler_options)(pipe, args.seed))
+    paths.update(timed(direct(phase_sampler_options))(pipe, args.seed))
     # one full-width pipeline at a time
     del pipe
     gc.collect()
     torch.cuda.empty_cache()
-    paths["camera_lora_exact"] = timed(phase_camera)(args.seed, exact,
+    paths["camera_lora_exact"] = timed(direct(phase_camera))(
+        args.seed, exact, exact_by_hand)
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["exact_ip_plus"] = timed(direct(phase_ip))(args.seed, exact,
                                                      exact_by_hand)
     gc.collect()
     torch.cuda.empty_cache()
-    paths["exact_ip_plus"] = timed(phase_ip)(args.seed, exact, exact_by_hand)
-    gc.collect()
-    torch.cuda.empty_cache()
-    paths.update(timed(phase_t5)(args.seed, exact, exact_by_hand, serving))
-    gc.collect()
-    torch.cuda.empty_cache()
-    paths["routes_evaluation"] = timed(phase_routes)(args.seed)
+    paths.update(timed(direct(phase_t5))(args.seed, exact, exact_by_hand,
+                                         serving))
     gc.collect()
     torch.cuda.empty_cache()
     import tempfile
 
     with tempfile.TemporaryDirectory() as root:
-        paths.update(timed(phase_cli)(args.seed, args.steps, root=root))
-        gc.collect()
-        torch.cuda.empty_cache()
-        paths.update(timed(phase_click)(args.seed, root, args.steps))
-        gc.collect()
-        torch.cuda.empty_cache()
-        paths.update(timed(phase_fill)(args.seed, root))
+        paths["t5_text_tiny"] = entry(phase_t5_text)(args.seed, root)
     gc.collect()
     torch.cuda.empty_cache()
-    paths["train"] = timed(phase_train)(args.seed)
+    paths["routes_evaluation"] = timed(direct(phase_routes))(args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as root:
+        paths.update(entry(phase_cli)(args.seed, args.steps, root=root))
+        gc.collect()
+        torch.cuda.empty_cache()
+        paths.update(entry(phase_click)(args.seed, root, args.steps))
+        gc.collect()
+        torch.cuda.empty_cache()
+        paths.update(entry(phase_fill)(args.seed, root))
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["train"] = entry(phase_train)(args.seed)
     gc.collect()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as root:
-        paths["remove"] = timed(phase_remove)(args.seed, root)
+        paths["remove"] = entry(phase_remove)(args.seed, root)
     gc.collect()
     torch.cuda.empty_cache()
-    paths["lama_train"] = timed(phase_lama_train)(args.seed)
+    paths["lama_train"] = entry(phase_lama_train)(args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        paths["motion_score"] = entry(phase_motion_score)(args.seed, root)
+        gc.collect()
+        torch.cuda.empty_cache()
+        paths["flow_train"] = entry(phase_flow_train)(args.seed, root)
     for name in KERNELS:
         if not sum(launches[name] for launches in paths.values()):
             raise SystemExit(f"{name} was never launched on a main path")

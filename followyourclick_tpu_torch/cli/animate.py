@@ -18,6 +18,8 @@ import os
 from pathlib import Path
 from typing import List, Optional
 
+from followyourclick_tpu_torch.utils.backend_flags import checked_precision
+
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("followyourclick-animate")
@@ -35,6 +37,7 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+@checked_precision()
 def run(args, inference_config, model_config: dict) -> dict:
     """Sample every prompt of every model entry; write ``<n>-<prompt>.gif``
     each, ``sample.gif`` (all of them, one a row) and ``config.yaml``.
@@ -95,6 +98,7 @@ def run(args, inference_config, model_config: dict) -> dict:
             "videos": dict(zip(files, samples))}
 
 
+@checked_precision()
 def main(argv: Optional[List[str]] = None) -> dict:
     import yaml
 

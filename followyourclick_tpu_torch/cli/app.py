@@ -21,6 +21,7 @@ from typing import List, Optional
 import numpy as np
 
 from followyourclick_tpu_torch.masking.brush import dilate_mask
+from followyourclick_tpu_torch.utils.backend_flags import checked_precision
 
 
 class ClickSession:
@@ -103,6 +104,7 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+@checked_precision()
 def main(argv=None):
     args = build_parser().parse_args(argv)
 

@@ -20,6 +20,8 @@ from pathlib import Path
 
 import numpy as np
 
+from followyourclick_tpu_torch.utils.backend_flags import checked_precision
+
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("followyourclick-click-mask")
@@ -63,6 +65,7 @@ def build_predictor(args):
     return SamPredictor(model, args.device)
 
 
+@checked_precision()
 def main(argv=None) -> dict:
     """Runs the CLI; returns the output directory, the mask file names and
     the scores."""

@@ -32,6 +32,8 @@ import os
 import time
 from typing import List, Optional
 
+from followyourclick_tpu_torch.utils.backend_flags import checked_precision
+
 POS_PROMPT = (", ultra quality, film grain, 8K UHD, masterpiece,  high "
               "detailed, extremely detailed, photorealistic, dramatic and "
               "cinematic lighting")
@@ -182,6 +184,7 @@ def write_snapshot(path: str, snapshot: dict) -> None:
         yaml.safe_dump(snapshot, f)
 
 
+@checked_precision()
 def run(args, inference_config, model_config: dict,
         items: List[dict]) -> dict:
     """Everything of :func:`main` after the files are read: for each model
@@ -359,6 +362,7 @@ def run(args, inference_config, model_config: dict,
     return result
 
 
+@checked_precision()
 def main(argv: Optional[List[str]] = None) -> dict:
     """Parse the flags, read the inference config, the prompt YAML and the
     manifest, and :func:`run`."""

@@ -39,6 +39,7 @@ from followyourclick_tpu_torch.cli.click_mask import (
     read_rgb,
     write_gray,
 )
+from followyourclick_tpu_torch.utils.backend_flags import checked_precision
 
 
 def _add_common(p: argparse.ArgumentParser) -> None:
@@ -207,6 +208,7 @@ def write_rgb(path, rgb: np.ndarray) -> None:
     Image.fromarray(np.ascontiguousarray(rgb, np.uint8)).save(str(path))
 
 
+@checked_precision()
 def main(argv=None, inference_config=None, lama_config=None) -> dict:
     """Runs the CLI; returns the output directory, the files written and
     the masks' scores. ``inference_config`` replaces ``InferenceConfig()``

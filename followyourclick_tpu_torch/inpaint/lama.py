@@ -20,10 +20,11 @@ The spectral path runs ``torch.fft.rfft2`` / ``irfft2`` over (H, W) with
 ``norm="ortho"`` in fp32; real and imaginary parts stack channel-major with
 real / imag innermost, as both the reference and the JAX package lay them.
 
-:class:`BatchNorm2d` is ``nn.BatchNorm2d`` with flax's running-statistics
-update in training mode (momentum 0.1 on the *biased* batch variance, where
-torch's own takes the unbiased one), so a train step moves the statistics
-as the JAX trainer does.
+:class:`BatchNorm2d` (``models/layers.py``, shared with RAFT's context
+encoder) is ``nn.BatchNorm2d`` with flax's running-statistics update in
+training mode (momentum 0.1 on the *biased* batch variance, where torch's
+own takes the unbiased one), so a train step moves the statistics as the
+JAX trainer does.
 """
 
 from __future__ import annotations
@@ -33,12 +34,11 @@ from typing import Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
+from followyourclick_tpu_torch.models.layers import BN_STATS, BatchNorm2d
+from followyourclick_tpu_torch.utils.backend_flags import checked_precision
 from followyourclick_tpu_torch.utils.seeded_init import seeded_init_
-
-BN_STATS = ("running_mean", "running_var")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,26 +53,6 @@ class LamaConfig:
     enable_lfu: bool = False
     add_out_act: str = "sigmoid"
     dtype: torch.dtype = torch.float32
-
-
-class BatchNorm2d(nn.BatchNorm2d):
-    """``nn.BatchNorm2d`` whose training mode normalises by the batch's
-    statistics and updates the running ones as ``flax.linen.BatchNorm``
-    does: ``r ← 0.9·r + 0.1·batch`` with the biased variance."""
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training:
-            return super().forward(x)
-        with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
-            m = self.momentum
-            self.running_mean.mul_(1 - m).add_(mean.to(self.running_mean),
-                                               alpha=m)
-            self.running_var.mul_(1 - m).add_(var.to(self.running_var),
-                                              alpha=m)
-            self.num_batches_tracked.add_(1)
-        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
-                            self.eps)
 
 
 def _conv(cin, cout, kernel, stride=1, padding=0, dilation=1):
@@ -314,6 +294,7 @@ class LamaInpainter:
         return LamaInpainter(build_generator(config, device, gen), device)
 
     @torch.inference_mode()
+    @checked_precision()
     def __call__(self, image: np.ndarray, mask: np.ndarray) -> np.ndarray:
         assert image.ndim == 3 and image.shape[2] == 3
         h, w = image.shape[:2]

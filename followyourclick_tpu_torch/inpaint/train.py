@@ -47,6 +47,7 @@ from followyourclick_tpu_torch.inpaint.losses import (
     generator_nsgan_loss,
     masked_l1_loss,
 )
+from followyourclick_tpu_torch.utils.backend_flags import checked_precision
 from followyourclick_tpu_torch.utils.seeded_init import seeded_init_
 
 ADAM_EPS = 1e-8  # optax.adam's default
@@ -90,6 +91,7 @@ def frozen(*modules: Optional[nn.Module]):
             p.requires_grad_(True)
 
 
+@checked_precision()
 def generator_step(generator: FFCResNetGenerator,
                    discriminator: NLayerDiscriminator, cfg: LamaTrainConfig,
                    gen_opt: torch.optim.Optimizer,
@@ -129,6 +131,7 @@ def generator_step(generator: FFCResNetGenerator,
     return {k: v.detach() for k, v in metrics.items()}, inpainted.detach()
 
 
+@checked_precision()
 def discriminator_step(discriminator: NLayerDiscriminator,
                        cfg: LamaTrainConfig,
                        discr_opt: torch.optim.Optimizer,

@@ -1,8 +1,9 @@
 """Shared building blocks: sinusoidal embeddings, TimestepEmbedding,
-GroupNorm and LayerNorm over the trailing channel axis.
+GroupNorm and LayerNorm over the trailing channel axis, and the NCHW
+BatchNorm2d with flax's statistics update (LaMa, RAFT).
 
 Port of ``followyourclick_tpu/models/layers.py``. Activations keep the JAX
-package's channels-last layout ``(N, ..., C)``.
+package's channels-last layout ``(N, ..., C)``, but for BatchNorm2d.
 """
 
 from __future__ import annotations
@@ -128,3 +129,27 @@ class LayerNorm(nn.LayerNorm):
         return F.layer_norm(x.float(), self.normalized_shape,
                             self.weight.float(), self.bias.float(),
                             self.eps).to(x.dtype)
+
+
+# the buffers of a BatchNorm2d that seeded weights draw and checkpoints hold
+BN_STATS = ("running_mean", "running_var")
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose training mode normalises by the batch's
+    statistics and updates the running ones as ``flax.linen.BatchNorm``
+    does: ``r ← 0.9·r + 0.1·batch`` with the biased variance."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+            m = self.momentum
+            self.running_mean.mul_(1 - m).add_(mean.to(self.running_mean),
+                                               alpha=m)
+            self.running_var.mul_(1 - m).add_(var.to(self.running_var),
+                                              alpha=m)
+            self.num_batches_tracked.add_(1)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                            self.eps)

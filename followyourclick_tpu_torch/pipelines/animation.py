@@ -66,6 +66,7 @@ from followyourclick_tpu_torch.schedulers.dispatch import (
     SCHEDULERS,
     make_solver,
 )
+from followyourclick_tpu_torch.utils.backend_flags import checked_precision
 
 VAE_SCALE = 0.18215
 
@@ -258,8 +259,8 @@ class AnimationPipeline:
                    max_length: int = 77):
         """T5 token ids and padding masks of the prompts and the negative
         prompts: ``(ids, mask, neg_ids, neg_mask)``, with ``tokenizer_2``
-        (a tokenizer object the caller gives; the repository ships no
-        sentencepiece model)."""
+        (``utils/t5_tokenizer.T5Tokenizer``, which the loader builds from a
+        T5 directory's ``tokenizer.json`` or ``spiece.model``)."""
         if self.tokenizer_2 is None:
             raise ValueError("pipeline built without T5 tokenizer "
                              "(tokenizer_2); pass T5 token ids and masks "
@@ -525,6 +526,7 @@ class AnimationPipeline:
         return (video / 2.0 + 0.5).clamp(0.0, 1.0).float()
 
     @torch.inference_mode()
+    @checked_precision()
     def sample(self, input_ids: torch.Tensor, neg_input_ids: torch.Tensor,
                first_image_latents: Optional[torch.Tensor],
                mask: Optional[torch.Tensor],
@@ -589,6 +591,7 @@ class AnimationPipeline:
                                context_t5)
         return self.decode_latents(latents)
 
+    @checked_precision()
     def __call__(self, prompt: Sequence[str] | str,
                  negative_prompt: Optional[Sequence[str] | str] = None,
                  spec: SampleSpec = SampleSpec(),

@@ -32,6 +32,7 @@ from followyourclick_tpu_torch.schedulers.ddim import (
     add_noise,
     ddim_step,
 )
+from followyourclick_tpu_torch.utils.backend_flags import checked_precision
 from followyourclick_tpu_torch.utils.image_ops import resize_nearest
 
 
@@ -74,6 +75,7 @@ class InpaintPipeline:
         self.device, self.dtype = param.device, param.dtype
 
     @torch.inference_mode()
+    @checked_precision()
     def sample(self, image: torch.Tensor, mask: torch.Tensor,
                input_ids: torch.Tensor, neg_ids: torch.Tensor, steps: int,
                guidance_scale: float = 7.5,
@@ -118,6 +120,7 @@ class InpaintPipeline:
         img = self.vae.decode((latents / VAE_SCALE).to(dt))
         return (img / 2 + 0.5).clamp(0.0, 1.0).float()
 
+    @checked_precision()
     def __call__(self, image: np.ndarray, mask: np.ndarray, prompt: str,
                  negative_prompt: str = "", steps: int = 25,
                  guidance_scale: float = 7.5, seed: int = 0,

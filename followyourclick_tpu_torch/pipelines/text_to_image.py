@@ -26,6 +26,7 @@ from followyourclick_tpu_torch.models.unet3d import (
 )
 from followyourclick_tpu_torch.pipelines.animation import VAE_SCALE
 from followyourclick_tpu_torch.schedulers.ddim import DDIMSchedule, ddim_step
+from followyourclick_tpu_torch.utils.backend_flags import checked_precision
 
 
 def slice_conv_in(unet_state: dict, in_channels: int = 4) -> dict:
@@ -72,6 +73,7 @@ class TextToImagePipeline:
         self.device, self.dtype = param.device, param.dtype
 
     @torch.inference_mode()
+    @checked_precision()
     def sample(self, input_ids: torch.Tensor, neg_ids: torch.Tensor,
                height: int, width: int, steps: int,
                guidance_scale: float = 7.5,
@@ -105,6 +107,7 @@ class TextToImagePipeline:
         img = self.vae.decode((latents[:, 0] / VAE_SCALE).to(self.dtype))
         return (img / 2 + 0.5).clamp(0.0, 1.0).float()
 
+    @checked_precision()
     def __call__(self, prompt: Sequence[str] | str,
                  negative_prompt: Optional[Sequence[str] | str] = None,
                  height: int = 512, width: int = 512, steps: int = 25,

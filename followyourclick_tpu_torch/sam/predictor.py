@@ -19,6 +19,7 @@ from followyourclick_tpu_torch.sam.sam import (
     Sam,
     postprocess_masks,
 )
+from followyourclick_tpu_torch.utils.backend_flags import checked_precision
 from followyourclick_tpu_torch.utils.image_ops import resize_linear
 
 
@@ -75,6 +76,7 @@ class SamPredictor:
         self.input_size: Optional[Tuple[int, int]] = None
 
     @torch.inference_mode()
+    @checked_precision()
     def set_image(self, image: np.ndarray) -> None:
         """image: (H, W, 3) RGB uint8. Runs the ViT once and keeps the
         embedding (1, 256, 64, 64) on the device."""
@@ -88,6 +90,7 @@ class SamPredictor:
         self.is_image_set = True
 
     @torch.inference_mode()
+    @checked_precision()
     def predict_torch(self, coords: Optional[np.ndarray],
                       labels: Optional[np.ndarray],
                       boxes: Optional[np.ndarray] = None,
@@ -117,6 +120,7 @@ class SamPredictor:
                                   self.model.config.img_size)
         return masks, iou, low_res
 
+    @checked_precision()
     def predict(self, point_coords: Optional[np.ndarray] = None,
                 point_labels: Optional[np.ndarray] = None,
                 box: Optional[np.ndarray] = None,
@@ -139,6 +143,7 @@ class SamPredictor:
         return (masks[0].cpu().numpy(), iou[0].float().cpu().numpy(),
                 low_res[0].float().cpu().numpy())
 
+    @checked_precision()
     def predict_batch(self, point_coords: np.ndarray,
                       point_labels: np.ndarray, multimask_output: bool = True,
                       return_logits: bool = False

@@ -31,6 +31,8 @@ from typing import Callable, Iterator, Optional
 import numpy as np
 import torch
 
+from followyourclick_tpu_torch.utils.backend_flags import checked_precision
+
 STATE_FILE = "state.pt"
 
 
@@ -155,6 +157,7 @@ def _device(state) -> torch.device:
     return next(iter(tensors.values())).device
 
 
+@checked_precision()
 def train_loop(state, data_iter: Iterator, step_fn: Callable,
                cfg: LoopConfig, seed: int = 0,
                on_log: Optional[Callable] = None,

@@ -206,8 +206,9 @@ def assemble_pipeline_from_pretrained(
     filled in fp32 on ``device``, the LoRA deltas added in fp32, then cast.
     The tokenizer is the port's CLIP tokenizer over
     ``tokenizer/merges.txt`` where that file exists, else None;
-    ``tokenizer_2`` stays None (no sentencepiece model in the repository:
-    T5 requests carry token ids through ``sample``)."""
+    ``tokenizer_2`` the port's T5 tokenizer where ``t5_path`` holds
+    ``tokenizer.json`` or ``spiece.model``, else None (T5 requests then
+    carry token ids through ``sample``)."""
     from followyourclick_tpu_torch.models.clip_text import CLIPTextModel
     from followyourclick_tpu_torch.models.unet3d import UNet3DConditionModel
     from followyourclick_tpu_torch.models.vae import AutoencoderKL
@@ -276,7 +277,7 @@ def assemble_pipeline_from_pretrained(
             ip_ckpt_path=ip_ckpt_path, mm_image_proj=mm_image_proj,
             device=device)
 
-    t5 = None
+    t5 = tokenizer_2 = None
     if t5_path:
         from followyourclick_tpu_torch.models.t5_text import (
             T5Config,
@@ -294,6 +295,13 @@ def assemble_pipeline_from_pretrained(
             t5 = T5EncoderModel(t5_cfg)
         load_jax_params(t5, convert_t5_state_dict(
             load_hf_subfolder(t5_path, "")))
+        if any(os.path.exists(os.path.join(t5_path, name))
+               for name in ("tokenizer.json", "spiece.model")):
+            from followyourclick_tpu_torch.utils.t5_tokenizer import (
+                T5Tokenizer,
+            )
+
+            tokenizer_2 = T5Tokenizer.from_pretrained(t5_path)
 
     tokenizer = None
     merges = os.path.join(pretrained_model_path, "tokenizer", "merges.txt")
@@ -307,7 +315,7 @@ def assemble_pipeline_from_pretrained(
     return AnimationPipeline(inference_config, unet, vae, text,
                              device=device, dtype=dtype,
                              ip_adapter=ip_adapter, t5=t5,
-                             tokenizer=tokenizer)
+                             tokenizer=tokenizer, tokenizer_2=tokenizer_2)
 
 
 def assemble_ip_adapter(inference_config, ip_mode: str, unet,
