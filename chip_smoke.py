@@ -97,10 +97,12 @@ result line:
    an evaluation with the T5 states; an exact request cold and warm; a
    ``pab488_deep4_cfg4_ex`` request, whose recording steps cache
    ``attn_t5_out`` beside ``attn2_out``; then a text request
-   (:func:`phase_t5_text`): a tiny SD directory and a tiny T5 directory
-   with a ``tokenizer.json`` through ``assemble_pipeline_from_pretrained``,
-   a prompt's T5 ids equal to ``T5_TEXT_IDS``, the request through
-   ``__call__`` equal to the same ids through ``sample``;
+   at full width (the pipeline given the tiny T5 ``tokenizer.json`` and a
+   CLIP ``merges.txt``) and again from files (:func:`phase_t5_text`): a
+   tiny SD directory and a tiny T5 directory with a ``tokenizer.json``
+   through ``assemble_pipeline_from_pretrained``; in both a prompt's T5
+   ids equal ``T5_TEXT_IDS`` and the request through ``__call__`` equals
+   the same ids through ``sample``;
 12. the routes: one full-width bf16 evaluation with cross-frame and
    in-block temporal attention and RoPE / LoRA motion modules, phase 4's
    check, its launches equal to ``ROUTES_LAUNCHES``;
@@ -2151,7 +2153,7 @@ def phase_ip(seed, spec, by_hand):
     return launches
 
 
-def phase_t5(seed, spec, by_hand, serving):
+def phase_t5(seed, spec, by_hand, serving, root):
     """The T5 second text tower at full width: the default widths with the
     T5 cross-attention (its zero-initialised projection given weights) and
     a T5-v1.1-XXL encoder, bf16. The T5 encode alone (two passes, cond and
@@ -2163,7 +2165,12 @@ def phase_t5(seed, spec, by_hand, serving):
     check with the T5 states; one exact request cold and warm; one request
     under ``serving`` (its cross sites counted in a recording evaluation:
     ``attn_t5_out`` beside ``attn2_out``). The encode is also timed on the
-    device alone (:func:`graph_ms`). Returns the launches by path."""
+    device alone (:func:`graph_ms`). Then the pipeline takes the tiny T5
+    ``tokenizer.json`` (:func:`write_t5_tokenizer`) and a CLIP tokenizer
+    from ``merges.txt``, both written under ``root``, and one exact request
+    with ``T5_TEXT_PROMPT`` as text through ``__call__`` must equal the same
+    ids through ``sample`` (:func:`text_request`). Returns the launches by
+    path."""
     from followyourclick_tpu_torch.models.pab import PabMode
     from followyourclick_tpu_torch.models.unet3d import UNetConditioning
 
@@ -2215,6 +2222,7 @@ def phase_t5(seed, spec, by_hand, serving):
                                 by_hand)
         paths["exact_t5"] = {k: paths.get("exact_t5", {}).get(k, 0) + v
                              for k, v in got.items()}
+    paths["t5_text"] = t5_text_full(pipe, spec, seed + 403, root, by_hand)
     cache = {}
     x = torch.zeros(2, spec.video_length, spec.height // 8, spec.width // 8,
                     pipe.config.unet.conv_in_channels, device="cuda",
@@ -2246,6 +2254,31 @@ def phase_t5(seed, spec, by_hand, serving):
     if t5_encode_ok(states, fp32, shape):
         raise SystemExit("t5: the encode check passes the fan-in control")
     return paths
+
+
+def t5_text_full(pipe, spec, seed, root, by_hand):
+    """Phase 11's text request at full width: ``pipe`` given the tokenizers
+    a user's directories would hold (the tiny T5 ``tokenizer.json``, a CLIP
+    ``merges.txt``), then :func:`text_request` on one exact request of
+    :func:`make_request`'s first image, click and noise; its launches must
+    be ``by_hand``. Returns them."""
+    from followyourclick_tpu_torch.utils.native_tokenizer import (
+        NativeCLIPTokenizer,
+    )
+    from followyourclick_tpu_torch.utils.t5_tokenizer import T5Tokenizer
+
+    t5_dir = os.path.join(root, "t5_tokenizer")
+    write_t5_tokenizer(t5_dir)
+    merges = os.path.join(root, "merges.txt")
+    with open(merges, "w") as f:
+        f.write(synthetic_merges())
+    pipe.tokenizer = NativeCLIPTokenizer(merges)
+    pipe.tokenizer_2 = T5Tokenizer.from_pretrained(t5_dir)
+    with torch.inference_mode():
+        req = make_request(pipe, spec, seed,
+                           pipe.config.clip_text.vocab_size)
+    return text_request(pipe, spec, req["first_image_latents"], req["mask"],
+                        req["noise"], "t5 text, full width", by_hand)
 
 
 def t5_drift(states, fp32):
@@ -2349,7 +2382,7 @@ T5_TINY_HF = {"vocab_size": 64, "d_model": 16, "d_kv": 4, "d_ff": 24,
               "feed_forward_proj": "gated-gelu"}
 # the text request's prompt and the ids T5TokenizerFast (and the JAX
 # package's tokenize_2) give it over T5_TINY_PIECES: held on the CPU by
-# tests/test_torch_t5_tokenizer.py, on the card by phase_t5_text
+# tests/test_torch_t5_tokenizer.py, on the card by text_request
 T5_TEXT_PROMPT = "a red car drives on the road"
 T5_TEXT_IDS = [3, 10, 5, 7, 8, 4, 9, 1]
 
@@ -2444,10 +2477,9 @@ def phase_t5_text(seed, root, device="cuda"):
     ``tokenizer.json`` (:func:`write_t5_directory`) through
     ``assemble_pipeline_from_pretrained(t5_path=...)`` in fp32 on
     ``device``; ``tokenize_2`` of ``T5_TEXT_PROMPT`` must give
-    ``T5_TEXT_IDS``; a request with the prompt as text through
-    ``__call__`` must equal the same request through ``sample`` with the
-    ids (the same noise), and a request whose T5 ids alone differ must not.
-    Returns the text request's launches."""
+    ``T5_TEXT_IDS`` and a request with the prompt as text through
+    ``__call__`` must equal the same ids through ``sample``
+    (:func:`text_request`). Returns the text request's launches."""
     from followyourclick_tpu_torch.pipelines.animation import SampleSpec
     from followyourclick_tpu_torch.utils.loaders import (
         assemble_pipeline_from_pretrained,
@@ -2467,11 +2499,6 @@ def phase_t5_text(seed, root, device="cuda"):
     if not isinstance(pipe.tokenizer_2, T5Tokenizer):
         raise SystemExit("t5 text: the loader built no T5 tokenizer")
     unzero_(pipe.unet, torch.Generator(device=device).manual_seed(seed))
-    ids, mask, neg, neg_mask = pipe.tokenize_2([T5_TEXT_PROMPT], [""])
-    n = len(T5_TEXT_IDS)
-    if ids[0, :n].tolist() != T5_TEXT_IDS or ids[0, n:].any() \
-            or mask[0].sum() != n or neg[0, 0] != 1 or neg_mask[0].sum() != 1:
-        raise SystemExit(f"t5 text: tokenize_2 gave {ids[0, :n + 2]}")
     spec = SampleSpec(video_length=4, height=64, width=64,
                       num_inference_steps=2)
     gen = torch.Generator(device=device).manual_seed(seed + 1)
@@ -2479,16 +2506,39 @@ def phase_t5_text(seed, root, device="cuda"):
     click = (torch.rand(1, 8, 8, 1, generator=gen, device=device) > 0.5
              ).float()
     noise = torch.randn(1, 4, 8, 8, 4, generator=gen, device=device)
+    return text_request(pipe, spec, latents, click, noise, "t5 text, tiny")
+
+
+def text_request(pipe, spec, latents, click, noise, label, want=None):
+    """``T5_TEXT_PROMPT`` (negative ``""``) as text through ``pipe``'s
+    ``__call__`` against the same request through ``sample`` with the ids
+    its tokenizers give (the same noise, fps and motion score): the T5 ids
+    must be ``T5_TEXT_IDS``, the two videos equal, finite and of ``spec``'s
+    shape, and a request whose T5 ids alone differ must differ. With
+    ``want``, the text request's launches must equal it. Returns the text
+    request's launches by kernel."""
+    ids, mask, neg, neg_mask = pipe.tokenize_2([T5_TEXT_PROMPT], [""])
+    n = len(T5_TEXT_IDS)
+    if ids[0, :n].tolist() != T5_TEXT_IDS or ids[0, n:].any() \
+            or mask[0].sum() != n or neg[0, 0] != 1 or neg_mask[0].sum() != 1:
+        raise SystemExit(f"{label}: tokenize_2 gave {ids[0, :n + 2]}")
     wrappers = launches_zeroed()
+    if pipe.device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
     text = pipe(T5_TEXT_PROMPT, "", spec, latents, click, noise=noise)
+    dt = time.perf_counter() - t0
     got = {name: fn.launches for name, fn in wrappers.items()}
     clip_ids, clip_neg = pipe.tokenize([T5_TEXT_PROMPT], [""])
+    ucfg = pipe.config.unet
 
     def by_ids(t5_ids):
+        cond = (lambda v: torch.tensor([v]) if ucfg.use_fps_condition
+                else None)
         return pipe.sample(
             torch.from_numpy(clip_ids), torch.from_numpy(clip_neg), latents,
-            click, torch.tensor([8.0]), torch.tensor([20.0]), spec,
-            noise=noise, t5_input_ids=torch.from_numpy(t5_ids),
+            click, cond(8.0), cond(20.0), spec, noise=noise,
+            t5_input_ids=torch.from_numpy(t5_ids),
             t5_attention_mask=torch.from_numpy(mask),
             t5_neg_input_ids=torch.from_numpy(neg),
             t5_neg_attention_mask=torch.from_numpy(neg_mask)).cpu().numpy()
@@ -2497,14 +2547,18 @@ def phase_t5_text(seed, root, device="cuda"):
     other = ids.copy()
     other[0, :n - 1] = other[0, 1:n][::-1]
     moved = float(np.abs(text - by_ids(other)).max())
-    log(f"[t5] text request through the loader's T5 tokenizer "
+    shape = (1, spec.video_length, spec.height, spec.width, 3)
+    log(f"[{label}] text request through the T5 tokenizer "
         f"({T5_TEXT_PROMPT!r} → {T5_TEXT_IDS}): video "
-        f"{tuple(text.shape)}, max |text − ids| {same:.3e}, with other T5 "
-        f"ids {moved:.3e}; launches {got}")
-    if text.shape != (1, 4, 64, 64, 3) or not np.isfinite(text).all() \
+        f"{tuple(text.shape)} in {dt:.2f} s, max |text − ids| {same:.3e}, "
+        f"with other T5 ids {moved:.3e}; launches {got}"
+        + ("" if want is None else f" (want {want})"))
+    if text.shape != shape or not np.isfinite(text).all() \
             or same > 0 or moved == 0:
-        raise SystemExit("t5 text: the text request differs from the ids "
+        raise SystemExit(f"{label}: the text request differs from the ids "
                          "request, or the T5 ids do not reach the video")
+    if want is not None and {k: got[k] for k in want} != want:
+        raise SystemExit(f"{label}: launches {got}, want {want}")
     return got
 
 
@@ -4771,13 +4825,13 @@ def main(argv=None) -> int:
                                                      exact_by_hand)
     gc.collect()
     torch.cuda.empty_cache()
-    paths.update(timed(direct(phase_t5))(args.seed, exact, exact_by_hand,
-                                         serving))
-    gc.collect()
-    torch.cuda.empty_cache()
     import tempfile
 
     with tempfile.TemporaryDirectory() as root:
+        paths.update(timed(direct(phase_t5))(args.seed, exact, exact_by_hand,
+                                             serving, root))
+        gc.collect()
+        torch.cuda.empty_cache()
         paths["t5_text_tiny"] = entry(phase_t5_text)(args.seed, root)
     gc.collect()
     torch.cuda.empty_cache()

@@ -9,11 +9,16 @@ Images are uint8 or float in [0, 255], ``(H, W, 3)`` or ``(B, H, W, 3)``,
 normalised as mmflow's RAFT datasets do (``(x − 127.5) / 127.5``) and edge
 padded to a multiple of 8; the flow is cropped back before anything reads
 it. Each call runs under :func:`utils.backend_flags.checked_precision`, on
-the model's device: the card unless the model was built on the CPU.
+the model's device (the card unless the model was built on the CPU), and
+in eval mode, as JAX applies ``train=False``: the context encoder's BN
+reads its running statistics and leaves them as they are. The model's
+modes are given back afterwards, so a training loop can call them between
+steps.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Union
 
 import numpy as np
@@ -70,6 +75,19 @@ def _prepare(images, like: torch.Tensor) -> torch.Tensor:
     return x
 
 
+@contextlib.contextmanager
+def _eval_mode(model: torch.nn.Module):
+    """``model`` in eval mode inside the block; each submodule's own mode
+    restored on exit."""
+    modes = [(m, m.training) for m in model.modules()]
+    model.eval()
+    try:
+        yield
+    finally:
+        for m, training in modes:
+            m.training = training
+
+
 @checked_precision()
 @torch.no_grad()
 def inference_model(model: RAFT, img1, img2, iters: int = 32) -> np.ndarray:
@@ -80,8 +98,9 @@ def inference_model(model: RAFT, img1, img2, iters: int = 32) -> np.ndarray:
         img1, img2 = img1[None], img2[None]
     h, w = np.shape(img1)[1:3]
     like = next(model.parameters())
-    flow = model(_prepare(img1, like), _prepare(img2, like),
-                 iters=iters)[:, :, :h, :w]
+    with _eval_mode(model):
+        flow = model(_prepare(img1, like), _prepare(img2, like),
+                     iters=iters)[:, :, :h, :w]
     flow = flow.permute(0, 2, 3, 1).float().cpu().numpy()
     return flow[0] if squeeze else flow
 
@@ -96,5 +115,6 @@ def compute_motion_score(model: RAFT, frames, iters: int = 12) -> float:
                          f"{tuple(np.shape(frames))}")
     h, w = np.shape(frames)[1:3]
     x = _prepare(frames, next(model.parameters()))
-    flow = model(x[:-1], x[1:], iters=iters)[:, :, :h, :w]
+    with _eval_mode(model):
+        flow = model(x[:-1], x[1:], iters=iters)[:, :, :h, :w]
     return float(torch.sqrt((flow ** 2).sum(dim=1)).mean())

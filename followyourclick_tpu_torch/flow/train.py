@@ -39,7 +39,7 @@ import numpy as np
 import torch
 
 from followyourclick_tpu_torch.flow.losses import sequence_loss
-from followyourclick_tpu_torch.training.step import global_norm
+from followyourclick_tpu_torch.training.step import adam_state, adam_update
 from followyourclick_tpu_torch.utils.backend_flags import checked_precision
 
 Schedule = Callable[[int], float]
@@ -134,7 +134,9 @@ def multistage_lr(milestone_lrs, milestone_iters, steps,
 
 class FlowOptimizer:
     """optax's ``chain(clip_by_global_norm, adamw | adam-L2)`` under a
-    schedule, over named fp32 parameters, updated in place."""
+    schedule, over named fp32 parameters, updated in place: the step's
+    learning rate, read at the count before the update, given to every
+    leaf of ``training.step.adam_update``."""
 
     def __init__(self, cfg: FlowTrainConfig):
         if cfg.optimizer not in ("adamw", "adam"):
@@ -144,39 +146,19 @@ class FlowOptimizer:
 
     @staticmethod
     def init(params: Mapping[str, torch.Tensor]) -> dict:
-        return {"count": 0,
-                "mu": {n: torch.zeros_like(p) for n, p in params.items()},
-                "nu": {n: torch.zeros_like(p) for n, p in params.items()}}
+        return adam_state(params, params)
 
-    @torch.no_grad()
     def update(self, grads: Mapping[str, torch.Tensor], state: dict,
                params: Mapping[str, torch.Tensor]) -> torch.Tensor:
         """One update of ``params`` and ``state``; returns the gradients'
         global norm."""
         cfg = self.cfg
-        norm = global_norm(grads.values())
         lr = self.schedule(state["count"])
-        state["count"] += 1
-        count = _F32(state["count"])
-        b1, b2 = cfg.betas
-        bc1 = float(_F32(1) - _F32(b1) ** count)
-        bc2 = float(_F32(1) - _F32(b2) ** count)
-        for name, p in params.items():
-            g = grads[name]
-            if cfg.grad_clip_norm > 0:
-                g = torch.where(norm < cfg.grad_clip_norm, g,
-                                g / norm * cfg.grad_clip_norm)
-            if cfg.optimizer == "adam":
-                g = g + cfg.weight_decay * p
-            mu = (1 - b1) * g + b1 * state["mu"][name]
-            nu = (1 - b2) * g.square() + b2 * state["nu"][name]
-            u = (mu / bc1) / (torch.sqrt(nu / bc2) + cfg.eps)
-            if cfg.optimizer == "adamw":
-                u = u + cfg.weight_decay * p
-            p.add_(u * -lr)
-            state["mu"][name].copy_(mu)
-            state["nu"][name].copy_(nu)
-        return norm
+        return adam_update(
+            grads, state, params, dict.fromkeys(params, lr), cfg.betas,
+            cfg.eps, cfg.weight_decay,
+            cfg.grad_clip_norm if cfg.grad_clip_norm > 0 else None,
+            l2=cfg.optimizer == "adam")
 
 
 def _batch(batch: Mapping[str, object],

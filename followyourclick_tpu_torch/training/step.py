@@ -94,6 +94,52 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(sum(t.float().square().sum() for t in tensors))
 
 
+def adam_state(params: Mapping[str, torch.Tensor], names,
+               mu_dtype: Optional[torch.dtype] = None) -> dict:
+    """Zero moments of the leaves ``names`` of ``params`` (the first in
+    ``mu_dtype`` when given) and a count of 0."""
+    return {"count": 0,
+            "mu": {n: torch.zeros_like(params[n], dtype=mu_dtype)
+                   for n in names},
+            "nu": {n: torch.zeros_like(params[n]) for n in names}}
+
+
+@torch.no_grad()
+def adam_update(grads: Mapping[str, torch.Tensor], opt_state: dict,
+                params: Mapping[str, torch.Tensor], lrs: Mapping[str, float],
+                betas: Tuple[float, float], eps: float, weight_decay: float,
+                max_norm: Optional[float], l2: bool = False) -> torch.Tensor:
+    """One step of optax's ``chain(clip_by_global_norm(max_norm), adamw)``
+    over the leaves of ``lrs``, each at its learning rate; with ``l2``,
+    ``add_decayed_weights`` before ``scale_by_adam`` instead of the
+    decoupled decay (torch Adam's L2). ``max_norm=None`` does not clip.
+    Updates ``params`` and ``opt_state`` in place; returns the global norm
+    of every gradient in ``grads``."""
+    norm = global_norm(grads.values())
+    opt_state["count"] += 1
+    count = np.float32(opt_state["count"])
+    b1, b2 = betas
+    bc1 = float(np.float32(1) - np.float32(b1) ** count)
+    bc2 = float(np.float32(1) - np.float32(b2) ** count)
+    for name, lr in lrs.items():
+        p, g = params[name], grads[name]
+        if max_norm is not None:
+            g = torch.where(norm < max_norm, g, g / norm * max_norm)
+        if l2:
+            g = g + weight_decay * p
+        mu0 = opt_state["mu"][name]
+        # optax's weakly typed decay takes the moment's dtype
+        mu = (1 - b1) * g + mu0 * torch.tensor(b1, dtype=mu0.dtype)
+        nu = (1 - b2) * g.square() + b2 * opt_state["nu"][name]
+        u = (mu / bc1) / (torch.sqrt(nu / bc2) + eps)
+        if not l2:
+            u = u + weight_decay * p
+        p.add_(u * -lr)
+        mu0.copy_(mu)
+        opt_state["nu"][name].copy_(nu)
+    return norm
+
+
 class MaskedAdamW:
     """``optax.chain(clip_by_global_norm(max_norm), multi_transform(...))``
     over named fp32 leaves: ``lrs`` maps each leaf that trains to its
@@ -105,37 +151,16 @@ class MaskedAdamW:
         self.mu_dtype = _DTYPES[cfg.adam_mu_dtype]
 
     def init(self, params: Mapping[str, torch.Tensor]) -> dict:
-        mu = {n: torch.zeros_like(params[n], dtype=self.mu_dtype)
-              for n in self.lrs}
-        nu = {n: torch.zeros_like(params[n]) for n in self.lrs}
-        return {"count": 0, "mu": mu, "nu": nu}
+        return adam_state(params, self.lrs, self.mu_dtype)
 
     def update(self, grads: Mapping[str, torch.Tensor], opt_state: dict,
                params: Mapping[str, torch.Tensor]) -> torch.Tensor:
         """Update ``params`` and ``opt_state`` in place from ``grads``;
         returns the global norm of ``grads``."""
         cfg = self.cfg
-        norm = global_norm(grads.values())
-        keep = norm < cfg.max_grad_norm
-        opt_state["count"] += 1
-        count = np.float32(opt_state["count"])
-        bc1 = float(np.float32(1) - np.float32(cfg.adam_beta1) ** count)
-        bc2 = float(np.float32(1) - np.float32(cfg.adam_beta2) ** count)
-        b1, b2 = cfg.adam_beta1, cfg.adam_beta2
-        with torch.no_grad():
-            for name, lr in self.lrs.items():
-                g = grads[name]
-                g = torch.where(keep, g, g / norm * cfg.max_grad_norm)
-                mu0 = opt_state["mu"][name]
-                # optax's weakly typed decay takes the moment's dtype
-                mu = (1 - b1) * g + mu0 * torch.tensor(b1, dtype=mu0.dtype)
-                nu = (1 - b2) * g.square() + b2 * opt_state["nu"][name]
-                u = (mu / bc1) / (torch.sqrt(nu / bc2) + cfg.adam_eps)
-                u = (u + cfg.weight_decay * params[name]) * -lr
-                params[name].add_(u)
-                opt_state["mu"][name].copy_(mu)
-                opt_state["nu"][name].copy_(nu)
-        return norm
+        return adam_update(grads, opt_state, params, self.lrs,
+                           (cfg.adam_beta1, cfg.adam_beta2), cfg.adam_eps,
+                           cfg.weight_decay, cfg.max_grad_norm)
 
 
 def _labels_lrs(module: nn.Module, names, cfg: TrainConfig) -> dict:

@@ -35,14 +35,19 @@ def block_until_ready(out: Any) -> Any:
 @contextlib.contextmanager
 def device_trace(log_dir: str):
     """``torch.profiler`` over the block (CPU, and the card when there is
-    one), written to ``log_dir/trace.json`` for a Chrome-trace viewer."""
+    one), written to ``log_dir/trace.json`` for a Chrome-trace viewer, also
+    when the block raises."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    with torch.profiler.profile(activities=activities) as prof:
+    prof = torch.profiler.profile(activities=activities)
+    prof.start()
+    try:
         yield prof
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
 class StageTimer:

@@ -27,6 +27,7 @@
 import dataclasses
 import functools
 import itertools
+import types
 
 import jax
 import jax.numpy as jnp
@@ -40,9 +41,13 @@ from followyourclick_tpu.flow import train as jtrain
 from followyourclick_tpu_torch.flow import train as ttrain
 from followyourclick_tpu_torch.flow.convert import raft_state_from_jax
 from followyourclick_tpu_torch.flow.raft import RAFT, RAFTConfig
+from followyourclick_tpu_torch.training.step import global_norm
 from tests.test_torch_raft import H, W, jax_model
 
 STEP_ATOL = 1e-5
+# val/EPE after one step, 32 iterations: the parameters part by up to
+# STEP_ATOL, the flows of one forward by up to 1e-4 px
+VAL_EPE_ATOL = 1e-4
 
 
 @pytest.fixture(autouse=True)
@@ -101,6 +106,58 @@ def test_train_step_matches_jax():
             np.testing.assert_allclose(t.numpy(), want[name].numpy(),
                                        rtol=0, atol=STEP_ATOL, err_msg=name)
     assert stats == 2 * 15   # the context encoder's 15 BNs
+
+
+def test_train_model_evaluates_as_jax(tmp_path):
+    """``train_model`` with ``eval_every=1`` against JAX's (its
+    ``evaluate_sharded`` on one device): the step's and the ``val/``
+    metrics agree, and the evaluation reads the BN running statistics
+    without moving them, so the model after it is JAX's variables after
+    the step; every module goes back to train mode."""
+    from jax.sharding import Mesh
+
+    jmodel, variables = jax_model(False)
+    cfg = jtrain.FlowTrainConfig(eps=1e-5, iters=12)
+    tcfg = ttrain.FlowTrainConfig(**dataclasses.asdict(cfg))
+    batch = _batch(0)
+    rs = np.random.RandomState(7)
+    samples = [types.SimpleNamespace(
+        img1=(rs.rand(H, W, 3) * 255).astype(np.float32),
+        img2=(rs.rand(H, W, 3) * 255).astype(np.float32),
+        flow_gt=(5 * rs.randn(H, W, 2)).astype(np.float32),
+        valid=(rs.rand(H, W) > 0.2).astype(np.float32)) for _ in range(2)]
+    jlogs, tlogs = {}, {}
+    new_vars = jtrain.train_model(
+        jmodel, {"params": jax.tree_util.tree_map(np.copy,
+                                                  variables["params"]),
+                 "batch_stats": variables["batch_stats"]}, iter([batch]),
+        cfg, work_dir=str(tmp_path / "jax"), max_steps=1, resume=False,
+        log_fn=lambda step, m: jlogs.update(m), eval_dataset=samples,
+        eval_every=1, eval_mesh=Mesh(np.array(jax.devices()[:1])[:, None],
+                                     ("data", "model")))
+    model = RAFT(RAFTConfig())
+    model.load_state_dict(raft_state_from_jax(variables, model))
+    before = {k: v.clone() for k, v in model.state_dict().items()
+              if k.endswith("num_batches_tracked")}
+    ttrain.train_model(model, iter([batch]), tcfg,
+                       work_dir=str(tmp_path / "port"), max_steps=1,
+                       resume=False, log_fn=lambda step, m: tlogs.update(m),
+                       eval_dataset=samples, eval_every=1)
+    assert set(tlogs) == set(jlogs) | {"time", "grad_norm"}
+    for k in ("loss", "epe"):
+        np.testing.assert_allclose(tlogs[k], jlogs[k], rtol=1e-5, err_msg=k)
+    print(f"val/EPE {tlogs['val/EPE']!r} against JAX's {jlogs['val/EPE']!r}")
+    np.testing.assert_allclose(tlogs["val/EPE"], jlogs["val/EPE"],
+                               rtol=0, atol=VAL_EPE_ATOL)
+    assert all(m.training for m in model.modules())
+    want = raft_state_from_jax(
+        jax.tree_util.tree_map(np.asarray, dict(new_vars)), model)
+    for name, t in model.state_dict().items():
+        if name.endswith("num_batches_tracked"):
+            assert int(t) == int(before[name]) + ("context" in name), name
+        elif name.endswith(("running_mean", "running_var")):
+            assert float((t - want[name]).norm() / want[name].norm()) \
+                <= STEP_ATOL, name
 
 
 class _Capture(ttrain.FlowOptimizer):
@@ -169,7 +226,7 @@ def test_train_step_matches_fp64_as_closely_as_jax(pixels):
                                                 "batch_stats"]}),
         RAFT(RAFTConfig()))
     ref, port = grads[torch.float64], grads[torch.float32]
-    norm = float(ttrain.global_norm(ref.values()))
+    norm = float(global_norm(ref.values()))
     worst = {"port": (0.0, ""), "jax": (0.0, "")}
     for name in ref:
         if name in STEM_BIASES:
