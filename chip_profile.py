@@ -31,7 +31,9 @@ on the synthetic SD-1.5 directory, one 512² crop, 25 steps, with the text
 encoder, the VAE encode, each UNet step and the VAE decode in ranges),
 each part's device time by the correlation ids of its launches; the
 motion score (``flow``: :func:`profile_flow`, the device time by aten op
-and input shapes). For each path it prints
+and input shapes); the other flow estimators (``estimators``:
+:func:`profile_estimators`, each forward with and without cuDNN, a
+profiled forward each and the card's rounding on both routes). For each path it prints
 the wall time (host clock, ending in ``torch.cuda.synchronize()``), the
 peak device memory of the profiled request, the device's busy time (the union of the kernel,
 memcpy and memset intervals of the trace), the device span, the idle share
@@ -48,6 +50,7 @@ toolkit; imports no JAX.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import gc
 import json
@@ -601,6 +604,149 @@ def conv_diagnostic(model, device):
                            f"{err:.2e} ({chip_smoke.CARD})")
 
 
+@contextlib.contextmanager
+def cudnn_estimators():
+    """The flow estimators' forwards without their
+    ``native_convolutions`` wrapper inside the block, so their convolutions
+    take cuDNN as the process has it: a diagnostic of the route the port
+    does not take."""
+    from followyourclick_tpu_torch.flow import (
+        flownet,
+        flownet2,
+        irrpwc,
+        liteflownet,
+        maskflownet,
+        pwcnet,
+    )
+
+    classes = {c for m in (pwcnet, flownet, flownet2, maskflownet, irrpwc,
+                           liteflownet) for c in vars(m).values()
+               if isinstance(c, type) and "__wrapped__" in dir(
+                   c.__dict__.get("forward"))}
+    saved = {c: c.forward for c in classes}
+    for c in classes:
+        c.forward = c.forward.__wrapped__
+    try:
+        yield
+    finally:
+        for c, forward in saved.items():
+            c.forward = forward
+
+
+def profile_estimators(acts, out_dir, seed=0, device="cuda"):
+    """The other flow estimators (``chip_smoke.FLOW_ESTIMATOR_CONFIGS``,
+    seeded, fp32 under the contract), each on a 448x1024 pair: the
+    training-mode forward as the port runs it (cuDNN off,
+    ``flow/pwcnet.native_convolutions``) and with cuDNN (its wrapper
+    lifted, :func:`cudnn_estimators`), median of 5 warm calls by CUDA
+    events each, in turns in this call; one warm forward of the port's
+    route under the profiler (wall, busy, idle share, device launches,
+    the kernels that take the most device time; all of them to
+    ``chiprun_out/profile_estimators.txt``); and each route's worst
+    distance of a 256x384 output from the CPU's fp64 over the CPU fp32's
+    (phase 22's gate: 2), with one 3x3 conv at the model's widest layer
+    (card with and without cuDNN, and the CPU, from fp64)."""
+    import copy
+
+    import torch.nn.functional as F
+    import yaml
+
+    from followyourclick_tpu_torch.flow.api import init_model
+    from followyourclick_tpu_torch.flow.registry import flow_estimator
+    from followyourclick_tpu_torch.utils.backend_flags import (
+        checked_precision,
+    )
+
+    here = Path(__file__).resolve().parent
+    table = []
+    for i, name in enumerate(chip_smoke.FLOW_ESTIMATOR_CONFIGS):
+        with open(here / "configs" / "flow" / f"{name}.yaml") as f:
+            spec = flow_estimator(yaml.safe_load(f)["model"])
+        model = init_model(spec, seed=seed + i, device=device)
+        img1, img2 = chip_smoke.flow_pair(seed + i, 448, 1024, device)
+
+        def call():
+            with torch.no_grad():
+                return model(img1, img2)
+
+        ms = {}
+        with checked_precision():
+            for label in ("port", "cuDNN", "port ", "cuDNN "):
+                route = (cudnn_estimators() if label.startswith("cuDNN")
+                         else contextlib.nullcontext())
+                with route:
+                    call()
+                    ms[label] = chip_smoke.event_ms(call, reps=5)[0]
+            wall, _, _, spans, busy = profiled(acts, call)
+        by_name = collections.Counter()
+        for start, end, kernel in spans:
+            by_name[kernel] += (end - start) / 1e3
+        med = {k: float(np.median(ms[k] + ms[k + " "]))
+               for k in ("port", "cuDNN")}
+        chip_smoke.log(
+            f"[estimators] {spec.cls.__name__} ({name}) 448x1024: "
+            f"{med['port']:.3f} ms as the port runs it (cuDNN off), "
+            f"{med['cuDNN']:.3f} ms with cuDNN (median of 2 x 5 in turns); "
+            f"the port's route profiled: wall {wall * 1e3:.2f} ms, busy "
+            f"{busy * 1e3:.2f} ms, idle share {1 - busy / wall:.3f}, "
+            f"{len(spans)} device intervals ({chip_smoke.CARD})")
+        table.append(f"== {name}: port {med['port']:.3f} ms, cuDNN "
+                     f"{med['cuDNN']:.3f} ms; profiled wall "
+                     f"{wall * 1e3:.2f} ms, busy {busy * 1e3:.2f} ms, "
+                     f"{len(spans)} intervals")
+        for kernel, t in by_name.most_common():
+            table.append(f"{t:10.3f} ms  {kernel}")
+        for kernel, t in by_name.most_common(4):
+            chip_smoke.log(f"[estimators]   {t:9.3f} ms  {kernel[:110]}")
+
+        small = chip_smoke.flow_pair(seed + i, 256, 384, device)
+        state = {k: v.cpu() for k, v in model.state_dict().items()}
+        cpu = init_model(spec, checkpoint=state, device="cpu")
+        cpu_in = [t.cpu() for t in small]
+        want = chip_smoke.named_outputs(cpu, *cpu_in)
+        exact = chip_smoke.named_outputs(copy.deepcopy(cpu).double(),
+                                         *[t.double() for t in cpu_in])
+
+        def worst(outs):
+            return max(chip_smoke.rel_l2_64(outs[k], exact[k]) / max(
+                chip_smoke.rel_l2_64(want[k], exact[k]), 1e-30)
+                for k in exact)
+
+        with checked_precision():
+            ratio = worst(chip_smoke.named_outputs(model, *small))
+            with cudnn_estimators():
+                ratio_cudnn = worst(chip_smoke.named_outputs(model, *small))
+        convs = [m for m in model.modules()
+                 if isinstance(m, torch.nn.Conv2d) and m.kernel_size == (3, 3)]
+        conv = max(convs, key=lambda m: m.weight.numel())
+        gen = torch.Generator(device=device).manual_seed(seed)
+        x = torch.randn(1, conv.in_channels, 28, 64, generator=gen,
+                        device=device)
+        args = (None, conv.stride, conv.padding)
+        with checked_precision(), torch.no_grad():
+            ref = F.conv2d(x.cpu().double(), conv.weight.cpu().double(),
+                           *args)
+            one = {"cuDNN": F.conv2d(x, conv.weight, *args),
+                   "CPU": F.conv2d(x.cpu(), conv.weight.cpu(), *args)}
+            saved = torch.backends.cudnn.enabled
+            torch.backends.cudnn.enabled = False
+            try:
+                one["card, cuDNN off"] = F.conv2d(x, conv.weight, *args)
+            finally:
+                torch.backends.cudnn.enabled = saved
+        chip_smoke.log(
+            f"[estimators]   256x384 outputs, worst distance from the CPU's "
+            f"fp64 over the CPU fp32's: {ratio:.3f} as the port runs it, "
+            f"{ratio_cudnn:.3f} with cuDNN; one 3x3 conv "
+            f"{tuple(conv.weight.shape)} on {tuple(x.shape)} from fp64: "
+            + ", ".join(f"{k} {chip_smoke.rel_l2_64(v, ref):.2e}"
+                        for k, v in one.items()))
+        del model, cpu
+        gc.collect()
+        torch.cuda.empty_cache()
+    (out_dir / "profile_estimators.txt").write_text("\n".join(table) + "\n")
+
+
 def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_profile: no CUDA device; this script runs only on the "
@@ -636,7 +782,7 @@ def main(argv=None) -> int:
         f"exact_{chip_smoke.BATCH}clips": (exact, chip_smoke.BATCH, False),
         "exact_ip_plus": (exact, 1, True),
     }
-    chosen = argv or [*paths, "cli", "click", "fill", "flow"]
+    chosen = argv or [*paths, "cli", "click", "fill", "flow", "estimators"]
     out_dir = Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)
     if chosen[:1] == ["train"]:
@@ -689,7 +835,8 @@ def main(argv=None) -> int:
             chip_smoke.log(f"[{label}] {row[:150]}")
         check_flags(label)
     for name, fn in (("cli", profile_cli), ("click", profile_click),
-                     ("fill", profile_fill), ("flow", profile_flow)):
+                     ("fill", profile_fill), ("flow", profile_flow),
+                     ("estimators", profile_estimators)):
         if name in chosen:
             pipe = None
             gc.collect()

@@ -180,7 +180,19 @@ result line:
    tensor moved), a second ``train`` resumed from the first run's
    checkpoint (the same loss, the update within ``FLOW_RESUME_REL``),
    ``test`` on a synthetic Sintel pair at 436x1024 (32 iterations),
-   ``benchmark`` at 448x1024, ``flops``; no launches.
+   ``benchmark`` at 448x1024, ``flops``; no launches;
+22. the other flow estimators (:func:`phase_flow_estimators`): each
+   config of ``FLOW_ESTIMATOR_CONFIGS`` (PWC-Net, FlowNetS / C / CSS,
+   FlowNet2, MaskFlowNetS, MaskFlowNet, IRR-PWC, both LiteFlowNets) with
+   seeded weights at its published widths, fp32: every training-mode
+   output (IRR-PWC's backward flows and occlusions, MaskFlowNetS's mask)
+   and the ``inference=True`` flow on a seeded 256x384 pair, card vs CPU
+   (``FLOW_EST_REL``) and against the CPU's fp64 (``FLOW_FP64_RATIO``);
+   ``multi_level_epe_loss`` (and IRR-PWC's ``multi_level_bce``) card vs
+   CPU; ``flow_tools benchmark`` at 448x1024 (pairs/s of the median warm
+   call, peak memory) and ``flops`` (GFLOP a pair, parameters, the share
+   of the fp32 peak); one ``CameraMotionAugmentation`` clip card vs CPU
+   (``CAMERA_MAX_DIFF``, ``CAMERA_DIFF_SHARE``); no launches.
 
 The numerics contract: the script leaves the process's precision flags at
 PyTorch's defaults. The phases that call modules directly (2-12, the
@@ -188,7 +200,8 @@ training kernels, phase 17's step comparison, phase 18's generator calls
 and the calibration passes) run under ``utils/backend_flags
 .checked_precision``; the phases that go through the port's entry points
 (the text request, 13, 15-21) do not, and after each the flags must be
-the process's again.
+the process's again; phase 22 calls the estimators directly and through
+``flow_tools.main``, all under the contract.
 
 Phase 2 is followed by the training kernels' checks
 (:func:`phase_train_kernels`): the motion block and LN-GEGLU at the
@@ -204,9 +217,9 @@ Phase 2 also holds flash attention at the level-0 cross-frame shape of one
 clip (``CROSS_FRAME_FLASH``, 8192 keys) and the frame attention at the
 ``temporal_attention_dim_div = 2`` widths.
 
-Phases 5 to 21 are the main paths: each sets every kernel's launch count to
+Phases 5 to 22 are the main paths: each sets every kernel's launch count to
 0 before each request (phases 13, 15 and 16: before each CLI run and
-before the click phase; phase 17: before the training loop; phases 18-21:
+before the click phase; phase 17: before the training loop; phases 18-22:
 at their start) and checks the
 request's counts against those its :func:`expected_launches` gives at its
 batch (from ``request_plan``: the solver's calls, CFG or not, the
@@ -4708,6 +4721,214 @@ def phase_flow_train(seed, root, device="cuda", chairs=FLOW_CHAIRS,
     return got
 
 
+# phase 22: the other estimators, at the published widths of their configs
+FLOW_ESTIMATOR_CONFIGS = (
+    "pwcnet_slong_flyingchairs", "flownets_slong_flyingchairs",
+    "flownetc_slong_flyingchairs", "flownet_css_sfine_flyingthings3d",
+    "flownet2_sfine_flyingthings3d", "maskflownets_slong_flyingchairs",
+    "maskflownet_flyingthings3d", "irrpwc_sshort_flyingchairsocc",
+    "liteflownet_pre_flyingchairs", "liteflownet2_pre_flyingchairs")
+FLOW_EST_SIZE = (256, 384)
+# every output card vs CPU (relative L2), and each output's distance from
+# the CPU's fp64 at most FLOW_FP64_RATIO times the CPU fp32's
+FLOW_EST_REL = 1e-3
+FLOW_EST_BENCH = ("--warmup", "3", "--max-iter", "10")
+# one camera-motion clip, card vs CPU uint8: the bound the CPU tests hold
+# the port to against OpenCV's warpAffine
+CAMERA_CLIP = (16, 512)        # frames, side
+CAMERA_IMAGE = (768, 1024)
+CAMERA_MAX_DIFF = 1
+CAMERA_DIFF_SHARE = 1e-4
+
+
+def rel_l2_64(a, b):
+    """Relative L2 in float64 (an fp32 result against an fp64 one)."""
+    a, b = a.double().cpu(), b.double().cpu()
+    return float((a - b).norm() / b.norm())
+
+
+def flow_pair(seed, height, width, device, dtype=torch.float32):
+    """A seeded normalised pair ``(1, 3, H, W)`` each: a smooth texture and
+    the same shifted by a few pixels."""
+    clip = flow_clip(seed, 2, height, width).astype(np.float64)
+    x = torch.from_numpy((clip - 127.5) / 127.5).permute(0, 3, 1, 2)
+    x = x.to(device, dtype).contiguous()
+    return x[:1], x[1:]
+
+
+def named_outputs(model, img1, img2):
+    """Every output of the training-mode forward and the inference flow,
+    flat by name (``level2``, ``flow_bw.level4.1``, ``mask``,
+    ``inference``)."""
+    from followyourclick_tpu_torch.flow.maskflownet import MaskFlowNetS
+
+    kw = {"return_mask": True} if isinstance(model, MaskFlowNetS) else {}
+    with torch.no_grad():
+        out = model(img1, img2, **kw)
+        inf = model(img1, img2, inference=True)
+    flat = {}
+    if kw:
+        out, flat["mask"] = out
+    if isinstance(out, tuple):
+        for part in out:
+            for d, levels in part.items():
+                for level, ts in levels.items():
+                    for i, t in enumerate(ts):
+                        flat[f"{d}.{level}.{i}"] = t
+    else:
+        flat.update(out)
+    flat["inference"] = inf
+    return flat
+
+
+def flow_losses(model, outputs, img1, seed):
+    """``multi_level_epe_loss`` over the levels (IRR-PWC: the refined
+    forward flows of levels 6-2) against a seeded flow, and IRR-PWC's
+    ``multi_level_bce`` over its forward occlusions, as floats."""
+    from followyourclick_tpu_torch.flow.irrpwc import IRRPWC
+    from followyourclick_tpu_torch.flow.losses import multi_level_epe_loss
+    from followyourclick_tpu_torch.flow.unsup_losses import multi_level_bce
+
+    B, _, H, W = img1.shape
+    gen = torch.Generator().manual_seed(seed)
+    gt = (4 * torch.randn(B, 2, H, W, generator=gen)).to(img1)
+    if isinstance(model, IRRPWC):
+        levels = {f"level{k}": outputs[f"flow_fw.level{k}.1"]
+                  for k in range(6, 1, -1)}
+        occ = {f"level{k}": [outputs[f"occ_fw.level{k}.{i}"]
+                             for i in (0, 1)] for k in range(6, 1, -1)}
+        target = (torch.rand(B, 1, H, W, generator=gen) > 0.8).to(img1)
+        bce = float(multi_level_bce(occ, target, balance=True))
+    else:
+        levels = {k: v for k, v in outputs.items() if k.startswith("level")}
+        bce = None
+    weights = {k: 0.005 * 4 ** i for i, k in enumerate(sorted(levels))}
+    return float(multi_level_epe_loss(levels, gt, weights)), bce
+
+
+def camera_check(seed, device):
+    """One ``CameraMotionAugmentation`` clip (``rotate_cw``) on ``device``
+    against the CPU's: (ms on the device, bytes that differ, max diff)."""
+    from followyourclick_tpu_torch.data.camera_motion import (
+        CameraMotionAugmentation,
+    )
+
+    rs = np.random.RandomState(seed)
+    h, w = CAMERA_IMAGE
+    image = (np.kron(rs.rand(h // 8, w // 8, 3), np.ones((8, 8, 1)))
+             * 255).astype(np.uint8)
+    frames, side = CAMERA_CLIP
+    aug = CameraMotionAugmentation(frames, side, device=device)
+    aug(image, "rotate_cw")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got, idx = aug(image, "rotate_cw")
+    ms = (time.perf_counter() - t0) * 1e3
+    want, _ = CameraMotionAugmentation(frames, side, device="cpu")(
+        image, "rotate_cw")
+    diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
+    return ms, int((diff > 0).sum()), int(diff.max()), got.shape, idx
+
+
+def phase_flow_estimators(seed, device="cuda", size=FLOW_EST_SIZE,
+                          bench_size=None, configs=FLOW_ESTIMATOR_CONFIGS):
+    """Phase 22: the estimators of ``configs`` (``configs/flow/<name>.yaml``)
+    at their published widths, seeded, fp32 (the caller sets the numerics
+    contract; ``flow_tools.main`` sets it again): (a) every output of the
+    training-mode forward and the inference flow on a seeded ``size`` pair,
+    card vs CPU within ``FLOW_EST_REL`` (relative L2) and each against the
+    CPU's fp64 within ``FLOW_FP64_RATIO`` times the CPU fp32's distance;
+    (b) the multi-level losses card vs CPU; (c) ``flow_tools benchmark``
+    (448x1024 unless ``bench_size``) and ``flops``; (d) no launches; and
+    one camera-motion clip card vs CPU. ``device``, ``size``,
+    ``bench_size``: a rehearsal on the CPU. Returns the launches."""
+    import yaml
+
+    from followyourclick_tpu_torch.flow.api import init_model
+    from followyourclick_tpu_torch.flow.registry import flow_estimator
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    wrappers = launches_zeroed()
+    rows, failures = [], []
+    for i, name in enumerate(configs):
+        config = os.path.join(here, "configs", "flow", f"{name}.yaml")
+        with open(config) as f:
+            spec = flow_estimator(yaml.safe_load(f)["model"])
+        model = init_model(spec, seed=seed + i, device=device)
+        state = {k: v.cpu() for k, v in model.state_dict().items()}
+        cpu = init_model(spec, checkpoint=state, device="cpu")
+        img1, img2 = flow_pair(seed + i, *size, device)
+        t0 = time.perf_counter()
+        got = named_outputs(model, img1, img2)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        want = named_outputs(cpu, img1.cpu(), img2.cpu())
+        exact = named_outputs(copy.deepcopy(cpu).double(),
+                              img1.cpu().double(), img2.cpu().double())
+        worst = (0.0, 0.0, "")
+        for k in want:
+            err = rel_l2_64(got[k], want[k])
+            card64 = rel_l2_64(got[k], exact[k])
+            cpu64 = rel_l2_64(want[k], exact[k])
+            if not torch.isfinite(got[k]).all() or err > FLOW_EST_REL \
+                    or card64 > FLOW_FP64_RATIO * cpu64:
+                failures.append(f"{name} {k}: card vs CPU {err:.2e}, "
+                                f"against fp64 card {card64:.2e} CPU "
+                                f"{cpu64:.2e}")
+            worst = max(worst, (err, card64 / max(cpu64, 1e-30), k))
+        epe, bce = flow_losses(model, got, img1, seed)
+        epe_cpu, bce_cpu = flow_losses(cpu, want, img1.cpu(), seed)
+        loss_err = abs(epe - epe_cpu) / abs(epe_cpu)
+        if bce is not None:
+            loss_err = max(loss_err, abs(bce - bce_cpu) / abs(bce_cpu))
+        if not np.isfinite(epe) or loss_err > FLOW_EST_REL:
+            failures.append(f"{name} losses: EPE {epe} vs {epe_cpu}, BCE "
+                            f"{bce} vs {bce_cpu}")
+        del model, cpu
+        gc.collect()
+        torch.cuda.empty_cache()
+        _, lines = cli_lines([
+            "--device", device, "--seed", str(seed), "benchmark",
+            "--config", config, *FLOW_EST_BENCH,
+            *(["--size", *map(str, bench_size)] if bench_size else [])])
+        bench = json.loads(lines[-1])
+        _, lines = cli_lines(["flops", "--config", config,
+                              *(["--size", *map(str, bench_size)]
+                                if bench_size else [])])
+        flops = json.loads(lines[-1])
+        rate = flops["gflops"] * 1e9 / (bench["median_ms"] / 1e3)
+        rows.append((name, flops, bench, rate))
+        log(f"[flow est] {spec.cls.__name__} ({name}, "
+            f"{flops['params_m']} M): {len(want)} outputs at "
+            f"{size[0]}x{size[1]}, worst card vs CPU {worst[0]:.2e} "
+            f"({worst[2]}), worst card/CPU distance from fp64 "
+            f"{worst[1]:.3f} (bounds {FLOW_EST_REL:g}, "
+            f"{FLOW_FP64_RATIO:g}); EPE loss {epe:.6f} vs {epe_cpu:.6f}"
+            + (f", BCE {bce:.6f} vs {bce_cpu:.6f}" if bce is not None
+               else "") + f"; first card call {card_s:.2f} s")
+        log(f"[flow est]   benchmark {bench['size'][0]}x{bench['size'][1]}:"
+            f" {1e3 / bench['median_ms']:.2f} pairs/s (median "
+            f"{bench['median_ms']:.3f} ms; mean {bench['fps']} pairs/s), "
+            f"peak {bench['peak_gib']} GiB; {flops['gflops']} GFLOP a "
+            f"pair, {rate / 1e12:.2f} TFLOP/s = "
+            f"{rate / PEAK_FP32_OPS:.3f} of the fp32 peak ({CARD})")
+    ms, differ, worst, shape, idx = camera_check(seed, device)
+    log(f"[flow est] CameraMotionAugmentation rotate_cw (type {idx}), "
+        f"{shape} from {CAMERA_IMAGE[0]}x{CAMERA_IMAGE[1]}: {ms:.2f} ms "
+        f"warm on the card; card vs CPU {differ} bytes differ, max "
+        f"{worst} (bounds {CAMERA_MAX_DIFF}, share "
+        f"{CAMERA_DIFF_SHARE:g})")
+    if worst > CAMERA_MAX_DIFF or differ > CAMERA_DIFF_SHARE * np.prod(
+            shape):
+        failures.append(f"camera clip: {differ} bytes differ, max {worst}")
+    got = {name: fn.launches for name, fn in wrappers.items()}
+    if any(got.values()):
+        failures.append(f"a hand-written kernel launched: {got}")
+    if failures:
+        raise SystemExit("[flow est] " + "; ".join(failures))
+    return got
+
+
 def timed(fn):
     """``fn`` with a log line of the seconds it took."""
     def run(*args, **kwargs):
@@ -4864,6 +5085,9 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         paths["flow_train"] = entry(phase_flow_train)(args.seed, root)
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["flow_estimators"] = timed(direct(phase_flow_estimators))(args.seed)
     for name in KERNELS:
         if not sum(launches[name] for launches in paths.values()):
             raise SystemExit(f"{name} was never launched on a main path")

@@ -3,8 +3,12 @@
 Port of ``followyourclick_tpu/cli/flow_tools.py`` (mmflow's
 ``tools/train.py``, ``tools/test.py``, ``tools/benchmark.py`` and a FLOP
 counter). Configs are the YAML files of ``configs/flow/`` with an
-mmflow-style ``model: {type: ...}`` section (RAFT and GMA in the port) and
-a ``train:`` section of ``flow.train.FlowTrainConfig`` fields.
+mmflow-style ``model: {type: ...}`` section (any registered estimator) and
+a ``train:`` section of ``flow.train.FlowTrainConfig`` fields. ``flops``
+and ``benchmark`` count and time the training-mode forward of any
+estimator (the per-level flows); ``train`` and ``test`` take RAFT and GMA
+only, as in the JAX package, whose trainer and evaluator pass RAFT's
+``iters``.
 
     python -m followyourclick_tpu_torch.cli.flow_tools train \\
         --config configs/flow/raft_flyingchairs.yaml --data-root DIR
@@ -85,6 +89,13 @@ def count_flops(fn, *args) -> dict:
     return {"gflops": round(counter.get_total_flops() / 1e9, 3)}
 
 
+def _raft_only(cfg: dict, cmd: str) -> None:
+    kind = cfg["model"].get("type")
+    if kind not in ("RAFT", "GMA"):
+        raise ValueError(f"flow_tools {cmd} takes a RAFT or GMA config "
+                         f"(an iterative estimator), not {kind!r}")
+
+
 def _load_config(path: str) -> dict:
     import yaml
 
@@ -129,13 +140,12 @@ def _flops(args) -> dict:
         return out
     if args.config is None:
         raise SystemExit("flops: pass --config or --unet")
-    from followyourclick_tpu_torch.flow.raft import RAFT
-    from followyourclick_tpu_torch.flow.registry import FLOW_ESTIMATORS
+    from followyourclick_tpu_torch.flow.registry import flow_estimator
 
     model_cfg = _load_config(args.config)["model"]
     h, w = args.size
     with torch.device("meta"):
-        model = RAFT(FLOW_ESTIMATORS[model_cfg["type"]](model_cfg)).eval()
+        model = flow_estimator(model_cfg).build().eval()
         img = torch.empty(1, 3, h, w)
         out = count_flops(model, img, img)
     out.update(model=model_cfg["type"],
@@ -158,6 +168,8 @@ def main(argv: Optional[List[str]] = None) -> None:
         return
 
     cfg = _load_config(args.config)
+    if args.cmd in ("train", "test"):
+        _raft_only(cfg, args.cmd)
     if args.cmd == "train":
         from followyourclick_tpu_torch.flow.datasets import training_batches
         from followyourclick_tpu_torch.flow.train import (
@@ -188,6 +200,8 @@ def main(argv: Optional[List[str]] = None) -> None:
                                   metrics=args.metrics)))
 
     elif args.cmd == "benchmark":
+        import time
+
         from followyourclick_tpu_torch.utils.profiling import fps_benchmark
 
         h, w = args.size
@@ -196,14 +210,29 @@ def main(argv: Optional[List[str]] = None) -> None:
         rs = np.random.RandomState(0)
         pair = tuple(torch.from_numpy(rs.rand(1, 3, h, w).astype(
             np.float32)).to(args.device) for _ in range(2))
+        card = torch.device(args.device).type == "cuda"
+        if card:
+            torch.cuda.reset_peak_memory_stats(args.device)
+        seconds = []
 
         @torch.no_grad()
         def step(p):
-            return model(p[0], p[1])
+            t0 = time.perf_counter()
+            out = model(p[0], p[1])
+            if card:
+                torch.cuda.synchronize(args.device)
+            seconds.append(time.perf_counter() - t0)
+            return out
 
         fps = fps_benchmark(step, iter(lambda: pair, None),
                             warmup=args.warmup, max_iter=args.max_iter)
-        print(json.dumps({"fps": round(fps, 2), "size": [h, w]}))
+        warm = seconds[args.warmup:]
+        print(json.dumps({
+            "fps": round(fps, 2), "size": [h, w],
+            # the port's additions: the median warm call, the peak memory
+            "median_ms": round(float(np.median(warm)) * 1e3, 3),
+            "peak_gib": (round(torch.cuda.max_memory_allocated(args.device)
+                               / 2 ** 30, 3) if card else None)}))
 
 
 if __name__ == "__main__":

@@ -4,6 +4,9 @@ Port of ``followyourclick_tpu/flow/api.py`` (mmflow ``init_model`` /
 ``inference_model``) and the per-clip motion score, the mean flow
 magnitude over a clip's consecutive frame pairs, which the UNet's motion
 embedding takes as ``motion_score`` (``flow_control`` in training).
+``init_model`` builds any registered estimator; ``inference_model`` and
+``compute_motion_score`` take RAFT or GMA only, as in the JAX package,
+whose other estimators take no ``iters``.
 
 Images are uint8 or float in [0, 255], ``(H, W, 3)`` or ``(B, H, W, 3)``,
 normalised as mmflow's RAFT datasets do (``(x − 127.5) / 127.5``) and edge
@@ -19,13 +22,14 @@ steps.
 from __future__ import annotations
 
 import contextlib
-from typing import Optional, Union
+from typing import Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from followyourclick_tpu_torch.flow.raft import RAFT, RAFTConfig
+from followyourclick_tpu_torch.flow.registry import FlowEstimator
 from followyourclick_tpu_torch.models.layers import BN_STATS, BatchNorm2d
 from followyourclick_tpu_torch.utils.backend_flags import checked_precision
 from followyourclick_tpu_torch.utils.seeded_init import seeded_init_
@@ -34,15 +38,20 @@ _MEAN = 127.5
 _STD = 127.5
 
 
-def init_model(config: Optional[RAFTConfig] = None,
+def init_model(config: Union[RAFTConfig, FlowEstimator, None] = None,
                checkpoint: Union[str, dict, None] = None, seed: int = 0,
-               device: Union[str, torch.device] = "cuda") -> RAFT:
-    """A ``RAFT`` in eval mode on ``device``: its weights and BN statistics
-    from ``checkpoint`` (an mmflow ``.pth`` path or a state dict, loaded
-    strictly), else drawn by ``utils/seeded_init`` from ``seed``."""
+               device: Union[str, torch.device] = "cuda") -> torch.nn.Module:
+    """The estimator of ``config`` (a ``RAFTConfig``, or a registry
+    ``FlowEstimator``; RAFT's defaults when None) in eval mode on
+    ``device``: its weights and BN statistics from ``checkpoint`` (a
+    ``.pth`` path, mmflow's names for RAFT / GMA and the port's for the
+    others, or a state dict, loaded strictly), else drawn by
+    ``utils/seeded_init`` from ``seed``."""
     device = torch.device(device)
+    if not isinstance(config, FlowEstimator):
+        config = FlowEstimator(RAFT, config or RAFTConfig())
     with torch.device("meta"):
-        model = RAFT(config or RAFTConfig())
+        model = config.build()
     model = model.to_empty(device=device)
     for mod in model.modules():
         if isinstance(mod, BatchNorm2d):

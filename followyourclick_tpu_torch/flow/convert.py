@@ -1,12 +1,19 @@
-"""RAFT weights: mmflow checkpoints in, JAX variables across.
+"""Flow weights: checkpoints in, JAX variables across.
 
-The port's modules carry mmflow's state-dict names
-(``flow/raft.py``), so :func:`load_mmflow_raft_checkpoint` is a strict
-``load_state_dict`` of the file's ``state_dict`` (``torch.load`` with
-``weights_only=True``). :func:`raft_state_from_jax` lays a JAX ``RAFT``
-tree (``params`` and ``batch_stats``, numpy leaves) out under those names;
-the tests carry weights across with it. The name map is the JAX package's
-``flow/convert.convert_mmflow_raft``, read the other way, plus GMA's heads.
+The port's RAFT / GMA carry mmflow's state-dict names (``flow/raft.py``),
+the other estimators the JAX module names, so
+:func:`load_mmflow_raft_checkpoint` is a strict ``load_state_dict`` of the
+file's ``state_dict`` (``torch.load`` with ``weights_only=True``) for any
+of them. :func:`flow_state_from_jax` lays a JAX tree (``params`` and, for
+RAFT, ``batch_stats``; numpy leaves) out under the port's names; the
+tests carry weights across with it. For RAFT the name map is the JAX
+package's ``flow/convert.convert_mmflow_raft`` read the other way, plus
+GMA's heads (:func:`raft_state_from_jax`); for the others a state-dict
+name is the flax path, ``weight`` read as ``kernel``. Conv kernels
+``(kh, kw, in, out)`` become ``(out, in, kh, kw)``; flax's
+``ConvTranspose(transpose_kernel=True)`` stores ``(kh, kw, out, in)``,
+which the same transpose makes ``nn.ConvTranspose2d``'s ``(in, out, kh,
+kw)``, unflipped.
 """
 
 from __future__ import annotations
@@ -57,17 +64,34 @@ def _jax_path(name: str, module: nn.Module) -> Tuple[str, Tuple[str, ...]]:
     return "params", path + ({"weight": "kernel", "bias": "bias"}[leaf],)
 
 
+def _named_path(name: str, module: nn.Module) -> Tuple[str, Tuple[str, ...]]:
+    """(collection, path) of the JAX leaf behind ``name`` in an estimator
+    whose submodules carry the flax names."""
+    *path, leaf = name.split(".")
+    return "params", tuple(path) + ({"weight": "kernel"}.get(leaf, leaf),)
+
+
 def raft_state_from_jax(variables: Mapping[str, Any],
                         module: nn.Module) -> Dict[str, torch.Tensor]:
-    """The state dict of ``module`` (a ``RAFT`` of the same config) holding
-    the JAX tree ``variables``: conv kernels (kh, kw, in, out) → (out, in,
-    kh, kw); BN ``num_batches_tracked`` kept as the module has it."""
+    """:func:`flow_state_from_jax` of a ``RAFT`` (or GMA)."""
+    return flow_state_from_jax(variables, module)
+
+
+def flow_state_from_jax(variables: Mapping[str, Any],
+                        module: nn.Module) -> Dict[str, torch.Tensor]:
+    """The state dict of ``module`` (an estimator of the same config)
+    holding the JAX tree ``variables``: conv kernels (kh, kw, in, out) →
+    (out, in, kh, kw); BN ``num_batches_tracked`` kept as the module has
+    it."""
+    from followyourclick_tpu_torch.flow.raft import RAFT
+
+    locate = _jax_path if isinstance(module, RAFT) else _named_path
     out = {}
     for name, ref in module.state_dict().items():
         if name.endswith("num_batches_tracked"):
             out[name] = ref.clone()
             continue
-        collection, path = _jax_path(name, module)
+        collection, path = locate(name, module)
         value = variables[collection]
         for key in path:
             value = value[key]
@@ -80,8 +104,8 @@ def raft_state_from_jax(variables: Mapping[str, Any],
 
 
 def load_mmflow_raft_checkpoint(path: str, module: nn.Module) -> nn.Module:
-    """Load an mmflow RAFT ``.pth`` (``{"state_dict": ...}`` or the bare
-    dict) into ``module`` strictly; returns the module."""
+    """Load a ``.pth`` (``{"state_dict": ...}`` or the bare dict; mmflow's
+    for RAFT / GMA) into ``module`` strictly; returns the module."""
     state = torch.load(path, map_location="cpu", weights_only=True)
     module.load_state_dict(state.get("state_dict", state), strict=True)
     return module

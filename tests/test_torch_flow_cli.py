@@ -1,11 +1,12 @@
 """The port's flow CLI and the smoke's flow phases on the CPU, and the flow
 path, the flow CLI and a T5 text request without JAX.
 
-- ``chip_smoke`` phases 20-21 at small sizes on the CPU (the card's
+- ``chip_smoke`` phases 20-22 at small sizes on the CPU (the card's
   events, memory statistics and profiler stubbed): the motion score, card
   vs CPU (here CPU vs CPU) against fp64, GMA, the mmflow checkpoint; the
   CLI's ``train`` (with the resume), ``test``, ``benchmark`` and
-  ``flops``: every check they make on the card passes.
+  ``flops``; two of phase 22's estimators and its camera clip: every
+  check they make on the card passes.
 - ``cli.flow_tools flops`` counts a RAFT pair and the UNet on the meta
   device.
 - In a fresh interpreter with ``jax``, ``flax``, the JAX package, ``cv2``
@@ -45,6 +46,17 @@ def test_smoke_flow_phases_rehearse_on_the_cpu(monkeypatch, tmp_path):
                                       chairs=(2, 72, 100), crop=(64, 96),
                                       sintel_size=(60, 90),
                                       bench_size=(64, 64))
+    assert not any(got.values())
+    # phase 22 on estimators whose outputs take each of its paths (levels
+    # and a mask; IRR-PWC's nested lists and the BCE)
+    monkeypatch.setattr(chip_smoke, "FLOW_EST_BENCH",
+                        ("--warmup", "1", "--max-iter", "1"))
+    monkeypatch.setattr(chip_smoke, "CAMERA_CLIP", (2, 64))
+    monkeypatch.setattr(chip_smoke, "CAMERA_IMAGE", (96, 128))
+    got = chip_smoke.phase_flow_estimators(
+        0, device="cpu", size=(64, 64), bench_size=(64, 64),
+        configs=("maskflownets_slong_flyingchairs",
+                 "irrpwc_sshort_flyingchairsocc"))
     assert not any(got.values())
 
 

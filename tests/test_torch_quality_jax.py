@@ -11,10 +11,17 @@ score, noise key) then gives the JAX ``run_schedule``'s video, exact and
 steps: one period of 4 and the 2 final exact steps, as
 ``tests/test_torch_pipeline_call.py``), and the drift of the one from the
 other agrees at 1e-3 in relative L2 and 0.01 dB in PSNR (the step to
-which ``drift_metrics`` rounds it). The JAX tree's
-eager init takes most of the file's time (~70 s of ~150 s on one worker).
+which ``drift_metrics`` rounds it). The JAX ``build_quality_pipeline``
+runs with each flax ``init`` replaced by ``tests/test_torch_unet.
+random_tree`` (the shapes of ``init`` traced, the values from a numpy
+seed, no layer zero): flax's eager init took ~70 s of the file's ~150 s
+on one worker, and under ``jax.jit`` ~60 s.
 """
 
+import functools
+from unittest import mock
+
+import flax.linen as fnn
 import jax
 import numpy as np
 import pytest
@@ -31,6 +38,7 @@ from followyourclick_tpu_torch.pipelines.serving_schedules import (
 from followyourclick_tpu_torch.utils import quality
 from followyourclick_tpu_torch.utils.convert import load_jax_params
 from tests.test_torch_tokenizer import one_torch_thread  # noqa: F401
+from tests.test_torch_unet import random_tree
 
 
 class JaxDraws:
@@ -59,7 +67,14 @@ JBASE = dict(video_length=JF, height=JPX, width=JPX, num_inference_steps=6,
 def both_harnesses():
     """(JAX pipeline, port pipeline on the same tree, {schedule: (JAX
     video, port video)})."""
-    jpipe = jquality.build_quality_pipeline("tiny", seed=0)
+    init = fnn.Module.init
+
+    def traced_init(module, rngs, *args, **kwargs):
+        return {"params": random_tree(functools.partial(init, module,
+                                                        **kwargs), *args)}
+
+    with mock.patch.object(fnn.Module, "init", traced_init):
+        jpipe = jquality.build_quality_pipeline("tiny", seed=0)
     tpipe = quality.build_quality_pipeline("tiny", seed=0, device="cpu")
     for name in ("unet", "vae", "text_encoder"):
         load_jax_params(getattr(tpipe, name), jpipe.params[name])

@@ -190,8 +190,9 @@ def test_seeded_init_and_registry():
     gma = build_flow_estimator({"type": "GMA", "decoder": {"heads": 1}},
                                device="cpu")
     assert gma.config.use_gma and hasattr(gma.decoder, "aggregator")
-    with pytest.raises(KeyError, match="registered: \\['GMA', 'RAFT'\\]"):
-        build_flow_estimator({"type": "PWCNet"}, device="cpu")
+    with pytest.raises(KeyError, match="registered: \\['FlowNet2', .*"
+                       "'PWCNet', 'RAFT'\\]"):
+        build_flow_estimator({"type": "SpyNet"}, device="cpu")
 
 
 def test_no_silent_cpu_fallback():

@@ -10,6 +10,7 @@ another order, CLIP and the VAE 2e-4.
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -75,6 +76,20 @@ def random_tree(init, *args, seed=0):
 TINY_CAMERA = dataclasses.replace(TINY_UNET, use_camera_motion_condition=True)
 
 
+def fresh_copies(build):
+    """``build`` traced once a process for each argument list (the trace of
+    a UNet's ``init`` takes seconds and the suite asks for the same trees
+    many times); each call gets its own copy of every array."""
+    cached = functools.lru_cache(maxsize=None)(build)
+
+    @functools.wraps(build)
+    def call(*args, **kwargs):
+        return jax.tree_util.tree_map(np.array, cached(*args, **kwargs))
+
+    return call
+
+
+@fresh_copies
 def tiny_unet_tree(cfg=TINY_UNET, seed=0):
     """The UNet's random tree; with ``use_camera_motion_condition`` the JAX
     init is given a camera-motion type, so the tree holds that embedding."""
@@ -89,11 +104,13 @@ def tiny_unet_tree(cfg=TINY_UNET, seed=0):
                        jnp.zeros((b,), jnp.int32), cond, seed=seed)
 
 
+@fresh_copies
 def tiny_clip_tree(seed=1):
     return random_tree(JCLIP(TINY_CLIP).init, jnp.zeros((1, 77), jnp.int32),
                        seed=seed)
 
 
+@fresh_copies
 def tiny_vae_tree(seed=2):
     return random_tree(JVAE(TINY_VAE).init, jnp.zeros((1, 64, 64, 3)),
                        jax.random.PRNGKey(0), seed=seed)
