@@ -192,7 +192,21 @@ result line:
    CPU; ``flow_tools benchmark`` at 448x1024 (pairs/s of the median warm
    call, peak memory) and ``flops`` (GFLOP a pair, parameters, the share
    of the fp32 peak); one ``CameraMotionAugmentation`` clip card vs CPU
-   (``CAMERA_MAX_DIFF``, ``CAMERA_DIFF_SHARE``); no launches.
+   (``CAMERA_MAX_DIFF``, ``CAMERA_DIFF_SHARE``); no launches;
+23. ranks (:func:`phase_ranks`, and :func:`train_ranks` inside phase 17):
+   in phase 17, on its full-width models, batch and deterministic
+   algorithms, a one-process NCCL group (``tcp://127.0.0.1``) and
+   ``create_partitioned_train_state(group=)`` → ``train_loop(group=)`` →
+   ``train_step_partitioned(group=)`` for ``TRAIN_STEPS`` steps, equal
+   bit for bit to phase 17's single-process state (step ms and the
+   all-reduce's ms a step by CUDA events; launches against
+   ``TRAIN_LAUNCHES``, path ``train_ranks``); then, after phase 22,
+   ``flow.train.evaluate_sharded`` over NCCL against ``evaluate`` (RAFT on
+   2 synthetic pairs of 436x1024, ``RANKS_EVAL_REL``), the clip loader
+   against cv2 decoding directly in this process, bit for bit, on a
+   16-frame 512² MJPG clip and a PNG written here, with its clips / s at
+   1 and 4 workers, and ``entry.dryrun_multichip`` over 4 gloo ranks on
+   the CPU; no launches there.
 
 The numerics contract: the script leaves the process's precision flags at
 PyTorch's defaults. The phases that call modules directly (2-12, the
@@ -201,7 +215,8 @@ and the calibration passes) run under ``utils/backend_flags
 .checked_precision``; the phases that go through the port's entry points
 (the text request, 13, 15-21) do not, and after each the flags must be
 the process's again; phase 22 calls the estimators directly and through
-``flow_tools.main``, all under the contract.
+``flow_tools.main``, all under the contract; phase 23 goes through the
+entry points.
 
 Phase 2 is followed by the training kernels' checks
 (:func:`phase_train_kernels`): the motion block and LN-GEGLU at the
@@ -217,10 +232,11 @@ Phase 2 also holds flash attention at the level-0 cross-frame shape of one
 clip (``CROSS_FRAME_FLASH``, 8192 keys) and the frame attention at the
 ``temporal_attention_dim_div = 2`` widths.
 
-Phases 5 to 22 are the main paths: each sets every kernel's launch count to
+Phases 5 to 23 are the main paths: each sets every kernel's launch count to
 0 before each request (phases 13, 15 and 16: before each CLI run and
-before the click phase; phase 17: before the training loop; phases 18-22:
-at their start) and checks the
+before the click phase; phase 17: before the training loop, and again
+before the data-parallel loop; phases 18-23: at their start) and checks
+the
 request's counts against those its :func:`expected_launches` gives at its
 batch (from ``request_plan``: the solver's calls, CFG or not, the
 per-frame pass) and, where given, against the counts worked out by hand
@@ -3880,6 +3896,14 @@ def phase_train(seed, cfg=None, device="cuda", clip=TRAIN_CLIP):
                                       on_log=on_log)
             log(f"[train] resumed from step {TRAIN_SAVE_AT} to "
                 f"{resumed.step} in {time.perf_counter() - t0:.2f} s")
+            same, diff = states_equal(state, resumed)
+            same = same and state.step == TRAIN_STEPS
+            del resumed
+            gc.collect()
+            ranks = train_ranks(unet, tcfg, kw, batch, seed, state,
+                                dataclasses.replace(
+                                    loop_cfg, output_dir=os.path.join(
+                                        out_dir, "ranks")), device)
     finally:
         torch.backends.cudnn.deterministic = deterministic[0]
         torch.use_deterministic_algorithms(deterministic[1],
@@ -3889,17 +3913,6 @@ def phase_train(seed, cfg=None, device="cuda", clip=TRAIN_CLIP):
         else:
             os.environ["CUBLAS_WORKSPACE_CONFIG"] = deterministic[3]
 
-    same = (resumed.step == state.step == TRAIN_STEPS
-            and resumed.opt_state["count"] == state.opt_state["count"]
-            and all(torch.equal(t, resumed.trainable[n])
-                    for n, t in state.trainable.items())
-            and all(torch.equal(t, resumed.frozen[n])
-                    for n, t in state.frozen.items())
-            and all(torch.equal(t, resumed.opt_state[m][n])
-                    for m in ("mu", "nu")
-                    for n, t in state.opt_state[m].items()))
-    diff = max(float((t - resumed.trainable[n]).abs().max())
-               for n, t in state.trainable.items())
     start = dict(unet.named_parameters())
     unchanged = [n for n, t in state.trainable.items()
                  if torch.equal(t, start[n])]
@@ -3912,6 +3925,114 @@ def phase_train(seed, cfg=None, device="cuda", clip=TRAIN_CLIP):
         f"{len(moved)} of {len(state.frozen)}")
     if not same or unchanged or moved:
         raise SystemExit("[train] resume, trainable or frozen check failed")
+    return {"train": counts, "train_ranks": ranks}
+
+
+def states_equal(a, b):
+    """Whether two partitioned states hold the same step, count, leaves and
+    moments bit for bit, and their largest trainable difference."""
+    same = (a.step == b.step and a.opt_state["count"] == b.opt_state["count"]
+            and all(torch.equal(t, b.trainable[n])
+                    for n, t in a.trainable.items())
+            and all(torch.equal(t, b.frozen[n]) for n, t in a.frozen.items())
+            and all(torch.equal(t, b.opt_state[m][n])
+                    for m in ("mu", "nu")
+                    for n, t in a.opt_state[m].items()))
+    diff = max(float((t - b.trainable[n]).abs().max())
+               for n, t in a.trainable.items())
+    return same, diff
+
+
+@contextlib.contextmanager
+def process_group(device):
+    """A one-process group over NCCL on the card (gloo on the CPU), joined
+    through ``tcp://127.0.0.1`` as a multi-card launch joins; left on
+    exit."""
+    import torch.distributed as dist
+
+    from followyourclick_tpu_torch.parallel.data_parallel import free_port
+    from followyourclick_tpu_torch.parallel.mesh import initialize_distributed
+
+    initialize_distributed("nccl" if device == "cuda" else "gloo",
+                           f"tcp://127.0.0.1:{free_port()}", 0, 1)
+    try:
+        yield dist.group.WORLD
+    finally:
+        dist.destroy_process_group()
+
+
+def train_ranks(unet, tcfg, kw, batch, seed, reference, loop_cfg, device):
+    """Phase 23's data-parallel step (inside phase 17, on its models and
+    batch, under its deterministic algorithms): a state made by
+    ``create_partitioned_train_state(group=...)`` over a one-process NCCL
+    group, ``train_loop(group=...)`` with ``train_step_partitioned(group=
+    ...)`` for ``TRAIN_STEPS`` steps from the same seed, which must equal
+    phase 17's single-process state ``reference`` bit for bit (at world 1
+    the all-reduce is a copy and the division by 1 exact). Logs the step's
+    ms and the all-reduce's ms a step by CUDA events; returns the
+    launches."""
+    import itertools
+
+    from followyourclick_tpu_torch.training import loop
+    from followyourclick_tpu_torch.training import step as ts
+
+    reduce = ts.all_reduce_mean_
+    pending, step_ms, reduce_ms = [], [], []
+
+    def timed_reduce(tensors, group):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = reduce(tensors, group)
+        end.record()
+        pending.append((start, end))
+        return out
+
+    with process_group(device) as group:
+        def step_fn(state, batch, generator):
+            del pending[:]
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = ts.train_step_partitioned(state, batch, generator,
+                                            group=group, **kw)
+            end.record()
+            torch.cuda.synchronize()
+            step_ms.append(start.elapsed_time(end))
+            reduce_ms.append(sum(a.elapsed_time(b) for a, b in pending))
+            return out
+
+        wrappers = {**kernel_wrappers(), **unrouted_wrappers()}
+        ts.all_reduce_mean_ = timed_reduce
+        try:
+            state = ts.create_partitioned_train_state(unet, tcfg,
+                                                      group=group)
+            for wrapper in wrappers.values():
+                wrapper.launches = 0
+            state = loop.train_loop(state, itertools.repeat(batch), step_fn,
+                                    loop_cfg, seed=seed, group=group)
+            counts = {name: fn.launches for name, fn in wrappers.items()}
+            backend = torch.distributed.get_backend(group)
+        finally:
+            ts.all_reduce_mean_ = reduce
+    same, diff = states_equal(state, reference)
+    n_bytes = sum(t.numel() * t.element_size()
+                  for t in state.trainable.values())
+    log(f"[train ranks] world 1 over {backend}: {TRAIN_STEPS} steps of "
+        f"train_step_partitioned(group=...) through train_loop(group=...); "
+        f"step ms {[round(t, 1) for t in step_ms]}, all-reduce ms a step "
+        f"{[round(t, 2) for t in reduce_ms]} (the {n_bytes / 2 ** 30:.2f} "
+        f"GiB of fp32 gradients in one buffer, and the loss) ({CARD})")
+    by_hand = {k: TRAIN_LAUNCHES.get(k, 0) * TRAIN_STEPS for k in counts}
+    log("[train ranks] launches by hand / counted: " + ", ".join(
+        f"{k} {by_hand[k]} / {counts[k]}" for k in counts))
+    log(f"[train ranks] the data-parallel state equals the single-process "
+        f"one bit for bit: {same} (largest trainable difference "
+        f"{diff:.3e})")
+    if not same or counts != by_hand:
+        raise SystemExit("[train ranks] the data-parallel step differs from "
+                         "the single-process step, or its launches from "
+                         "the hand count")
     return counts
 
 
@@ -4929,6 +5050,163 @@ def phase_flow_estimators(seed, device="cuda", size=FLOW_EST_SIZE,
     return got
 
 
+# phase 23: sharded flow evaluation on RAFT (seeded, BN calibrated) over
+# synthetic Sintel-size pairs against the one-process evaluation (the same
+# flows, summed in another order), and the clip loader's throughput
+RANKS_EVAL_PAIRS = 2
+RANKS_EVAL_REL = 1e-6
+LOADER_CLIP = (16, 512, 512)   # frames, height, width of the MJPG clip
+LOADER_OUT = (256, 256)
+LOADER_REQUESTS = 16
+LOADER_WORKERS = (1, 4)
+DRYRUN_RANKS = 4
+
+
+def direct_cv2(path, frame_indices, out_hw, crop_mode):
+    """What the loader must give for one request, decoded in this process
+    by cv2 directly: ``imread``, or ``read`` frame by frame up to each
+    index, then ``frame_loader.cpp``'s resize, crop and BGR → RGB."""
+    import cv2
+
+    def prep(bgr):
+        out_h, out_w = out_hw
+        if crop_mode == 1:
+            return cv2.cvtColor(cv2.resize(bgr, (out_w, out_h)),
+                                cv2.COLOR_BGR2RGB)
+        h, w = bgr.shape[:2]
+        scale = max(out_h / h, out_w / w)
+        big = cv2.resize(bgr, (max(out_w, int(w * scale + 0.5)),
+                               max(out_h, int(h * scale + 0.5))))
+        y, x = (big.shape[0] - out_h) // 2, (big.shape[1] - out_w) // 2
+        return cv2.cvtColor(big[y:y + out_h, x:x + out_w], cv2.COLOR_BGR2RGB)
+
+    if frame_indices is None:
+        return prep(cv2.imread(path))[None]
+    cap = cv2.VideoCapture(path)
+    frames = []
+    for _ in range(max(frame_indices) + 1):
+        ok, frame = cap.read()
+        if not ok:
+            raise SystemExit(f"[ranks] cv2 could not read {path}")
+        frames.append(frame)
+    cap.release()
+    return np.stack([prep(frames[i]) for i in sorted(frame_indices)])
+
+
+def loader_check(root, seed):
+    """The clip loader on this machine's cv2: a 16-frame 512² MJPG clip and
+    a 512² PNG written here, each request equal bit for bit to
+    :func:`direct_cv2`; clips / s of ``LOADER_REQUESTS`` whole-clip
+    requests at each worker count of ``LOADER_WORKERS``."""
+    import cv2
+
+    from followyourclick_tpu_torch.data.native_loader import NativeClipLoader
+
+    frames, height, width = LOADER_CLIP
+    clip = flow_clip(seed, frames, height, width)
+    video = os.path.join(root, "clip.avi")
+    writer = cv2.VideoWriter(video, cv2.VideoWriter_fourcc(*"MJPG"), 8,
+                             (width, height))
+    for frame in clip:
+        writer.write(np.ascontiguousarray(frame[..., ::-1]))
+    writer.release()
+    image = os.path.join(root, "image.png")
+    cv2.imwrite(image, np.ascontiguousarray(clip[0, :, ::-1]))
+    requests = [(video, list(range(frames)), LOADER_OUT, 0),
+                (video, [13, 2, 7], (448, 256), 1),
+                (image, None, LOADER_OUT, 0), (image, None, (300, 512), 1)]
+    loader = NativeClipLoader(2)
+    for req in requests:
+        rid = loader.submit(*req)
+        got_id, got = loader.next()
+        want = direct_cv2(*req)
+        if got_id != rid or got.shape != want.shape or not \
+                np.array_equal(got, want):
+            raise SystemExit(f"[ranks] the loader differs from cv2 on "
+                             f"{req[1:]}: shapes {got.shape} / "
+                             f"{want.shape}")
+    loader.close()
+    log(f"[ranks] the loader equals cv2 {cv2.__version__} bit for bit on "
+        f"{len(requests)} requests (MJPG clip of {frames} frames at "
+        f"{height}x{width}, PNG; both crop modes)")
+    rates = {}
+    for workers in LOADER_WORKERS:
+        loader = NativeClipLoader(workers, capacity=8)
+        t0 = time.perf_counter()
+        for _ in range(LOADER_REQUESTS):
+            loader.submit(video, range(frames), LOADER_OUT)
+        for _ in range(LOADER_REQUESTS):
+            loader.next()
+        rates[workers] = LOADER_REQUESTS / (time.perf_counter() - t0)
+        loader.close()
+    log(f"[ranks] loader throughput, {frames}-frame {height}x{width} MJPG "
+        f"clips to {LOADER_OUT[0]}x{LOADER_OUT[1]}: " + ", ".join(
+            f"{w} worker(s) {r:.2f} clips/s" for w, r in rates.items())
+        + f" on {os.cpu_count()} CPU cores ({CARD})")
+    return rates
+
+
+def phase_ranks(seed, root, device="cuda", size=FLOW_SINTEL):
+    """Phase 23: ``flow.train.evaluate_sharded`` over a one-process NCCL
+    group against ``evaluate`` on ``RANKS_EVAL_PAIRS`` synthetic pairs of
+    ``size`` (RAFT, 32 iterations; EPE and Fl within ``RANKS_EVAL_REL``);
+    :func:`loader_check`; ``entry.dryrun_multichip`` over
+    ``DRYRUN_RANKS`` gloo ranks on the CPU. No hand-written kernel may
+    launch here. ``device`` and ``size``: a rehearsal on the CPU. Returns
+    the launches and the loader's clips / s by worker count."""
+    import types
+
+    from followyourclick_tpu_torch import entry as port_entry
+    from followyourclick_tpu_torch.flow import train as ftrain
+
+    wrappers = {**kernel_wrappers(), **unrouted_wrappers()}
+    for wrapper in wrappers.values():
+        wrapper.launches = 0
+    height, width = size
+    clip = flow_clip(seed, RANKS_EVAL_PAIRS + 1, height, width)
+    model = flow_model(seed, clip, device)
+    rs = np.random.RandomState(seed)
+    data = [types.SimpleNamespace(
+        img1=clip[i], img2=clip[i + 1],
+        flow_gt=(3 * rs.randn(height, width, 2)).astype(np.float32),
+        valid=(rs.rand(height, width) > 0.1).astype(np.float32))
+        for i in range(RANKS_EVAL_PAIRS)]
+    metrics = ("EPE", "Fl")
+    t0 = time.perf_counter()
+    one = ftrain.evaluate(model, data, metrics=metrics)
+    one_s = time.perf_counter() - t0
+    with process_group(device) as group:
+        backend = torch.distributed.get_backend(group)
+        t0 = time.perf_counter()
+        got = ftrain.evaluate_sharded(model, data, group=group,
+                                      metrics=metrics)
+        sharded_s = time.perf_counter() - t0
+    worst = max(abs(got[k] - one[k]) / abs(one[k]) for k in metrics)
+    log(f"[ranks] evaluate_sharded over {backend} (world 1), RAFT on "
+        f"{RANKS_EVAL_PAIRS} pairs of {height}x{width}, 32 iterations: EPE "
+        f"{got['EPE']!r}, Fl {got['Fl']!r} in {sharded_s:.2f} s; evaluate: "
+        f"EPE {one['EPE']!r}, Fl {one['Fl']!r} in {one_s:.2f} s; largest "
+        f"relative difference {worst:.3e} (tol {RANKS_EVAL_REL}) ({CARD})")
+    if not worst <= RANKS_EVAL_REL:
+        raise SystemExit("[ranks] evaluate_sharded differs from evaluate")
+    del model
+    gc.collect()
+    rates = loader_check(root, seed)
+    t0 = time.perf_counter()
+    out = port_entry.dryrun_multichip(DRYRUN_RANKS, device="cpu")
+    log(f"[ranks] dryrun_multichip({DRYRUN_RANKS}, device='cpu') over "
+        f"{out['backend']}: loss {out['loss']!r}, grad_norm "
+        f"{out['grad_norm']!r}, checksum {out['checksum']!r} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not all(np.isfinite([out["loss"], out["grad_norm"],
+                            out["checksum"]])):
+        raise SystemExit("[ranks] the dry run gave a value not finite")
+    got = {name: fn.launches for name, fn in wrappers.items()}
+    if any(got.values()):
+        raise SystemExit(f"[ranks] a hand-written kernel launched: {got}")
+    return got, rates
+
+
 def timed(fn):
     """``fn`` with a log line of the seconds it took."""
     def run(*args, **kwargs):
@@ -5070,7 +5348,7 @@ def main(argv=None) -> int:
         paths.update(entry(phase_fill)(args.seed, root))
     gc.collect()
     torch.cuda.empty_cache()
-    paths["train"] = entry(phase_train)(args.seed)
+    paths.update(entry(phase_train)(args.seed))
     gc.collect()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as root:
@@ -5088,6 +5366,10 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     paths["flow_estimators"] = timed(direct(phase_flow_estimators))(args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        paths["ranks"] = entry(phase_ranks)(args.seed, root)[0]
     for name in KERNELS:
         if not sum(launches[name] for launches in paths.values()):
             raise SystemExit(f"{name} was never launched on a main path")

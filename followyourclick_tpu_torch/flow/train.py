@@ -3,7 +3,7 @@
 Port of ``followyourclick_tpu/flow/train.py`` with the published RAFT
 schedule (``raft_8x2_100k_flyingchairs_368x496``: AdamW lr 4e-4, weight
 decay 1e-4, OneCycle with a 5 % linear warm-up from lr / 25, gradient
-clip at norm 1, sequence loss), on one process.
+clip at norm 1, sequence loss), training on one process.
 
 Numerics are optax's, as the JAX trainer's (:class:`FlowOptimizer`, not
 ``torch.optim``):
@@ -24,7 +24,8 @@ the batch and moves its running statistics as flax does
 back with ``weights_only=True``); :func:`train_model` resumes from the
 latest in its work dir and, unlike the JAX loop, first draws the batches
 the saved steps took, so a resumed run takes the same step an
-uninterrupted one does.
+uninterrupted one does. Its evaluation, :func:`evaluate_sharded`, deals
+the samples over the ranks of a process group.
 """
 
 from __future__ import annotations
@@ -237,13 +238,15 @@ def train_model(model: torch.nn.Module, data_iter: Iterable[Dict],
                 resume: bool = True,
                 log_fn: Optional[Callable[[int, Dict[str, float]],
                                           None]] = None,
-                eval_dataset=None, eval_every: int = 0) -> torch.nn.Module:
+                eval_dataset=None, eval_every: int = 0,
+                eval_group=None) -> torch.nn.Module:
     """mmflow's iteration-based runner: a checkpoint every
     ``cfg.checkpoint_every`` steps, auto-resume from ``work_dir``, and every
-    ``eval_every`` steps :func:`evaluate` on ``eval_dataset`` logged under
-    ``val/``. ``log_fn(step, metrics)`` also gets ``time``, the step's
-    seconds on the host clock (the metrics' read waits for the device).
-    Returns the model."""
+    ``eval_every`` steps :func:`evaluate_sharded` on ``eval_dataset`` over
+    ``eval_group`` (the JAX ``eval_mesh``; None: this process alone)
+    logged under ``val/``. ``log_fn(step, metrics)`` also gets ``time``,
+    the step's seconds on the host clock (the metrics' read waits for the
+    device). Returns the model."""
     tx = FlowOptimizer(cfg)
     opt_state = tx.init(dict(model.named_parameters()))
     start = 0
@@ -266,7 +269,7 @@ def train_model(model: torch.nn.Module, data_iter: Iterable[Dict],
             save_checkpoint(work_dir, step + 1, model, opt_state)
         if (eval_dataset is not None and eval_every > 0
                 and (step + 1) % eval_every == 0):
-            val = evaluate(model, eval_dataset)
+            val = evaluate_sharded(model, eval_dataset, group=eval_group)
             if log_fn is not None:
                 log_fn(step, {f"val/{k}": v for k, v in val.items()})
     return model
@@ -313,3 +316,56 @@ def evaluate(model: torch.nn.Module, dataset, iters: int = 32,
         gts.append(s.flow_gt)
         valids.append(s.valid)
     return eval_metrics(preds, gts, valids, list(metrics))
+
+
+def evaluate_sharded(model: torch.nn.Module, dataset, group=None,
+                     iters: int = 32, metrics=("EPE",)) -> Dict[str, float]:
+    """mmflow's multi-GPU test (JAX ``evaluate_sharded``): rank ``r`` of
+    ``group`` (None: one process) evaluates samples ``r, r + world, ...``,
+    each by ``flow.api.inference_model`` (the model in eval mode, every
+    module's mode given back), and keeps exact ``(EPE sum, outlier count,
+    valid count)`` over the pixels with ``valid >= 0.5``; one float64
+    ``all_reduce(SUM)`` joins the ranks, and every rank returns the
+    dataset's EPE and KITTI Fl-all (%, an outlier is EPE > 3 px and EPE /
+    (|gt| + 1e-6) > 5 %). One process a card evaluates one sample a
+    forward, so no rank pads a batch. Equals :func:`evaluate` up to the
+    order of the sums."""
+    from followyourclick_tpu_torch.flow.api import inference_model
+    from followyourclick_tpu_torch.flow.metrics import end_point_error_map
+    from followyourclick_tpu_torch.parallel.data_parallel import (
+        group_rank_world,
+    )
+
+    allowed = {"EPE", "Fl"}
+    metrics = [metrics] if isinstance(metrics, str) else list(metrics)
+    if not set(metrics).issubset(allowed):
+        raise KeyError(f"metrics {set(metrics) - allowed} are not supported")
+    rank, world = group_rank_world(group)
+    epe_sum = out_sum = n_valid = 0.0
+    for i in range(rank, len(dataset), world):
+        s = dataset[i]
+        flow = inference_model(model, s.img1, s.img2, iters=iters)
+        val = s.valid.reshape(-1) >= 0.5
+        epe = end_point_error_map(flow, s.flow_gt).reshape(-1)[val]
+        epe_sum += float(epe.sum())
+        n_valid += float(val.sum())
+        if "Fl" in metrics:
+            mag = (np.sqrt(np.sum(s.flow_gt ** 2, axis=-1)).reshape(-1)
+                   + 1e-6)[val]
+            out_sum += float(((epe > 3.0) & (epe / mag > 0.05)).sum())
+    if group is not None:
+        import torch.distributed as dist
+
+        device = (torch.device("cuda", torch.cuda.current_device())
+                  if dist.get_backend(group) == "nccl"
+                  else torch.device("cpu"))
+        sums = torch.tensor([epe_sum, out_sum, n_valid], dtype=torch.float64,
+                            device=device)
+        dist.all_reduce(sums, op=dist.ReduceOp.SUM, group=group)
+        epe_sum, out_sum, n_valid = sums.tolist()
+    out: Dict[str, float] = {}
+    if "EPE" in metrics:
+        out["EPE"] = epe_sum / max(n_valid, 1.0)
+    if "Fl" in metrics:
+        out["Fl"] = 100.0 * out_sum / max(n_valid, 1.0)
+    return out

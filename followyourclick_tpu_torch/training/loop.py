@@ -18,6 +18,14 @@ seeded with ``seed`` and ``n`` (:func:`step_generator`), so a resumed run
 takes the draws the uninterrupted run took at the same steps and, on the
 same device, reproduces its state. (The JAX loop restarts its key from
 ``rng`` on resume, so there a resumed run draws anew.)
+
+Over ranks (``group``): each rank's ``data_iter`` yields its rows of the
+global batch and ``step_fn`` takes the step over the group (e.g.
+``train_step_partitioned(..., group=group)``). Every rank seeds the frame
+crop and the step generators alike, so all crop the same frames and draw
+the global batch's draws. Rank 0 alone prints, logs, validates and writes
+the checkpoints, each write between two barriers; every rank restores
+from the same file.
 """
 
 from __future__ import annotations
@@ -31,6 +39,10 @@ from typing import Callable, Iterator, Optional
 import numpy as np
 import torch
 
+from followyourclick_tpu_torch.parallel.data_parallel import (
+    barrier,
+    group_rank_world,
+)
 from followyourclick_tpu_torch.utils.backend_flags import checked_precision
 
 STATE_FILE = "state.pt"
@@ -100,8 +112,14 @@ def _state_payload(state) -> dict:
             "step": state.step}
 
 
-def save_checkpoint(manager: CheckpointManager, step: int, state) -> None:
-    manager.save(step, _state_payload(state))
+def save_checkpoint(manager: CheckpointManager, step: int, state,
+                    group=None) -> None:
+    """Write ``state`` at ``step``; over ``group``, rank 0 writes between
+    two barriers (the other ranks' states are equal to its own)."""
+    barrier(group)
+    if group_rank_world(group)[0] == 0:
+        manager.save(step, _state_payload(state))
+    barrier(group)
 
 
 def _copy_into(target, source):
@@ -161,17 +179,20 @@ def _device(state) -> torch.device:
 def train_loop(state, data_iter: Iterator, step_fn: Callable,
                cfg: LoopConfig, seed: int = 0,
                on_log: Optional[Callable] = None,
-               validation_fn: Optional[Callable] = None):
+               validation_fn: Optional[Callable] = None, group=None):
     """Run the loop; returns the final state. ``step_fn(state, batch,
     generator)`` returns ``(state, metrics)``; ``validation_fn(step,
     params)`` runs at every ``cfg.validation_steps`` interval and at each
-    step of ``cfg.validation_steps_tuple``."""
+    step of ``cfg.validation_steps_tuple``. Over ``group`` (see the module
+    docstring) ``on_log`` and ``validation_fn`` run on rank 0, and the
+    other ranks wait for the validation."""
+    lead = group_rank_world(group)[0] == 0
     manager = make_checkpoint_manager(
         os.path.join(cfg.output_dir, "checkpoints"), cfg.keep_checkpoints)
     start_step = 0
     if cfg.need_resume:
         state, start_step = restore_checkpoint(manager, state)
-        if start_step:
+        if start_step and lead:
             print(f"[train_loop] resumed from step {start_step}")
 
     device = _device(state)
@@ -184,7 +205,7 @@ def train_loop(state, data_iter: Iterator, step_fn: Callable,
         state, metrics = step_fn(state, batch,
                                  step_generator(seed, step, device))
 
-        if (step + 1) % cfg.log_every == 0:
+        if (step + 1) % cfg.log_every == 0 and lead:
             loss = float(metrics["loss"])
             dt = (time.time() - t0) / cfg.log_every
             t0 = time.time()
@@ -193,10 +214,12 @@ def train_loop(state, data_iter: Iterator, step_fn: Callable,
             if on_log is not None:
                 on_log(step + 1, metrics)
         if (step + 1) % cfg.checkpointing_steps == 0:
-            save_checkpoint(manager, step + 1, state)
+            save_checkpoint(manager, step + 1, state, group)
         if validation_fn is not None and (
                 (cfg.validation_steps
                  and (step + 1) % cfg.validation_steps == 0)
                 or (step + 1) in cfg.validation_steps_tuple):
-            validation_fn(step + 1, state.params)
+            if lead:
+                validation_fn(step + 1, state.params)
+            barrier(group)
     return state

@@ -34,6 +34,15 @@ The state's tensors are updated in place: a step returns the state it was
 given. Random draws come from an explicit ``torch.Generator`` (on the
 batch's device); ``draws=`` takes them from the caller instead (the tests
 feed the JAX draws).
+
+Over ranks (``group``, ``parallel/data_parallel.py``), the JAX step on a
+mesh with the batch on ``P("data")``: each rank holds its rows of the
+global batch; the draws are drawn at the global batch's shape from the
+step's generator (the same on every rank) and each rank takes its rows, so
+``world`` ranks take the step one process takes over the whole batch. The
+gradients and the loss are averaged over the ranks before the optimizer,
+so its global-norm clip, Adam and the decay see the global gradient and
+every rank takes the same update. The states start from rank 0's leaves.
 """
 
 from __future__ import annotations
@@ -48,6 +57,12 @@ from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from followyourclick_tpu_torch.models.unet3d import UNetConditioning
+from followyourclick_tpu_torch.parallel.data_parallel import (
+    all_reduce_mean_,
+    broadcast_,
+    group_rank_world,
+    shard_rows,
+)
 from followyourclick_tpu_torch.schedulers.ddim import (
     DDIMSchedule,
     add_noise,
@@ -194,13 +209,16 @@ class TrainState:
 
 
 def create_train_state(unet: nn.Module, cfg: TrainConfig,
-                       params: Optional[Mapping] = None) -> TrainState:
+                       params: Optional[Mapping] = None,
+                       group=None) -> TrainState:
     """The full-tree state from ``params`` (the module's own by default);
-    trainable leaves are copied, frozen ones kept as they are."""
+    trainable leaves are copied, frozen ones kept as they are. Over
+    ``group`` every leaf takes rank 0's values."""
     params = _params(unet, params)
     lrs = _labels_lrs(unet, params, cfg)
     params = {n: t.to(torch.float32, copy=n in lrs) for n, t in
               params.items()}
+    broadcast_(params, 0, group)
     tx = MaskedAdamW(cfg, lrs)
     return TrainState(0, params, tx.init(params), tx)
 
@@ -236,11 +254,12 @@ class PartitionedTrainState:
 def create_partitioned_train_state(
         unet: nn.Module, cfg: TrainConfig,
         frozen_dtype: Optional[torch.dtype] = torch.bfloat16,
-        params: Optional[Mapping] = None) -> PartitionedTrainState:
+        params: Optional[Mapping] = None,
+        group=None) -> PartitionedTrainState:
     """The memory-lean state: fp32 copies of the leaves that train, the
     rest cast to ``frozen_dtype`` (kept as they are when None or already
     that dtype). ``frozen_dtype=torch.float32`` gives :func:`train_step`'s
-    update."""
+    update. Over ``group`` every leaf takes rank 0's values."""
     params = _params(unet, params)
     lrs = _labels_lrs(unet, params, cfg)
     trainable, frozen = partition_params(params, {n: n in lrs
@@ -250,6 +269,8 @@ def create_partitioned_train_state(
     if frozen_dtype is not None:
         frozen = {n: t.to(frozen_dtype) if t.is_floating_point() else t
                   for n, t in frozen.items()}
+    broadcast_(trainable, 0, group)
+    broadcast_(frozen, 0, group)
     tx = MaskedAdamW(cfg, lrs)
     return PartitionedTrainState(0, trainable, frozen, tx.init(trainable),
                                  tx)
@@ -278,30 +299,39 @@ class StepDraws:
 
 
 def draw_step(latents: torch.Tensor, sched: DDIMSchedule, cfg: TrainConfig,
-              generator: torch.Generator) -> StepDraws:
-    """The step's draws from ``generator``, in the JAX step's order."""
-    b, f, h, w, _ = latents.shape
+              generator: torch.Generator, group=None) -> StepDraws:
+    """The step's draws from ``generator``, in the JAX step's order. Over
+    ``group``, ``latents`` are this rank's rows: the draws are made at the
+    global batch's shape and this rank's rows returned."""
+    rank, world = group_rank_world(group)
+    b, f, h, w, c = latents.shape
+    b *= world
     kw = dict(generator=generator, device=latents.device)
-    return StepDraws(
+    return shard_rows(StepDraws(
         torch.randint(0, sched.cfg.num_train_timesteps, (b,), **kw),
-        torch.randn(latents.shape, dtype=latents.dtype, **kw),
+        torch.randn((b, f, h, w, c), dtype=latents.dtype, **kw),
         torch.randint(0, len(cfg.mask_corruption_rates), (b,), **kw),
-        torch.rand((b, h, w, 1), **kw))
+        torch.rand((b, h, w, 1), **kw)), rank, world)
 
 
 def encode_batch(vae: nn.Module, video: torch.Tensor,
                  generator: Optional[torch.Generator] = None,
-                 noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 noise: Optional[torch.Tensor] = None,
+                 group=None) -> torch.Tensor:
     """``(B, F, H, W, 3)`` in [-1, 1] → scaled latents ``(B, F, H/8, W/8,
     4)``: the VAE posterior's reparameterised sample × 0.18215, frames
     folded into the batch; ``noise`` (``(B·F, H/8, W/8, 4)``) in place of a
-    draw from ``generator``."""
+    draw from ``generator``. Over ``group``, ``video`` is this rank's clips:
+    the noise is drawn for the global batch and this rank's rows taken."""
     b, f, h, w, c = video.shape
     with torch.no_grad():
         mean, logvar = vae.encode(video.reshape(b * f, h, w, c))
         if noise is None:
-            noise = torch.randn(mean.shape, generator=generator,
-                                device=mean.device, dtype=mean.dtype)
+            rank, world = group_rank_world(group)
+            noise = shard_rows(torch.randn(
+                (world * mean.shape[0],) + tuple(mean.shape[1:]),
+                generator=generator, device=mean.device, dtype=mean.dtype),
+                rank, world)
         z = mean + torch.exp(0.5 * logvar) * noise.to(mean)
     return z.reshape(b, f, h // 8, w // 8, 4) * 0.18215
 
@@ -348,19 +378,31 @@ def _mse(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return torch.mean((pred.float() - target.float()) ** 2)
 
 
-def _step_draws(batch, generator, sched, cfg, draws):
-    return draws if draws is not None else draw_step(batch.latents, sched,
-                                                     cfg, generator)
+def _step_draws(batch, generator, sched, cfg, draws, group):
+    return draws if draws is not None else draw_step(
+        batch.latents, sched, cfg, generator, group)
+
+
+def _global_mean(loss: torch.Tensor, grads: dict, group):
+    """The loss and ``grads`` averaged over ``group`` (in place)."""
+    loss = loss.detach()
+    all_reduce_mean_(grads, group)
+    if group is not None:
+        loss = all_reduce_mean_([loss.clone()], group)[0]
+    return loss, grads
 
 
 def train_step(state: TrainState, batch: TrainBatch,
                generator: Optional[torch.Generator], *, unet: nn.Module,
                text_encoder: nn.Module, sched: DDIMSchedule,
-               cfg: TrainConfig, draws: Optional[StepDraws] = None):
-    """One v-prediction step over the whole tree; ``(state, metrics)``."""
+               cfg: TrainConfig, draws: Optional[StepDraws] = None,
+               group=None):
+    """One v-prediction step over the whole tree; ``(state, metrics)``.
+    Over ``group``, ``batch`` (and ``draws`` when given) are this rank's
+    rows; the metrics are the global batch's."""
     model_in, timesteps, cond, target = _prepare_step_inputs(
-        batch, _step_draws(batch, generator, sched, cfg, draws), sched, cfg,
-        text_encoder)
+        batch, _step_draws(batch, generator, sched, cfg, draws, group),
+        sched, cfg, text_encoder)
     leaves = {n: t.detach().requires_grad_() if t.is_floating_point()
               else t for n, t in state.params.items()}
     with torch.enable_grad():
@@ -369,18 +411,22 @@ def train_step(state: TrainState, batch: TrainBatch,
         names = [n for n, t in leaves.items() if t.requires_grad]
         grads = dict(zip(names, torch.autograd.grad(
             loss, [leaves[n] for n in names])))
+    loss, grads = _global_mean(loss, grads, group)
     norm = state.tx.update(grads, state.opt_state, state.params)
     state.step += 1
-    return state, {"loss": loss.detach(), "grad_norm": norm}
+    return state, {"loss": loss, "grad_norm": norm}
 
 
 def partitioned_loss_and_grads(state: PartitionedTrainState,
                                batch: TrainBatch, draws: StepDraws, *,
                                unet: nn.Module, text_encoder: nn.Module,
-                               sched: DDIMSchedule, cfg: TrainConfig):
+                               sched: DDIMSchedule, cfg: TrainConfig,
+                               group=None):
     """The loss and the trainable leaves' gradients of one step, the state
     untouched: the trainable leaves cast to the frozen leaves' dtype for
-    the forward (fp32 masters keep the update's precision)."""
+    the forward (fp32 masters keep the update's precision). Over
+    ``group``, ``batch`` and ``draws`` are this rank's rows and both
+    results are averaged over the ranks."""
     model_in, timesteps, cond, target = _prepare_step_inputs(
         batch, draws, sched, cfg, text_encoder)
     floating = [t.dtype for t in state.frozen.values()
@@ -396,19 +442,20 @@ def partitioned_loss_and_grads(state: PartitionedTrainState,
             target)
         grads = dict(zip(masters, torch.autograd.grad(
             loss, list(masters.values()))))
-    return loss.detach(), grads
+    return _global_mean(loss, grads, group)
 
 
 def train_step_partitioned(state: PartitionedTrainState, batch: TrainBatch,
                            generator: Optional[torch.Generator], *,
                            unet: nn.Module, text_encoder: nn.Module,
                            sched: DDIMSchedule, cfg: TrainConfig,
-                           draws: Optional[StepDraws] = None):
+                           draws: Optional[StepDraws] = None, group=None):
     """:func:`train_step`'s math with gradients of the trainable leaves
     only (:func:`partitioned_loss_and_grads`); ``(state, metrics)``."""
     loss, grads = partitioned_loss_and_grads(
-        state, batch, _step_draws(batch, generator, sched, cfg, draws),
-        unet=unet, text_encoder=text_encoder, sched=sched, cfg=cfg)
+        state, batch, _step_draws(batch, generator, sched, cfg, draws, group),
+        unet=unet, text_encoder=text_encoder, sched=sched, cfg=cfg,
+        group=group)
     norm = state.tx.update(grads, state.opt_state, state.trainable)
     state.step += 1
     return state, {"loss": loss, "grad_norm": norm}

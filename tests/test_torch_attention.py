@@ -24,6 +24,7 @@ from followyourclick_tpu_torch.models import attention as ta
 from followyourclick_tpu_torch.models import motion_module as tm
 from followyourclick_tpu_torch.ops import attention as tops
 from followyourclick_tpu_torch.utils.convert import load_jax_params
+from tests.test_torch_tokenizer import one_torch_thread  # noqa: F401
 
 TOL = 2e-4
 

@@ -27,6 +27,7 @@ from followyourclick_tpu_torch.ops.cross_attention import (
     q_stage,
 )
 from followyourclick_tpu_torch.ops.geglu import down_stage, layer_norm_cast
+from tests.test_torch_tokenizer import one_torch_thread  # noqa: F401
 
 HEADS = 8
 CTX = 96  # context channels (the model's is 768)

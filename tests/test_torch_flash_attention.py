@@ -28,6 +28,7 @@ from followyourclick_tpu.ops.flash_attention import (
 )
 from followyourclick_tpu_torch.ops import attention as tops
 from followyourclick_tpu_torch.ops import flash_attention as tfa
+from tests.test_torch_tokenizer import one_torch_thread  # noqa: F401
 
 FP32_ATOL = 1e-4
 BF16_REL = 1.6e-2

@@ -18,6 +18,7 @@ from followyourclick_tpu.flow import datasets as jdata
 from followyourclick_tpu.flow import flow_io as jio
 from followyourclick_tpu_torch.flow import datasets as tdata
 from followyourclick_tpu_torch.flow import flow_io as tio
+from tests.test_torch_tokenizer import one_torch_thread  # noqa: F401
 
 SIZE = (20, 28)   # (H, W) of the synthetic images
 

@@ -22,6 +22,7 @@ from followyourclick_tpu.flow import ops as jops
 from followyourclick_tpu_torch.flow import losses as tlosses
 from followyourclick_tpu_torch.flow import metrics as tmetrics
 from followyourclick_tpu_torch.flow import ops as tops
+from tests.test_torch_tokenizer import one_torch_thread  # noqa: F401
 
 ATOL = 1e-5
 

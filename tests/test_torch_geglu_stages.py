@@ -24,6 +24,7 @@ from followyourclick_tpu_torch.ops.geglu import (
     ln_geglu_ref,
     up_stage,
 )
+from tests.test_torch_tokenizer import one_torch_thread  # noqa: F401
 
 
 def _args(rs, rows, c, dtype):

@@ -31,6 +31,7 @@ from followyourclick_tpu_torch.ops.motion_block import (
     fused_motion_block,
     motion_block_ref,
 )
+from tests.test_torch_tokenizer import one_torch_thread  # noqa: F401
 
 FP32_TOL = 2e-4
 BF16_ATOL = 3e-2

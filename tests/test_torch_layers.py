@@ -24,6 +24,7 @@ from followyourclick_tpu_torch.models import resnet as tr
 from followyourclick_tpu_torch.ops import upsample as tup
 from followyourclick_tpu_torch.schedulers import ddim as tddim
 from followyourclick_tpu_torch.utils.convert import load_jax_params
+from tests.test_torch_tokenizer import one_torch_thread  # noqa: F401
 
 
 def np_tree(variables):

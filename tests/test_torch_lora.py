@@ -32,6 +32,7 @@ from tests.test_torch_unet import (
     tiny_clip_tree,
     tiny_unet_tree,
 )
+from tests.test_torch_tokenizer import one_torch_thread  # noqa: F401
 
 
 def motion_lora(unet_config, rank=4, seed=0, scale=0.5):

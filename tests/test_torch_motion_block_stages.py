@@ -37,6 +37,7 @@ from followyourclick_tpu_torch.ops.motion_block import (
     qkv_stage,
     qkv_weights,
 )
+from tests.test_torch_tokenizer import one_torch_thread  # noqa: F401
 
 EPS = 1e-5
 

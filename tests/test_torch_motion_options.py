@@ -39,6 +39,7 @@ from followyourclick_tpu_torch.models import rope as trope
 from followyourclick_tpu_torch.models.pab import PabMode
 from followyourclick_tpu_torch.utils.convert import load_jax_params
 from tests.test_torch_unet import random_tree
+from tests.test_torch_tokenizer import one_torch_thread  # noqa: F401
 
 TOL = 2e-4
 ROPE_TOL = 1e-4

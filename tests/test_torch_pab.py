@@ -37,6 +37,7 @@ from followyourclick_tpu_torch.utils.convert import (
     pab_cache_from_jax,
 )
 from tests.test_torch_unet import TINY_UNET, tiny_unet_tree
+from tests.test_torch_tokenizer import one_torch_thread  # noqa: F401
 
 TOL = 5e-4
 RECORD_ALL = PabMode(record_spatial=True, record_cross=True,

@@ -9,10 +9,9 @@ the same random parameters (by ``load_jax_params``), and JAX's own initial
 noise injected into the port, since the two PRNGs differ. fp32 on the CPU.
 The video holds 1e-3 absolute: two UNet calls, the DDIM chain and a VAE
 decode amplify the 5e-4 of one UNet call slightly, on outputs in [0, 1].
-The same holds for a UNet without the click-mask concat (a 4-channel
-``conv_in``, no first-frame latent or mask passed), on the exact sampler
-and under a PAB serving schedule, whose pre-duplicated input is built
-apart from the exact path's.
+The same holds for a UNet without the click-mask concat
+(``tests/test_torch_pipeline_without_concat.py``, a file of its own so that
+the suite's workers share the time).
 """
 
 import dataclasses
@@ -31,7 +30,6 @@ from followyourclick_tpu.pipelines.animation import (
     AnimationPipeline as JPipeline,
 )
 from followyourclick_tpu.pipelines.animation import SampleSpec as JSpec
-from followyourclick_tpu.pipelines.serving_schedules import SCHEDULES
 from followyourclick_tpu_torch.models.clip_text import CLIPTextModel
 from followyourclick_tpu_torch.models.unet3d import UNet3DConditionModel
 from followyourclick_tpu_torch.models.vae import AutoencoderKL
@@ -50,6 +48,7 @@ from tests.test_torch_unet import (
     tiny_unet_tree,
     tiny_vae_tree,
 )
+from tests.test_torch_tokenizer import one_torch_thread  # noqa: F401
 
 CFG = InferenceConfig(unet=TINY_UNET, vae=TINY_VAE, clip_text=TINY_CLIP)
 # the same UNet with a 4-channel conv_in: no mask or first-frame channels
@@ -127,22 +126,6 @@ def test_tiny_two_clip_sample_matches_jax():
     tiled to the doubled batch, and the CFG split, as the JAX sampler."""
     got, want = sample_both(EXACT, b=2)
     assert np.abs(got[0] - got[1]).mean() > 1e-3
-    np.testing.assert_allclose(got, want, rtol=0, atol=1e-3)
-
-
-@pytest.mark.parametrize("spec_kw", [
-    EXACT,
-    # one period of 4 and the 2 final exact steps: the PAB path's
-    # pre-duplicated input (build_x)
-    dict(EXACT, num_inference_steps=6, **SCHEDULES["pab244_deep4_cfg4_ex"])],
-    ids=["exact", "pab244_deep4_cfg4_ex"])
-def test_tiny_sample_without_mask_concat_matches_jax(spec_kw):
-    """A UNet without ``use_first_frame_mask_condition_concat`` takes the
-    bare latents (4 channels), and the request carries no first-frame
-    latent and no mask."""
-    conv_in = UNet3DConditionModel(NO_CONCAT.unet).conv_in.conv
-    assert conv_in.weight.shape[1] == 4
-    got, want = sample_both(spec_kw, cfg=NO_CONCAT)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-3)
 
 

@@ -11,6 +11,7 @@ import numpy as np
 
 from tests.test_torch_pipeline import EXACT
 from tests.test_torch_pipeline_t5 import CONCAT_CFG, sample_both
+from tests.test_torch_tokenizer import one_torch_thread  # noqa: F401
 
 
 def test_tiny_first_frame_concat_sample_matches_jax():

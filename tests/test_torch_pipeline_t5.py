@@ -50,6 +50,7 @@ from tests.test_torch_unet import (
     tiny_clip_tree,
     tiny_vae_tree,
 )
+from tests.test_torch_tokenizer import one_torch_thread  # noqa: F401
 
 T5 = dict(vocab_size=200, d_model=32, d_kv=8, d_ff=64, num_layers=2,
           num_heads=4)

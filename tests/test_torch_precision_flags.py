@@ -25,6 +25,7 @@ from followyourclick_tpu_torch.utils.backend_flags import (
     checked_precision,
     precision_flags,
 )
+from tests.test_torch_tokenizer import one_torch_thread  # noqa: F401
 
 OFF = (False, False, False)
 

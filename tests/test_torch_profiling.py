@@ -26,6 +26,7 @@ import torch
 
 from followyourclick_tpu.utils import profiling as jprof
 from followyourclick_tpu_torch.utils import profiling as tprof
+from tests.test_torch_tokenizer import one_torch_thread  # noqa: F401
 
 WAIT_S = 0.05
 

@@ -39,6 +39,7 @@ from followyourclick_tpu_torch.pipelines.animation import (
 from followyourclick_tpu_torch.utils.convert import load_jax_params
 from tests.test_torch_pipeline import CFG, EXACT, F, H, W, _request
 from tests.test_torch_unet import tiny_clip_tree, tiny_unet_tree, tiny_vae_tree
+from tests.test_torch_tokenizer import one_torch_thread  # noqa: F401
 
 ATOL = 1e-3
 

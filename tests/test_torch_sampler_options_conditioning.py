@@ -41,6 +41,7 @@ from tests.test_torch_unet import (
     tiny_unet_tree,
     tiny_vae_tree,
 )
+from tests.test_torch_tokenizer import one_torch_thread  # noqa: F401
 
 CAMERA = dataclasses.replace(CFG, unet=TINY_CAMERA)
 

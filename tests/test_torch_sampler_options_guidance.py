@@ -20,6 +20,7 @@ import numpy as np
 
 from tests.test_torch_pipeline import EXACT
 from tests.test_torch_sampler_options import ATOL, sample_both
+from tests.test_torch_tokenizer import one_torch_thread  # noqa: F401
 
 
 def test_ddim_eta_matches_jax():

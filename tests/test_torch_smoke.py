@@ -32,6 +32,7 @@ from followyourclick_tpu_torch.pipelines.animation import SampleSpec
 from followyourclick_tpu_torch.pipelines.serving_schedules import (
     apply_schedule,
 )
+from tests.test_torch_tokenizer import one_torch_thread  # noqa: F401
 
 SERVING = apply_schedule(
     SampleSpec(num_inference_steps=chip_smoke.SERVING_STEPS),

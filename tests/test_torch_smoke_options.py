@@ -34,6 +34,7 @@ from followyourclick_tpu_torch.pipelines.serving_schedules import (
     apply_schedule,
 )
 from tests.test_torch_smoke import SERVING, _counts
+from tests.test_torch_tokenizer import one_torch_thread  # noqa: F401
 
 BF16 = torch.bfloat16
 ONE_EVAL = [PlanStep(0, 0, True, None)]

@@ -24,6 +24,7 @@ from followyourclick_tpu_torch.schedulers.dispatch import (
     SCHEDULERS,
     make_solver,
 )
+from tests.test_torch_tokenizer import one_torch_thread  # noqa: F401
 
 SHAPE = (1, 2, 4, 4, 4)
 RTOL = 1e-5

@@ -21,6 +21,7 @@ from followyourclick_tpu.models import t5_text as jt5
 from followyourclick_tpu_torch.models import t5_text as tt5
 from followyourclick_tpu_torch.utils.convert import load_jax_params
 from tests.test_torch_unet import random_tree
+from tests.test_torch_tokenizer import one_torch_thread  # noqa: F401
 
 TOL = 1e-4
 TINY = dict(vocab_size=200, d_model=32, d_kv=8, d_ff=64, num_layers=2,

@@ -30,6 +30,7 @@ from followyourclick_tpu_torch.ops.temporal_attention import (
     temporal_attention_ref,
     temporal_block_ref,
 )
+from tests.test_torch_tokenizer import one_torch_thread  # noqa: F401
 
 FP32_TOL = 2e-4
 BF16_ATOL = 3e-2

@@ -28,6 +28,7 @@ from followyourclick_tpu_torch.ops.temporal_attention import (
     fused_temporal_block,
     temporal_block_ref,
 )
+from tests.test_torch_tokenizer import one_torch_thread  # noqa: F401
 
 
 def _args(rs, b, s, c, dtype):

@@ -14,6 +14,7 @@ from followyourclick_tpu.data import dataset as jds
 from followyourclick_tpu.data import image_dataset as jimg
 from followyourclick_tpu_torch.data import dataset as tds
 from followyourclick_tpu_torch.data import image_dataset as timg
+from tests.test_torch_tokenizer import one_torch_thread  # noqa: F401
 
 cv2 = pytest.importorskip("cv2")
 

@@ -35,6 +35,7 @@ from followyourclick_tpu_torch.models.unet3d import (
 )
 from followyourclick_tpu_torch.models.vae import AutoencoderKL
 from followyourclick_tpu_torch.utils.convert import load_jax_params
+from tests.test_torch_tokenizer import one_torch_thread  # noqa: F401
 
 TINY_UNET = UNet3DConfig(
     sample_size=32, cross_attention_dim=768, attention_head_dim=8,

@@ -35,6 +35,7 @@ from followyourclick_tpu_torch.models.unet3d import (
 )
 from followyourclick_tpu_torch.utils.convert import load_jax_params
 from tests.test_torch_unet import random_tree
+from tests.test_torch_tokenizer import one_torch_thread  # noqa: F401
 
 TOL = 5e-4
 B, F, HW = 2, 4, 8

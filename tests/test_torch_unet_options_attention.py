@@ -42,6 +42,7 @@ from tests.test_torch_unet_options import (
     inputs,
     tree_for,
 )
+from tests.test_torch_tokenizer import one_torch_thread  # noqa: F401
 
 OPTIONS = {
     "cross_frame_attention": dict(unet_use_cross_frame_attention=True),

@@ -22,6 +22,7 @@ from followyourclick_tpu_torch.models.unet3d import (
     UNetConditioning,
 )
 from tests.test_torch_unet_options import BASE, check_option
+from tests.test_torch_tokenizer import one_torch_thread  # noqa: F401
 
 OPTIONS = {
     "num_class_embeds": dict(num_class_embeds=5),

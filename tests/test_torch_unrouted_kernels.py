@@ -50,6 +50,7 @@ from followyourclick_tpu_torch.config import InferenceConfig
 from followyourclick_tpu_torch.pipelines.animation import SampleSpec
 from followyourclick_tpu_torch.utils.convert import load_jax_params
 from tests.test_torch_unet import random_tree
+from tests.test_torch_tokenizer import one_torch_thread  # noqa: F401
 
 FP32_TOL = 2e-4
 BF16_ATOL = 3e-2
