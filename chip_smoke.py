@@ -196,8 +196,9 @@ result line:
 23. ranks (:func:`phase_ranks`, and :func:`train_ranks` inside phase 17):
    in phase 17, on its full-width models, batch and deterministic
    algorithms, a one-process NCCL group (``tcp://127.0.0.1``) and
-   ``create_partitioned_train_state(group=)`` → ``train_loop(group=)`` →
-   ``train_step_partitioned(group=)`` for ``TRAIN_STEPS`` steps, equal
+   ``create_mesh(1, 1, group)`` → ``create_partitioned_train_state(mesh=)``
+   → ``train_loop(mesh=)`` → ``train_step_partitioned(mesh=)`` for
+   ``TRAIN_STEPS`` steps, equal
    bit for bit to phase 17's single-process state (step ms and the
    all-reduce's ms a step by CUDA events; launches against
    ``TRAIN_LAUNCHES``, path ``train_ranks``); then, after phase 22,
@@ -206,7 +207,27 @@ result line:
    against cv2 decoding directly in this process, bit for bit, on a
    16-frame 512² MJPG clip and a PNG written here, with its clips / s at
    1 and 4 workers, and ``entry.dryrun_multichip`` over 4 gloo ranks on
-   the CPU; no launches there.
+   the CPU, which must print JAX's ``mesh={'data': 2, 'model': 2}`` line;
+   no launches there;
+24. tensor parallelism (:func:`phase_tensor_parallel`, :func:`tp_rank`):
+   two model ranks (``create_mesh(1, 2)``) on this one card over gloo
+   (NCCL refuses two ranks on one card; gloo stages every collective's
+   CUDA tensor through the host, so the phase's times are no measure of
+   NCCL tensor parallelism), each building the full-width pipeline of
+   phase 4 from the same seed (the ranks' weight sums must agree). Rank 0
+   first runs the one-process references on its unsharded models; then
+   both shard the UNet and the VAE (``parallel/sharding.shard_params``)
+   and run one exact UNet evaluation at 16 f / 512², CFG, of 1 and of 2
+   clips (the 2-clip one on the flash route), each held to the one-process
+   evaluation by phase 4's gate, an exact ``--steps`` request held to the
+   one-process video within ``TP_SPREAD_RATIO`` times the plain versions'
+   distance, and one partitioned train step at phase 17's shape (loss
+   within ``TRAIN_LOSS_REL``, ``grad_norm`` within ``TP_GRAD_NORM_REL``,
+   the gathered update's cosine at least ``TRAIN_GRAD_COS``); each path's
+   launches equal ``expected_launches`` under ``tp`` (no motion block,
+   ``fused_temporal_block`` or LN-GEGLU; ``temporal_attention`` and flash
+   attention by the global heads); the peak GiB of each rank and the
+   seconds are printed.
 
 The numerics contract: the script leaves the process's precision flags at
 PyTorch's defaults. The phases that call modules directly (2-12, the
@@ -216,7 +237,7 @@ and the calibration passes) run under ``utils/backend_flags
 (the text request, 13, 15-21) do not, and after each the flags must be
 the process's again; phase 22 calls the estimators directly and through
 ``flow_tools.main``, all under the contract; phase 23 goes through the
-entry points.
+entry points; phase 24's ranks run under the contract.
 
 Phase 2 is followed by the training kernels' checks
 (:func:`phase_train_kernels`): the motion block and LN-GEGLU at the
@@ -230,12 +251,16 @@ Phase 1 also prints which optional packages import (``OPTIONAL_PACKAGES``).
 
 Phase 2 also holds flash attention at the level-0 cross-frame shape of one
 clip (``CROSS_FRAME_FLASH``, 8192 keys) and the frame attention at the
-``temporal_attention_dim_div = 2`` widths.
+``temporal_attention_dim_div = 2`` widths, and both at the shapes of a
+tensor-parallel rank (``TP_TEMPORAL_ATTN_SHAPES``: 4 of the 8 heads at
+head widths 40, 80 and 160; ``TP_FLASH_SHAPES``: the 2-clip level-0 shape
+with 4 heads), timed apart (the kernel table's ``tensor_parallel``).
 
-Phases 5 to 23 are the main paths: each sets every kernel's launch count to
+Phases 5 to 24 are the main paths: each sets every kernel's launch count to
 0 before each request (phases 13, 15 and 16: before each CLI run and
 before the click phase; phase 17: before the training loop, and again
-before the data-parallel loop; phases 18-23: at their start) and checks
+before the data-parallel loop; phases 18-23: at their start; phase 24:
+before each evaluation, request and step in each rank) and checks
 the
 request's counts against those its :func:`expected_launches` gives at its
 batch (from ``request_plan``: the solver's calls, CFG or not, the
@@ -339,6 +364,13 @@ FLASH_SHAPES = [((64, 4096, 4096, 8, 40), torch.bfloat16, 4),
                 ((2, 256, 77, 4, 40), torch.bfloat16, 0),
                 ((1, 512, 512, 2, 160), torch.bfloat16, 0),
                 ((2, 1024, 1024, 8, 40), torch.float32, 0)]
+# the tensor-parallel path (phase 24): each of two model ranks runs the
+# frame attention of the 40 motion attentions of an exact evaluation, and
+# the 2-clip level-0 flash attention, on half the heads; (shape, calls a
+# rank an evaluation), checked and timed apart from the one-card sums
+TP_TEMPORAL_ATTN_SHAPES = [((8192, 16, 4, 40), 10), ((2048, 16, 4, 80), 10),
+                           ((512, 16, 4, 160), 10), ((128, 16, 4, 160), 10)]
+TP_FLASH_SHAPES = [((64, 4096, 4096, 4, 40), 4)]
 # cross-frame self-attention at level 0 of one clip: after the CFG
 # duplication 32 rows of 4096 queries over [frame 0; the frame before] =
 # 8192 keys, 16 GiB of bf16 scores, 4 calls an evaluation (the stem's, at 16
@@ -1116,6 +1148,29 @@ def phase_kernels(seed):
           lambda: flash_attention_ref(q, *kv), 0, 4 * b * h * sq * sk * d,
           [q, *kv], run_library=lambda: sdpa(q, *kv), into=cross_frame)
     del q, kv
+    for kernel, shapes in (("temporal_attention", TP_TEMPORAL_ATTN_SHAPES),
+                           ("flash_attention", TP_FLASH_SHAPES)):
+        tp = stats[kernel]["tensor_parallel"] = dict.fromkeys(
+            ("max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms"), 0.0)
+        for shape, count in shapes:
+            b, sq, sk, h, d = shape if len(shape) == 5 else (
+                shape[0], shape[1], shape[1], *shape[2:])
+            q = randn(gen, (b, sq, h, d), 1.0, bf)
+            kv = [randn(gen, (b, sk, h, d), 1.0, bf) for _ in range(2)]
+            fn, ref = ((temporal_attention, temporal_attention_ref)
+                       if kernel == "temporal_attention"
+                       else (flash_attention, flash_attention_ref))
+            one = {}
+            check(kernel, f"{kernel} B={b} Sq={sq} Sk={sk} H={h} D={d} "
+                  "bfloat16 (a tensor-parallel rank's half of the heads, "
+                  f"{count} calls an evaluation)", lambda: fn(q, *kv),
+                  lambda: ref(q, *kv), 0, 4 * b * h * sq * sk * d, [q, *kv],
+                  run_library=lambda: sdpa(q, *kv), into=one)
+            tp["max_abs_err"] = max(tp["max_abs_err"], one["max_abs_err"])
+            for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+                tp[key] += count * one[key]
+            tp["bound_by"] = one["bound_by"]
+        del q, kv
     phase_unrouted_kernels(gen, check, vec)
     for name, st in stats.items():
         st["bound_by"] = ("operations" if st["ops_ms"] >= st["bytes_ms"]
@@ -1599,7 +1654,7 @@ def tiny_line(frames, heads):
     return frames <= 32 and frames * heads <= 256
 
 
-def expected_launches(unet, spec, dtype, batch=1, plan=None):
+def expected_launches(unet, spec, dtype, batch=1, plan=None, tp=False):
     """Each kernel's launches in one request of ``batch`` clips that follows
     ``plan`` (default the request's :func:`request_plan`: ``step_plan`` on
     DDIM, the solver's ``n_calls`` full steps otherwise), from the plan, the
@@ -1624,8 +1679,17 @@ def expected_launches(unet, spec, dtype, batch=1, plan=None):
     cond-only step or without CFG) and its keys (twice its tokens under
     cross-frame attention). Under ``video_scale`` (with CFG) every full step
     adds the per-frame pass, the exact UNet at clips × frames rows of one
-    frame. Spatial self-attention is assumed above 32 tokens (no
-    tiny-sequence launches), as at 512²."""
+    frame. A spatial self-attention of at most 32 tokens (and no
+    cross-frame keys) that is not reused launches ``temporal_attention``
+    where :func:`tiny_line` holds for its tokens, as the mid block's 7x4 at
+    phase 17's 448x256 (at 512² every level has 64 tokens or more).
+
+    ``tp``: the UNet sharded over model ranks (``parallel/sharding``), where
+    the kernels that hold whole weights launch no time: no motion block, no
+    ``fused_temporal_block``, no LN-GEGLU; each motion attention that is
+    not reused launches ``temporal_attention`` where :func:`tiny_line`
+    holds for its global heads, and flash attention goes by the global
+    heads as above."""
     from followyourclick_tpu_torch.config import NoiseScheduleConfig
     from followyourclick_tpu_torch.models.attention import (
         BasicTransformerBlock,
@@ -1664,15 +1728,18 @@ def expected_launches(unet, spec, dtype, batch=1, plan=None):
             if not (trunk or level0(name)):
                 continue
             if isinstance(m, BasicTransformerBlock):
-                counts["fused_ln_geglu"] += 1
+                counts["fused_ln_geglu"] += not tp
                 r = rows * (2 if doubled else 1)
                 doubled = doubled or (spec.do_cfg and full)
                 tokens = ((spec.height // 8 >> level(name))
                           * (spec.width // 8 >> level(name)))
                 keys = 2 * tokens if m.cross_frame else tokens
-                if (mode is None or not mode.reuse_spatial) and flash_line(
-                        r, tokens, m.attn1.heads, keys):
-                    counts["flash_attention"] += 1
+                if mode is None or not mode.reuse_spatial:
+                    if flash_line(r, tokens, m.attn1.heads, keys):
+                        counts["flash_attention"] += 1
+                    elif keys == tokens and tiny_line(tokens,
+                                                      m.attn1.heads):
+                        counts["temporal_attention"] += 1
                 if m.temporal and temporal_run and tiny_line(
                         frames, m.attn_temp.heads):
                     counts["temporal_attention"] += 1
@@ -1680,16 +1747,16 @@ def expected_launches(unet, spec, dtype, batch=1, plan=None):
                 standard = (m.block_types == ("Temporal_Self",) * 2
                             and not m.use_rope and not m.lora
                             and m.heads * m.head_dim == m.dim)
-                if standard and not temporal_sites and whole_block_fits(
-                        m.dim, dtype, frames):
+                if standard and not temporal_sites and not tp \
+                        and whole_block_fits(m.dim, dtype, frames):
                     counts["fused_motion_block"] += 1
                     continue
-                counts["fused_ln_geglu"] += 1
+                counts["fused_ln_geglu"] += not tp
                 if not temporal_run:
                     continue
                 for a in m.attention_blocks:
                     if not a.lora and not a.use_rope and m.dim < 1280 \
-                            and a.heads * a.dim_head == m.dim:
+                            and a.heads * a.dim_head == m.dim and not tp:
                         counts["fused_temporal_block"] += 1
                     elif tiny_line(frames, a.heads):
                         counts["temporal_attention"] += 1
@@ -1925,7 +1992,7 @@ def evaluation(pipe, seed, label, mode, camera=None, t5_states=None,
 
 
 def run_request(pipe, spec, label, seed, by_hand=None, batch=1,
-                generator=None, kernels=True, **extra):
+                generator=None, kernels=True, tp=False, **extra):
     """One full-width request of ``batch`` clips (``make_request`` from
     ``seed``, then ``extra`` keyword arguments of ``sample``) with every
     launch count set to 0 before and read after: each routed kernel's must
@@ -1934,11 +2001,12 @@ def run_request(pipe, spec, label, seed, by_hand=None, batch=1,
     0. With ``kernels=False`` every routed wrapper is replaced by its plain
     version (:func:`wrappers_replaced`) and no kernel may launch. Every clip must be finite and non-constant, and the clips of a
     request must differ. Logs time, launches, video statistics per clip
-    and peak memory. Returns the launches by kernel, the video and the
-    seconds."""
+    and peak memory. ``tp``: the pipeline's UNet is sharded over model
+    ranks (:func:`expected_launches`). Returns the launches by kernel, the
+    video and the seconds."""
     wrappers = kernel_wrappers()
     unrouted = unrouted_wrappers()
-    want = expected_launches(pipe.unet, spec, pipe.dtype, batch)
+    want = expected_launches(pipe.unet, spec, pipe.dtype, batch, tp=tp)
     if by_hand is not None and want != by_hand:
         raise SystemExit(f"{label}: step_plan gives {want} launches, the "
                          f"hand count {by_hand}")
@@ -3964,15 +4032,17 @@ def process_group(device):
 def train_ranks(unet, tcfg, kw, batch, seed, reference, loop_cfg, device):
     """Phase 23's data-parallel step (inside phase 17, on its models and
     batch, under its deterministic algorithms): a state made by
-    ``create_partitioned_train_state(group=...)`` over a one-process NCCL
-    group, ``train_loop(group=...)`` with ``train_step_partitioned(group=
-    ...)`` for ``TRAIN_STEPS`` steps from the same seed, which must equal
-    phase 17's single-process state ``reference`` bit for bit (at world 1
-    the all-reduce is a copy and the division by 1 exact). Logs the step's
-    ms and the all-reduce's ms a step by CUDA events; returns the
-    launches."""
+    ``create_partitioned_train_state(mesh=...)`` on the data-parallel mesh
+    of a one-process NCCL group (``create_mesh(1, 1, group)``: its data
+    axis is the group), ``train_loop(mesh=...)`` with
+    ``train_step_partitioned(mesh=...)`` for ``TRAIN_STEPS`` steps from
+    the same seed, which must equal phase 17's single-process state
+    ``reference`` bit for bit (at world 1 the all-reduce is a copy and the
+    division by 1 exact). Logs the step's ms and the all-reduce's ms a
+    step by CUDA events; returns the launches."""
     import itertools
 
+    from followyourclick_tpu_torch.parallel.mesh import create_mesh
     from followyourclick_tpu_torch.training import loop
     from followyourclick_tpu_torch.training import step as ts
 
@@ -3989,13 +4059,15 @@ def train_ranks(unet, tcfg, kw, batch, seed, reference, loop_cfg, device):
         return out
 
     with process_group(device) as group:
+        mesh = create_mesh(1, 1, group)
+
         def step_fn(state, batch, generator):
             del pending[:]
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
             out = ts.train_step_partitioned(state, batch, generator,
-                                            group=group, **kw)
+                                            mesh=mesh, **kw)
             end.record()
             torch.cuda.synchronize()
             step_ms.append(start.elapsed_time(end))
@@ -4006,11 +4078,11 @@ def train_ranks(unet, tcfg, kw, batch, seed, reference, loop_cfg, device):
         ts.all_reduce_mean_ = timed_reduce
         try:
             state = ts.create_partitioned_train_state(unet, tcfg,
-                                                      group=group)
+                                                      mesh=mesh)
             for wrapper in wrappers.values():
                 wrapper.launches = 0
             state = loop.train_loop(state, itertools.repeat(batch), step_fn,
-                                    loop_cfg, seed=seed, group=group)
+                                    loop_cfg, seed=seed, mesh=mesh)
             counts = {name: fn.launches for name, fn in wrappers.items()}
             backend = torch.distributed.get_backend(group)
         finally:
@@ -4019,7 +4091,7 @@ def train_ranks(unet, tcfg, kw, batch, seed, reference, loop_cfg, device):
     n_bytes = sum(t.numel() * t.element_size()
                   for t in state.trainable.values())
     log(f"[train ranks] world 1 over {backend}: {TRAIN_STEPS} steps of "
-        f"train_step_partitioned(group=...) through train_loop(group=...); "
+        f"train_step_partitioned(mesh=...) through train_loop(mesh=...); "
         f"step ms {[round(t, 1) for t in step_ms]}, all-reduce ms a step "
         f"{[round(t, 2) for t in reduce_ms]} (the {n_bytes / 2 ** 30:.2f} "
         f"GiB of fp32 gradients in one buffer, and the loss) ({CARD})")
@@ -5194,10 +5266,16 @@ def phase_ranks(seed, root, device="cuda", size=FLOW_SINTEL):
     rates = loader_check(root, seed)
     t0 = time.perf_counter()
     out = port_entry.dryrun_multichip(DRYRUN_RANKS, device="cpu")
+    data, model = port_entry.dryrun_grid(DRYRUN_RANKS)
     log(f"[ranks] dryrun_multichip({DRYRUN_RANKS}, device='cpu') over "
-        f"{out['backend']}: loss {out['loss']!r}, grad_norm "
-        f"{out['grad_norm']!r}, checksum {out['checksum']!r} in "
+        f"{out['backend']} on the mesh {out['mesh']}: loss {out['loss']!r}, "
+        f"grad_norm {out['grad_norm']!r}, checksum {out['checksum']!r} in "
         f"{time.perf_counter() - t0:.1f} s")
+    line = (f"dryrun_multichip({DRYRUN_RANKS}): mesh={{'data': {data}, "
+            f"'model': {model}}} loss=")
+    if not out["lines"][0].startswith(line):
+        raise SystemExit(f"[ranks] the dry run printed {out['lines'][0]!r}, "
+                         f"not JAX's {line!r}")
     if not all(np.isfinite([out["loss"], out["grad_norm"],
                             out["checksum"]])):
         raise SystemExit("[ranks] the dry run gave a value not finite")
@@ -5205,6 +5283,374 @@ def phase_ranks(seed, root, device="cuda", size=FLOW_SINTEL):
     if any(got.values()):
         raise SystemExit(f"[ranks] a hand-written kernel launched: {got}")
     return got, rates
+
+
+# phase 24: two model ranks on card 0 over gloo. NCCL refuses two ranks on
+# one card, so gloo stages every collective's CUDA tensor through the host:
+# the phase holds tensor parallelism's numbers, its times are no measure
+# of NCCL tensor parallelism across cards
+TP_RANKS = 2
+TP_CLIPS = (1, BATCH)
+# the tensor-parallel train step's grad_norm against the one-process
+# step's, relative: the two bf16 steps differed by 2.75e-4 on the H100
+# (1.1843468 against 1.184021). A norm that takes a split leaf's squares
+# from one model rank only, or a replicated leaf's from both, moves it by
+# percents, which the update's cosine cannot see after Adam's first step
+TP_GRAD_NORM_REL = 1e-3
+# the tensor-parallel request against the one-process request through the
+# kernels, on the [0, 1] video, relative L2: within TP_SPREAD_RATIO times
+# the relative L2 between that request and the same request through the
+# plain versions, measured in the same run. Both pairs are two bf16
+# requests that round in different places (tensor parallelism rounds each
+# rank's partial product to bf16 and sums the two in fp32), and 4 steps of
+# CFG 8 amplify that alike; a wrong split or a missing all-reduce moves
+# the video by order 1
+TP_SPREAD_RATIO = 2.0
+
+
+def tp_eval_inputs(cfg, seed, clips, dtype):
+    """Phase 4's evaluation inputs at ``clips`` clips of 16 f / 512²: the
+    latents and their 5 condition channels, the doubled context and the
+    timesteps."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 5)
+    x = randn(gen, (clips, 16, 64, 64, cfg.conv_in_channels), 1.0, dtype)
+    context = randn(gen, (2 * clips, TEXT_KEYS, cfg.cross_attention_dim),
+                    1.0, dtype)
+    return x, context, torch.full((clips,), 501, device="cuda")
+
+
+def tp_unet_eval(unet, inputs, dtype):
+    """One exact CFG evaluation of ``unet`` in ``dtype``; its noise
+    prediction in fp32."""
+    from followyourclick_tpu_torch.models.unet3d import UNetConditioning
+
+    x, context, t = inputs
+    clips = x.shape[0]
+    cond = UNetConditioning(
+        context=context.to(dtype),
+        fps=torch.full((clips,), 8.0, device="cuda"),
+        motion_score=torch.full((clips,), 20.0, device="cuda"))
+    with torch.inference_mode():
+        return unet(x.to(dtype), t, cond, None, {}).float()
+
+
+def counted(fn):
+    """``fn()`` with every kernel's launch count set to 0 before and read
+    after; ``(result, launches, seconds)``."""
+    wrappers = {**kernel_wrappers(), **unrouted_wrappers()}
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {n: w.launches for n, w in wrappers.items()}, \
+        time.perf_counter() - t0
+
+
+def tp_rank(seed, steps, card):
+    """One model rank of phase 24 (both ranks run it; the groups, gloo on
+    one card or NCCL one card a rank, made by ``parallel.data_parallel
+    .launch``). Rank 0 first runs the one-process references on its own
+    unsharded models while rank 1 waits; then both shard and run the same
+    work tensor-parallel, and rank 0 holds each result to its reference.
+    Returns the launches by path and this rank's numbers."""
+    global CARD
+    import torch.distributed as dist
+
+    from followyourclick_tpu_torch.config import NoiseScheduleConfig
+    from followyourclick_tpu_torch.parallel.data_parallel import barrier
+    from followyourclick_tpu_torch.parallel.mesh import create_mesh
+    from followyourclick_tpu_torch.parallel.sharding import (
+        gather_tensors,
+        shard_params,
+    )
+    from followyourclick_tpu_torch.parallel.tensor_parallel import (
+        all_gather,
+        all_reduce_sum_,
+    )
+    from followyourclick_tpu_torch.pipelines.animation import (
+        PlanStep,
+        SampleSpec,
+    )
+    from followyourclick_tpu_torch.schedulers.ddim import DDIMSchedule
+    from followyourclick_tpu_torch.training import step as ts
+    from followyourclick_tpu_torch.training.loop import step_generator
+
+    CARD = card
+    mesh = create_mesh(1, TP_RANKS, group=dist.group.WORLD)
+    group = mesh.group
+    lead = mesh.model_rank == 0
+    backend = dist.get_backend(group)
+    name = f"tensor parallel, rank {mesh.model_rank}"
+    tag = f"[{name}]"
+    out = {"rank": mesh.model_rank, "paths": {}}
+    with checked_precision():
+        t0 = time.perf_counter()
+        pipe = full_pipeline(seed)
+        sums = all_gather(torch.tensor(
+            [float(sum(p.double().sum() for p in pipe.unet.parameters()))],
+            dtype=torch.float64, device="cuda"), group)
+        if len({float(a) for a in sums}) != 1:
+            raise SystemExit(f"{tag} the ranks built different weights: "
+                             f"{[float(a) for a in sums]}")
+        dtype = pipe.dtype
+        cfg = pipe.config.unet
+        one_step = [PlanStep(0, 0, True, None)]
+        eval_spec = SampleSpec(num_inference_steps=1)
+        exact = SampleSpec(num_inference_steps=steps)
+        ref = {}
+        if lead:
+            for clips in TP_CLIPS:
+                inputs = tp_eval_inputs(cfg, seed, clips, dtype)
+                bf16, _, dt = counted(lambda: tp_unet_eval(pipe.unet, inputs,
+                                                           dtype))
+                pipe.unet.float()
+                try:
+                    fp32 = tp_unet_eval(pipe.unet, inputs, torch.float32)
+                finally:
+                    pipe.unet.to(dtype)
+                ref[clips] = (bf16, fp32, dt)
+            _, ref["video"], _ = run_request(
+                pipe, exact, f"{name}, one process, exact", seed + 300)
+            _, ref["plain"], _ = run_request(
+                pipe, exact, f"{name}, one process, plain versions",
+                seed + 300, kernels=False)
+        barrier(group)
+        shard_params(pipe.unet, mesh)
+        shard_params(pipe.vae, mesh)
+        pipe.mesh = mesh
+        log(f"{tag} {backend}, {TP_RANKS} model ranks on "
+            f"{torch.cuda.get_device_name()}: the UNet and the VAE sharded "
+            f"({sum(p.numel() for p in pipe.unet.parameters()) / 1e9:.3f} B "
+            f"UNet parameters on this rank), {time.perf_counter() - t0:.1f}"
+            f" s to here ({CARD})")
+        # what one all-reduce of a level-0 activation costs (1 clip, CFG:
+        # 32 x 4096 x 320 fp32, 168 MB), the median of 3: the port's
+        # (staged through page-locked memory), staged through pageable
+        # memory, and gloo's own on a host tensor
+        level0 = torch.ones(32, 4096, 320, device="cuda")
+
+        def pageable(t, group):
+            host = t.cpu()
+            dist.all_reduce(host, group=group)
+            t.copy_(host)
+
+        for key, reduce, x in (
+                ("all_reduce_168MB_ms", all_reduce_sum_, level0),
+                ("pageable_168MB_ms", pageable, level0),
+                ("host_168MB_ms", lambda t, group: dist.all_reduce(
+                    t, group=group), level0.cpu())):
+            times = []
+            for _ in range(3):
+                barrier(group)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                reduce(x, group)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t1)
+            out[key] = sorted(times)[1] * 1e3
+        log(f"{tag} a 168 MB fp32 all-reduce over {backend}: "
+            f"{out['all_reduce_168MB_ms']:.1f} ms staged through "
+            f"page-locked memory (the port's), "
+            f"{out['pageable_168MB_ms']:.1f} ms through pageable memory, "
+            f"{out['host_168MB_ms']:.1f} ms on a host tensor ({CARD})")
+        del level0
+        torch.cuda.reset_peak_memory_stats()
+        for clips in TP_CLIPS:
+            inputs = tp_eval_inputs(cfg, seed, clips, dtype)
+            all_reduce_sum_.calls = all_reduce_sum_.bytes = 0
+            got, launches, dt = counted(lambda: tp_unet_eval(
+                pipe.unet, inputs, dtype))
+            reduced = (all_reduce_sum_.calls, all_reduce_sum_.bytes / 2 ** 30)
+            want = {**dict.fromkeys(launches, 0), **expected_launches(
+                pipe.unet, eval_spec, dtype, clips, one_step, tp=True)}
+            path = f"tensor_parallel_eval_{clips}clip" + "s" * (clips > 1)
+            out["paths"][path] = launches
+            log(f"{tag} one exact UNet evaluation of {clips} clip(s) at 16 f"
+                f" / 512^2, CFG, bf16: {dt:.2f} s over {backend}, "
+                f"{reduced[0]} all-reduces of {reduced[1]:.2f} GiB in all (a "
+                f"168 MB one takes {out['all_reduce_168MB_ms']:.1f} ms); "
+                f"launches {launches} (want {want})")
+            if launches != want:
+                raise SystemExit(f"{tag} {path}: launches {launches}, "
+                                 f"expected_launches gives {want}")
+            if lead:
+                bf16, fp32, one_dt = ref[clips]
+                d = got - bf16
+                norm_max = float(d.abs().max() / bf16.abs().max())
+                rel = float(d.norm() / bf16.norm())
+                got_32, one_32 = rel_l2(got, fp32), rel_l2(bf16, fp32)
+                log(f"{tag} {clips} clip(s): TP vs one process normalised "
+                    f"max error {norm_max:.3e} (limit {EVAL_NORM_MAX}), "
+                    f"relative L2 {rel:.3e} (limit {EVAL_REL_L2}); relative "
+                    f"L2 to fp32: TP {got_32:.3e}, one process {one_32:.3e} "
+                    f"(limit {EVAL_FP32_RATIO} x); one process "
+                    f"{one_dt:.2f} s")
+                if not bool(torch.isfinite(got).all()) or norm_max > \
+                        EVAL_NORM_MAX or rel > EVAL_REL_L2 or \
+                        got_32 > EVAL_FP32_RATIO * one_32:
+                    raise SystemExit(f"{tag} the TP evaluation of {clips} "
+                                     "clip(s) disagrees with one process")
+                out[path] = {"norm_max": norm_max, "rel_l2": rel,
+                             "fp32_rel_l2": got_32, "one_fp32_rel_l2": one_32,
+                             "seconds": dt, "one_seconds": one_dt,
+                             "all_reduces": reduced[0],
+                             "all_reduce_gib": reduced[1]}
+        # where a warm 1-clip evaluation's time goes: each all-reduce timed
+        # between two synchronisations
+        from followyourclick_tpu_torch.parallel import tensor_parallel
+
+        spent = [0.0]
+
+        def timed_reduce(t, grp, inner=all_reduce_sum_):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            inner(t, grp)
+            torch.cuda.synchronize()
+            spent[0] += time.perf_counter() - t1
+            return t
+
+        timed_reduce.calls = timed_reduce.bytes = 0
+        tensor_parallel.all_reduce_sum_ = timed_reduce
+        try:
+            inputs = tp_eval_inputs(cfg, seed, 1, dtype)
+            _, _, warm = counted(lambda: tp_unet_eval(pipe.unet, inputs,
+                                                      dtype))
+        finally:
+            tensor_parallel.all_reduce_sum_ = all_reduce_sum_
+        out["warm_eval_s"], out["warm_in_all_reduce_s"] = warm, spent[0]
+        log(f"{tag} a warm 1-clip evaluation: {warm:.2f} s, {spent[0]:.2f} "
+            f"s of it in its {timed_reduce.calls} all-reduces (each timed "
+            f"between two synchronisations)")
+        launches, video, dt = run_request(
+            pipe, exact, f"{name}, exact request", seed + 300, tp=True)
+        out["paths"]["tensor_parallel_request"] = launches
+        if lead:
+            got, spread = rel_l2(video, ref["video"]), \
+                rel_l2(ref["plain"], ref["video"])
+            log(f"{tag} the exact {steps}-step request: relative L2 to the "
+                f"one-process video {got:.3e}, the plain versions' "
+                f"{spread:.3e} (limit {TP_SPREAD_RATIO} x); {dt:.2f} s")
+            if got > TP_SPREAD_RATIO * spread:
+                raise SystemExit(f"{tag} the TP request's video disagrees "
+                                 "with one process")
+            out["request"] = {"rel_l2": got, "spread": spread, "seconds": dt}
+        out["peak_gib_sampler"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        del pipe, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # one training step at phase 17's shape
+        icfg, unet, vae, text = train_models(seed)
+        batch = train_batch(vae, icfg, seed, TRAIN_CLIP)
+        # rank 0's latents on both ranks (each rank's VAE encoded alike)
+        batch = dataclasses.replace(batch, latents=all_gather(
+            batch.latents.contiguous(), group)[0])
+        tcfg = ts.TrainConfig(gradient_checkpointing=False)
+        sched = DDIMSchedule.create(NoiseScheduleConfig(), 25)
+        kw = dict(text_encoder=text, sched=sched, cfg=tcfg)
+        if lead:
+            state = ts.create_partitioned_train_state(unet, tcfg)
+            before = {n: t.clone() for n, t in state.trainable.items()}
+            state, m = ts.train_step_partitioned(
+                state, batch, step_generator(seed, 0, torch.device("cuda")),
+                unet=unet, **kw)
+            ref_loss, ref_norm = float(m["loss"]), float(m["grad_norm"])
+            ref_update = {n: (state.trainable[n] - before[n]).cpu()
+                          for n in before}
+            del state, before
+            torch.cuda.empty_cache()
+        barrier(group)
+        torch.cuda.reset_peak_memory_stats()
+        shard_params(unet, mesh)
+        state = ts.create_partitioned_train_state(unet, tcfg, mesh=mesh)
+        before = {n: t.clone() for n, t in state.trainable.items()}
+        (state, m), launches, dt = counted(lambda: ts.train_step_partitioned(
+            state, batch, step_generator(seed, 0, torch.device("cuda")),
+            unet=unet, mesh=mesh, **kw))
+        frames, height, width = TRAIN_CLIP
+        forward = expected_launches(
+            unet, SampleSpec(video_length=frames, height=height,
+                             width=width, guidance_scale=1.0,
+                             num_inference_steps=1), torch.bfloat16, 1,
+            one_step, tp=True)
+        # each block's forward runs again in the backward (remat_blocks)
+        want = {**dict.fromkeys(launches, 0),
+                **{k: 2 * v for k, v in forward.items()}}
+        out["paths"]["tensor_parallel_train"] = launches
+        update = gather_tensors({n: state.trainable[n] - before[n]
+                                 for n in before}, state.tx.split, mesh)
+        loss, norm = float(m["loss"]), float(m["grad_norm"])
+        log(f"{tag} one train step at {frames} f {height}x{width} x b1: "
+            f"{dt:.2f} s over {backend}, loss {loss!r}, grad_norm "
+            f"{norm!r}; launches {launches} (want {want});"
+            f" peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        if launches != want:
+            raise SystemExit(f"{tag} the TP train step launched {launches},"
+                             f" expected_launches gives {want}")
+        if lead:
+            dot = na = nb = 0.0
+            for n, u in update.items():
+                a, b = u.double().cpu().flatten(), \
+                    ref_update[n].double().flatten()
+                dot, na, nb = dot + float(a @ b), na + float(a @ a), \
+                    nb + float(b @ b)
+            cos = dot / (na * nb) ** 0.5
+            loss_rel = abs(loss - ref_loss) / abs(ref_loss)
+            norm_rel = abs(norm - ref_norm) / abs(ref_norm)
+            log(f"{tag} the TP step against one process: loss {loss!r} vs "
+                f"{ref_loss!r} (relative {loss_rel:.3e}, limit "
+                f"{TRAIN_LOSS_REL}), grad_norm {norm!r} vs {ref_norm!r} "
+                f"(relative {norm_rel:.3e}, limit {TP_GRAD_NORM_REL}), "
+                f"cosine of the gathered update {cos:.6f} (limit "
+                f"{TRAIN_GRAD_COS})")
+            if not (loss_rel <= TRAIN_LOSS_REL
+                    and norm_rel <= TP_GRAD_NORM_REL
+                    and cos >= TRAIN_GRAD_COS):
+                raise SystemExit(f"{tag} the TP train step disagrees with "
+                                 "one process")
+            out["train"] = {"loss_rel": loss_rel, "norm_rel": norm_rel,
+                            "cosine": cos, "seconds": dt}
+        out["peak_gib_train"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def phase_tensor_parallel(seed, steps):
+    """Phase 24 (see the module docstring): :func:`tp_rank` on
+    ``TP_RANKS`` gloo ranks of this card, after the earlier phases'
+    models are freed. Both ranks must launch alike. Returns the launches by
+    path (rank 0's)."""
+    import importlib
+
+    from followyourclick_tpu_torch.parallel.data_parallel import launch
+
+    # the ranks unpickle tp_rank by its module's name: this file as a
+    # module, not as the __main__ of `python3 chip_smoke.py`
+    smoke = importlib.import_module("chip_smoke")
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    log(f"[tensor parallel] {free / 2 ** 30:.1f} of {total / 2 ** 30:.1f} "
+        f"GiB free before the ranks start; {TP_RANKS} gloo ranks on card 0, "
+        f"every collective staged through the host: no measure of NCCL "
+        f"across cards ({CARD})")
+    t0 = time.perf_counter()
+    ranks = launch(smoke.tp_rank, TP_RANKS, (seed, steps, CARD),
+                   backend="gloo", timeout=900.0)
+    for r in ranks[1:]:
+        if r["paths"] != ranks[0]["paths"]:
+            raise SystemExit(f"[tensor parallel] the ranks launched "
+                             f"differently: {r['paths']} / "
+                             f"{ranks[0]['paths']}")
+    lead = ranks[0]
+    log(f"[tensor parallel] {time.perf_counter() - t0:.1f} s in all; peak "
+        f"GiB per rank (sampler, train): " + ", ".join(
+            f"rank {r['rank']} {r['peak_gib_sampler']:.2f} / "
+            f"{r['peak_gib_train']:.2f}" for r in ranks)
+        + f"; {lead['train']['cosine']:.6f} update cosine ({CARD})")
+    return lead["paths"]
 
 
 def timed(fn):
@@ -5370,6 +5816,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as root:
         paths["ranks"] = entry(phase_ranks)(args.seed, root)[0]
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths.update(timed(phase_tensor_parallel)(args.seed, args.steps))
     for name in KERNELS:
         if not sum(launches[name] for launches in paths.values()):
             raise SystemExit(f"{name} was never launched on a main path")
@@ -5405,8 +5854,9 @@ def main(argv=None) -> int:
                 "bound_by": stats[name]["bound_by"],
                 "library_ms": stats[name]["library_ms"],
                 "ms_covers": covers[name] + " at 16 f / 512^2 CFG, bf16",
-                **({"cross_frame": stats[name]["cross_frame"]}
-                   if "cross_frame" in stats[name] else {})}
+                **{key: stats[name][key] for key in ("cross_frame",
+                                                      "tensor_parallel")
+                   if key in stats[name]}}
                for name, (src, rep) in {**KERNELS, **UNROUTED}.items()]
     log(f"[smoke] {time.perf_counter() - t_start:.1f} s in all ({CARD})")
     print(json.dumps({"kernels": kernels}), flush=True)

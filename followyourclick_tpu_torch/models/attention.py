@@ -12,6 +12,14 @@ wraps the whole output, ip part included), the T5 cross-attention
 the frames at every position. ``use_linear_projection`` needs nothing here:
 a 1×1 conv and a Dense are the same ``nn.Linear``, and
 ``utils/convert.py`` takes either kernel.
+
+Tensor parallel (``parallel/sharding.shard_params`` sets ``tp``, the mesh):
+an attention runs its rank's heads (q, k, v split on their output rows, the
+out-projection on its input columns, one all-reduce after it) and the
+GEGLU feed-forward its rank's columns of h and of the gate, with no
+hand-written kernel of whole weights (``fused_ln_geglu``, ``fused_geglu``);
+the attention core routes on the global head count
+(``ops/attention.route``) and runs on the local heads.
 """
 
 from __future__ import annotations
@@ -26,6 +34,16 @@ from followyourclick_tpu_torch.models.layers import GroupNorm, LayerNorm
 from followyourclick_tpu_torch.models.pab import PabMode, pab_site
 from followyourclick_tpu_torch.ops.attention import dot_product_attention
 from followyourclick_tpu_torch.ops.geglu import fused_geglu, fused_ln_geglu
+from followyourclick_tpu_torch.parallel.tensor_parallel import (
+    column_linear,
+    copy_to_model,
+    row_linear,
+)
+
+
+def model_ranks(mesh) -> int:
+    """The ranks a tensor-parallel module's heads split over (1 off TP)."""
+    return 1 if mesh is None else mesh.model_size
 
 
 class CrossAttention(nn.Module):
@@ -38,6 +56,8 @@ class CrossAttention(nn.Module):
     attentions run at ``scale = ip_scale``, not ``dim_head**-0.5``
     (``followyourclick_tpu/models/attention.py:103-111``).
     """
+
+    tp = None  # the mesh, once shard_params keeps this rank's heads
 
     def __init__(self, query_dim: int, heads: int = 8, dim_head: int = 64,
                  cross_attention_dim: Optional[int] = None,
@@ -61,34 +81,39 @@ class CrossAttention(nn.Module):
                 context: Optional[torch.Tensor] = None,
                 attention_bias: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
-        if context is None:
-            context = hidden_states
+        mesh = self.tp
+        x = copy_to_model(hidden_states, mesh)
+        context = x if context is None else copy_to_model(context, mesh)
         b, s, _ = hidden_states.shape
 
-        def split(t):
-            return t.reshape(t.shape[0], t.shape[1], self.heads,
-                             self.dim_head)
+        def split(t):  # this rank's heads under TP
+            return t.reshape(t.shape[0], t.shape[1], -1, self.dim_head)
 
         ip_context, scale = None, None
         if self.ip_num_tokens > 0:
             end = context.shape[1] - self.ip_num_tokens
             context, ip_context = context[:, :end], context[:, end:]
             scale = self.ip_scale
-        q = split(self.to_q(hidden_states))
+        ranks = model_ranks(mesh)
+        q = split(self.to_q(x))
         k = split(self.to_k(context))
         if self.upcast:
             q, k = q.float(), k.float()
         out = dot_product_attention(q, k, split(self.to_v(context)),
-                                    bias=attention_bias, scale=scale)
+                                    bias=attention_bias, scale=scale,
+                                    model_ranks=ranks)
         if ip_context is not None:
             ip_k = split(self.to_k_ip(ip_context))
             if self.upcast:
                 ip_k = ip_k.float()
             ip_out = dot_product_attention(q, ip_k,
                                            split(self.to_v_ip(ip_context)),
-                                           scale=scale)
+                                           scale=scale, model_ranks=ranks)
             out = out + self.ip_scale * ip_out
-        return self.to_out(out.reshape(b, s, -1).to(hidden_states.dtype))
+        out = out.reshape(b, s, -1).to(hidden_states.dtype)
+        if mesh is not None:
+            return row_linear(out, self.to_out, mesh)
+        return self.to_out(out)
 
 
 class GEGLUFeedForward(nn.Module):
@@ -96,7 +121,11 @@ class GEGLUFeedForward(nn.Module):
     launch of ``ops/geglu.fused_geglu`` (the JAX module's kernel branch);
     elsewhere the plain layers with the exact erf gate. The sampler reaches
     neither: :func:`_ln_ff_residual` takes the fused LN-GEGLU kernel on the
-    card and calls this module only on the CPU."""
+    card and calls this module only on the CPU. Under TP (``tp``) the
+    plain layers on this rank's columns of h and the gate, one all-reduce
+    after ``out``, on any device."""
+
+    tp = None  # the mesh, once shard_params keeps this rank's columns
 
     def __init__(self, dim: int, mult: int = 4):
         super().__init__()
@@ -105,6 +134,10 @@ class GEGLUFeedForward(nn.Module):
         self.out = nn.Linear(inner, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:
+            h, gate = column_linear(x, self.proj, self.tp).chunk(2, dim=-1)
+            return row_linear(h * F.gelu(gate, approximate="none"), self.out,
+                              self.tp)
         if x.device.type == "cuda":
             y = fused_geglu(x.reshape(-1, x.shape[-1]), self.proj.weight,
                             self.proj.bias, self.out.weight, self.out.bias)
@@ -116,9 +149,10 @@ class GEGLUFeedForward(nn.Module):
 def _ln_ff_residual(norm: LayerNorm, ff: GEGLUFeedForward,
                     h: torch.Tensor) -> torch.Tensor:
     """LayerNorm → GEGLU FF → +h. On a CUDA tensor this is one launch of the
-    hand-written kernel (ops/geglu.fused_ln_geglu); elsewhere the modular
-    path, as the JAX package runs it off the TPU."""
-    if h.device.type == "cuda":
+    hand-written kernel (ops/geglu.fused_ln_geglu); elsewhere, and under
+    TP (the kernel holds whole weights), the modular path, as the JAX
+    package runs it off the TPU."""
+    if h.device.type == "cuda" and ff.tp is None:
         out = fused_ln_geglu(h.reshape(-1, h.shape[-1]), norm.weight,
                              norm.bias, ff.proj.weight, ff.proj.bias,
                              ff.out.weight, ff.out.bias, eps=norm.eps,

@@ -29,6 +29,18 @@ Routes on a CUDA tensor, decided before any launch, as the JAX rules:
 The fit test is a deliberate route, not a recovery from a failed build or
 launch. On a CPU tensor the modular path runs with plain PyTorch, as the JAX
 package runs off the TPU.
+
+Tensor parallel (``parallel/sharding.shard_params`` sets ``tp``): the
+whole-block kernel and ``fused_temporal_block`` hold whole weights, so a
+sharded block takes the modular path with neither; each attention runs its
+rank's heads (q, k, v and the attention core, ``temporal_attention`` on
+the tiny route decided on the global heads) and one all-reduce after the
+out-projection, the FF its rank's GEGLU columns. The temporal LoRA stays
+replicated, as in JAX: on q, k and v a rank adds ``up``'s rows of its own
+heads; on the out-projection, whose input is the rank's channels, it adds
+``up(down[:, local] · o_local)`` to its partial sum before the all-reduce,
+exact by linearity. Each LoRA weight a rank reads only in part passes
+``tensor_parallel.copy_to_model``, so its gradient is whole on every rank.
 """
 
 from __future__ import annotations
@@ -37,12 +49,14 @@ import weakref
 from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from followyourclick_tpu_torch.config import MotionModuleConfig
 from followyourclick_tpu_torch.models.attention import (
     GEGLUFeedForward,
     _ln_ff_residual,
+    model_ranks,
 )
 from followyourclick_tpu_torch.models.layers import (
     GroupNorm,
@@ -56,6 +70,11 @@ from followyourclick_tpu_torch.ops.attention import dot_product_attention
 from followyourclick_tpu_torch.ops.motion_block import fused_motion_block
 from followyourclick_tpu_torch.ops.temporal_attention import (
     fused_temporal_block,
+)
+from followyourclick_tpu_torch.parallel.tensor_parallel import (
+    copy_to_model,
+    rank_slice,
+    row_linear,
 )
 
 _STANDARD = ("Temporal_Self", "Temporal_Self")
@@ -89,6 +108,8 @@ class TemporalAttention(nn.Module):
     """Self-attention along the frame axis of ``(B·H·W, F, C)`` rows, with
     the sinusoidal PE added to the (normed) input or RoPE on q and k, and
     the temporal LoRA (``add_temporal_lora``) beside each projection."""
+
+    tp = None  # the mesh, once shard_params keeps this rank's heads
 
     def __init__(self, query_dim: int, heads: int, dim_head: int,
                  temporal_position_encoding: bool = True,
@@ -134,7 +155,7 @@ class TemporalAttention(nn.Module):
     def fused_route(self, c: int) -> bool:
         """The JAX rule for ``fused_temporal_block``: no LoRA, no RoPE, inner
         width = C < 1280 (on a CUDA tensor)."""
-        return (not self.lora and not self.use_rope
+        return (self.tp is None and not self.lora and not self.use_rope
                 and self.heads * self.dim_head == c and c < 1280)
 
     def forward(self, x: torch.Tensor,
@@ -150,14 +171,16 @@ class TemporalAttention(nn.Module):
                 qkv=self.qkv_weight() if x.dtype == torch.bfloat16
                 else None)
 
-        q, k, v = self.to_q(x), self.to_k(x), self.to_v(x)
+        mesh = self.tp
+        xin = copy_to_model(x, mesh)
+        q, k, v = self.to_q(xin), self.to_k(xin), self.to_v(xin)
         if self.lora:
-            q = q + lora_scale * self.to_q_lora(x)
-            k = k + lora_scale * self.to_k_lora(x)
-            v = v + lora_scale * self.to_v_lora(x)
+            q = q + lora_scale * self._lora_in(self.to_q_lora, xin)
+            k = k + lora_scale * self._lora_in(self.to_k_lora, xin)
+            v = v + lora_scale * self._lora_in(self.to_v_lora, xin)
 
-        def split(t):
-            return t.reshape(bd, f, self.heads, self.dim_head)
+        def split(t):  # this rank's heads under TP
+            return t.reshape(bd, f, -1, self.dim_head)
 
         q, k, v = split(q), split(k), split(v)
         if self.use_rope:
@@ -165,17 +188,36 @@ class TemporalAttention(nn.Module):
             # (F, D) tables against (B·D, F, H, Dh): broadcast over heads
             q, k = apply_rope(q, k, cos[:, None], sin[:, None],
                               self.train_video_length, f)
-        out = dot_product_attention(q, k, v).reshape(bd, f, -1).to(x.dtype)
+        out = dot_product_attention(q, k, v, model_ranks=model_ranks(mesh)
+                                    ).reshape(bd, f, -1).to(x.dtype)
+        if mesh is not None:
+            extra = None
+            if self.lora:
+                lora = self.to_out_lora
+                extra = lora_scale * F.linear(
+                    F.linear(out, rank_slice(lora.down.weight, 1, mesh)),
+                    copy_to_model(lora.up.weight, mesh))
+            return row_linear(out, self.to_out, mesh, extra)
         o = self.to_out(out)
         if self.lora:
             o = o + lora_scale * self.to_out_lora(out)
         return o
+
+    def _lora_in(self, lora: LoRADense, x: torch.Tensor) -> torch.Tensor:
+        """A q / k / v LoRA of this rank's heads: ``up``'s rows of them
+        under TP (``x`` has passed ``copy_to_model``)."""
+        if self.tp is None:
+            return lora(x)
+        return F.linear(F.linear(x, copy_to_model(lora.down.weight, self.tp)),
+                        rank_slice(lora.up.weight, 0, self.tp))
 
 
 class TemporalTransformerBlock(nn.Module):
     """Pre-LN temporal attentions with residuals, then LN → GEGLU FF.
     ``attention_head_dim`` may be less than ``dim / heads``
     (``temporal_attention_dim_div``); the block's width stays ``dim``."""
+
+    tp = None  # the mesh, once shard_params splits its attentions and FF
 
     def __init__(self, dim: int, num_attention_heads: int,
                  attention_head_dim: int,
@@ -226,7 +268,8 @@ class TemporalTransformerBlock(nn.Module):
         """The route: the whole-block kernel, or the modular path."""
         pab_temporal = pab is not None and (pab.record("temporal")
                                             or pab.reuse("temporal"))
-        return (h.device.type == "cuda" and not pab_temporal
+        return (h.device.type == "cuda" and self.tp is None
+                and not pab_temporal
                 and self.block_types == _STANDARD
                 and not self.use_rope and not self.lora
                 and self.heads * self.head_dim == self.dim

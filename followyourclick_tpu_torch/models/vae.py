@@ -5,6 +5,14 @@ latent), decoder (with the exact phase-decomposed upsample convs of
 ``ops/upsample.py``), the single-head mid-block attention whose q and k are
 each scaled by ``c^-1/4``, and the quant / post-quant 1×1 convs. Callers
 apply the 0.18215 latent scale.
+
+Tensor parallel (``parallel/sharding.shard_params`` sets ``tp``): the
+mid-block attention's one head is split on its channels. A rank's logits
+are a partial sum over its channels, so they are all-reduced (fp32) before
+the softmax; ``p · v_local`` then gives the rank's channels of the output
+(``p``'s gradient, a sum over the ranks' channels, all-reduced in the
+backward), and ``proj_attn`` is row-parallel. Everything else stays
+replicated.
 """
 
 from __future__ import annotations
@@ -17,6 +25,11 @@ from followyourclick_tpu_torch.config import VAEConfig
 from followyourclick_tpu_torch.models.layers import GroupNorm
 from followyourclick_tpu_torch.models.resnet import conv_nhwc
 from followyourclick_tpu_torch.ops.upsample import conv3x3_nearest_up2
+from followyourclick_tpu_torch.parallel.tensor_parallel import (
+    copy_to_model,
+    reduce_from_model,
+    row_linear,
+)
 
 
 class VAEResnetBlock(nn.Module):
@@ -42,6 +55,8 @@ class VAEResnetBlock(nn.Module):
 class VAEAttentionBlock(nn.Module):
     """Single-head spatial self-attention (diffusers AttentionBlock)."""
 
+    tp = None  # the mesh, once shard_params keeps this rank's channels
+
     def __init__(self, channels: int, groups: int = 32):
         super().__init__()
         self.group_norm = GroupNorm(channels, groups, eps=1e-6)
@@ -54,10 +69,28 @@ class VAEAttentionBlock(nn.Module):
         b, h, w, c = x.shape
         y = self.group_norm(x).reshape(b, 1, h * w, c)
         s = c ** -0.25
+        if self.tp is not None:
+            return self._sharded(y.reshape(b, h * w, c), s).reshape(
+                b, h, w, c) + x
         y = F.scaled_dot_product_attention(self.query(y) * s,
                                            self.key(y) * s, self.value(y),
                                            scale=1.0)
         return self.proj_attn(y).reshape(b, h, w, c) + x
+
+    def _sharded(self, y: torch.Tensor, s: float) -> torch.Tensor:
+        """The attention on this rank's channels (JAX ``vae.py:60-77``:
+        fp32 logits, the weights cast to the activations' dtype)."""
+        mesh = self.tp
+        y_in = copy_to_model(y, mesh)
+        q, k, v = (self.query(y_in) * s, self.key(y_in) * s,
+                   self.value(y_in))
+        logits = reduce_from_model(
+            torch.einsum("bqc,bkc->bqk", q.float(), k.float()), mesh)
+        # p is whole on every rank, but each rank reads it against its own
+        # channels of v: its gradient is the ranks' sum (f)
+        p = copy_to_model(torch.softmax(logits, dim=-1).to(y.dtype), mesh)
+        return row_linear(torch.einsum("bqk,bkc->bqc", p, v),
+                          self.proj_attn, mesh)
 
 
 class Encoder(nn.Module):

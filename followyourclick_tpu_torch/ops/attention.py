@@ -24,6 +24,14 @@ plain route, as the JAX package does off the TPU; "flash" asked for by name
 runs ``flash_attention`` on either, which on a CPU tensor is its plain
 version ``flash_attention_ref``.
 
+Under tensor parallelism :func:`dot_product_attention` decides the route
+on the global head count (``model_ranks`` × the local heads), as JAX's
+GSPMD program decides it on the unsharded shapes, and the chosen core runs
+on the rank's own heads: a
+2-clip level-0 self-attention takes ``flash_attention`` with half its heads
+on each of two ranks, not the plain route its local 8 GiB of scores would
+pick.
+
 Training's memory lever (JAX ``_batch_chunked_attention``, read from
 ``FYC_ATTN_BATCH_CHUNK``): on the plain route without a bias, with a batch
 divisible by and larger than the chunk and more than 256 MiB of fp32
@@ -161,15 +169,20 @@ def dot_product_attention(query: torch.Tensor, key: torch.Tensor,
                           value: torch.Tensor,
                           bias: Optional[torch.Tensor] = None,
                           scale: Optional[float] = None,
-                          impl: str = "auto") -> torch.Tensor:
+                          impl: str = "auto",
+                          model_ranks: int = 1) -> torch.Tensor:
     """Multi-head attention; ``bias`` is additive and broadcasts to
-    ``(B, H, Sq, Sk)``. Returns ``(B, Sq, H, D)``."""
+    ``(B, H, Sq, Sk)``. Returns ``(B, Sq, H, D)``. ``model_ranks``: the
+    tensor-parallel ranks the heads are split over (the route's rule)."""
     if scale is None:
         scale = query.shape[-1] ** -0.5
     dtype = torch.promote_types(torch.promote_types(query.dtype, key.dtype),
                                 value.dtype)
     query, key, value = (t.to(dtype) for t in (query, key, value))
-    kind = route(query.shape, key.shape, bias is not None, impl)
+    b, sq, h, d = query.shape
+    heads = h * model_ranks  # the route is decided on the global heads
+    kind = route((b, sq, heads, d), (b, key.shape[1], heads, d),
+                 bias is not None, impl)
     if kind == "packed":
         return packed_small_seq_attention(query, key, value, bias, scale)
     if kind == "flash" and (impl == "flash" or query.device.type == "cuda"):

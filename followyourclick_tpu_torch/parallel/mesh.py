@@ -5,13 +5,19 @@ Port of ``initialize_distributed`` and ``process_shard`` of
 list over ``jax.process_index``; here each process of a ``torchrun``-style
 launch (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK`` and ``MASTER_ADDR`` /
 ``MASTER_PORT`` in the environment) drives one card and takes its slice of
-the work list. Unset, it is rank 0 of 1. The GSPMD mesh itself is not
-ported (one process a card needs none); the mesh's ``data`` axis is
-``parallel/data_parallel.py``.
+the work list. Unset, it is rank 0 of 1.
+
+:func:`create_mesh` is the counterpart of JAX's ``create_mesh``: a
+``(data, model)`` grid over the ranks of a process group, ``model``
+innermost, with one ``torch.distributed`` group along each axis. The
+``data`` axis shards the batch (``parallel/data_parallel.py``), the
+``model`` axis the attention and feed-forward weights
+(``parallel/sharding.py``, ``parallel/tensor_parallel.py``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import os
 from typing import Optional
@@ -75,3 +81,77 @@ def process_shard(num_items: int) -> range:
     rank, world = rank_world()
     per = (num_items + world - 1) // world
     return range(rank * per, min((rank + 1) * per, num_items))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Mesh:
+    """This rank's place on a ``(data, model)`` grid of ranks: the group
+    along each axis (None where the axis has one rank: no collective;
+    with one model rank the data axis is the whole group), this rank's
+    index on it and the global ranks it holds."""
+
+    shape: dict
+    data_group: object
+    model_group: object
+    data_rank: int
+    model_rank: int
+    data_ranks: tuple
+    model_ranks: tuple
+    group: object = None
+
+    @property
+    def data_size(self) -> int:
+        return self.shape["data"]
+
+    @property
+    def model_size(self) -> int:
+        return self.shape["model"]
+
+
+def create_mesh(data: int = -1, model: int = 1, group=None) -> Mesh:
+    """The ``(data, model)`` grid over the ranks of ``group``: global rank
+    ``r`` (its index in the group) at data index ``r // model`` and model
+    index ``r % model``, so ``model`` is innermost, as in JAX.
+    ``data=-1`` takes the ranks that remain. Every rank of ``group`` must
+    call this together (it makes the axis groups with
+    ``torch.distributed.new_group``). ``group=None`` is one process: the
+    grid ``{'data': 1, 'model': 1}`` and no collective. A data-parallel
+    run is ``create_mesh(world, 1, group)``: its data axis is ``group``
+    itself, so a group of one still runs its collectives."""
+    if group is None:
+        if data not in (-1, 1) or model != 1:
+            raise ValueError(f"a mesh of data={data}, model={model} needs "
+                             "a process group")
+        return Mesh({"data": 1, "model": 1}, None, None, 0, 0, (0,), (0,))
+    import torch.distributed as dist
+
+    ranks = dist.get_process_group_ranks(group)
+    n = len(ranks)
+    if data == -1:
+        if n % model:
+            raise ValueError(f"{n} ranks do not divide into model={model}")
+        data = n // model
+    if data * model != n:
+        raise ValueError(f"a {data} x {model} mesh needs {data * model} "
+                         f"ranks, the group has {n}")
+    me = dist.get_rank(group)
+    grid = [[ranks[i * model + j] for j in range(model)]
+            for i in range(data)]
+    model_group = data_group = None
+    # every rank makes every group, in the same order
+    for i in range(data):
+        g = dist.new_group(grid[i]) if model > 1 else None
+        if i == me // model:
+            model_group = g
+    for j in range(model):
+        if model == 1:
+            g = group
+        else:
+            g = dist.new_group([grid[i][j] for i in range(data)]) \
+                if data > 1 else None
+        if j == me % model:
+            data_group = g
+    return Mesh({"data": data, "model": model}, data_group, model_group,
+                me // model, me % model,
+                tuple(grid[i][me % model] for i in range(data)),
+                tuple(grid[me // model]), group)

@@ -40,6 +40,17 @@ IP-Adapter image prompts (BASELINE config 3): a pipeline built with an
 appends the ``[uncond; cond]`` image tokens to the text context on the token
 axis, before the denoise; the cond-half steps of a serving schedule then
 slice ``context[b:]`` with the ip tokens included.
+
+On a ``(data, model)`` mesh (``mesh=``, ``parallel/mesh.create_mesh``), as
+the JAX pipeline's ``mesh``: the UNet and the VAE are sharded over
+``model`` (``parallel/sharding.shard_params``), CLIP, T5 and the
+IP-Adapter encoder stay replicated, and the clips of a request are dealt
+over ``data`` (contiguous rows, ``process_shard``'s split). Each data rank
+encodes the whole request's prompts, draws every random tensor at the
+whole request's shape and keeps its rows, denoises and decodes its clips,
+and the videos are gathered over the data ranks, so every rank returns
+the whole request's video. The PAB and DeepCache sites cache what the
+sharded modules return, which is after their all-reduce.
 """
 
 from __future__ import annotations
@@ -221,8 +232,9 @@ class AnimationPipeline:
                  dtype: torch.dtype = torch.float32,
                  ip_adapter: Optional[IPAdapter] = None,
                  t5: Optional[T5EncoderModel] = None,
-                 tokenizer=None, tokenizer_2=None):
+                 tokenizer=None, tokenizer_2=None, mesh=None):
         self.config = config
+        self.mesh = mesh
         self.device = torch.device(device)
         self.dtype = dtype
         self.tokenizer = tokenizer
@@ -237,6 +249,28 @@ class AnimationPipeline:
                                   or CLIPTextModel(config.clip_text))
         self.ip_adapter = None if ip_adapter is None else place(ip_adapter)
         self.t5 = None if t5 is None else place(t5)
+        if mesh is not None:
+            from followyourclick_tpu_torch.parallel.sharding import (
+                shard_params,
+            )
+
+            shard_params(self.unet, mesh)
+            shard_params(self.vae, mesh)
+
+    def clip_rows(self, batch: int) -> Optional[tuple]:
+        """``(start, stop, batch)``: this data rank's clips of a request of
+        ``batch`` (contiguous, ``process_shard``'s split); None off a mesh
+        with data ranks."""
+        mesh = self.mesh
+        if mesh is None or mesh.data_size == 1:
+            return None
+        per = -(-batch // mesh.data_size)
+        start = mesh.data_rank * per
+        stop = min(start + per, batch)
+        if start >= stop:
+            raise ValueError(f"a request of {batch} clips leaves data rank "
+                             f"{mesh.data_rank} of {mesh.data_size} none")
+        return start, stop, batch
 
     def tokenize(self, prompts: Sequence[str],
                  negative_prompts: Optional[Sequence[str]] = None):
@@ -328,18 +362,23 @@ class AnimationPipeline:
     def prepare_latents(self, batch: int, spec: SampleSpec,
                         generator: Optional[torch.Generator] = None,
                         noise: Optional[torch.Tensor] = None,
-                        init_latents: Optional[torch.Tensor] = None
-                        ) -> torch.Tensor:
+                        init_latents: Optional[torch.Tensor] = None,
+                        rows: Optional[tuple] = None) -> torch.Tensor:
         """Initial latents (B, F, h, w, 4) from standard-normal ``noise``
         (drawn from ``generator`` unless given): interpolated noise
         (frame 0's noise on every frame), init-latent alpha decay, residual
-        noise."""
+        noise. ``rows`` (:meth:`clip_rows`): the noise is drawn (or given)
+        for the whole request and these rows kept; ``batch`` and
+        ``init_latents`` are the rows'."""
         f, h, w = spec.video_length, spec.height // 8, spec.width // 8
         shape = (batch, f, h, w, 4)
         if noise is None:
             gdev = generator.device if generator is not None else self.device
-            noise = torch.randn(shape, generator=generator, device=gdev,
+            noise = torch.randn((rows[2],) + shape[1:] if rows else shape,
+                                generator=generator, device=gdev,
                                 dtype=torch.float32)
+        if rows is not None:
+            noise = noise[rows[0]:rows[1]]
         latents = self._on(noise, torch.float32)
         if tuple(latents.shape) != shape:
             raise ValueError(f"noise {tuple(latents.shape)}, expected {shape}")
@@ -366,10 +405,16 @@ class AnimationPipeline:
                 partial_mask: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
                 step_noise: Optional[torch.Tensor] = None,
-                context_t5: Optional[torch.Tensor] = None) -> torch.Tensor:
+                context_t5: Optional[torch.Tensor] = None,
+                rows: Optional[tuple] = None) -> torch.Tensor:
         """The denoise loop over :func:`request_plan`; ``context`` (and the
         T5 states ``context_t5``, where given) is ``[uncond; cond]`` under
-        CFG, the cond rows alone without.
+        CFG, the cond rows alone without. With ``rows``
+        (:meth:`clip_rows`), ``latents`` and the per-clip inputs are those
+        rows of the request and ``context``, ``context_t5`` and
+        ``step_noise`` the whole request's: the rows' contexts are taken
+        from them, and each step's fresh noise is drawn for the whole
+        request and the rows kept.
 
         The solver (``spec.scheduler``) scales the initial latents by its
         ``init_noise_sigma``, each UNet input by ``scale_model_input``, and
@@ -405,6 +450,18 @@ class AnimationPipeline:
         dt = latents.dtype
         solver = make_solver(spec.scheduler, self.config.noise_scheduler,
                              spec.num_inference_steps)
+        start, stop, total = rows if rows is not None else (0, b, b)
+        whole_context = context
+
+        def own(c):
+            """The rows' part of a whole request's ``[uncond; cond]``."""
+            if c is None or rows is None:
+                return c
+            if not spec.do_cfg:
+                return c[start:stop]
+            return torch.cat([c[start:stop], c[total + start:total + stop]])
+
+        context, context_t5 = own(context), own(context_t5)
         if solver.init_noise_sigma != 1.0:
             latents = latents * solver.init_noise_sigma
         do_cfg = spec.do_cfg
@@ -443,24 +500,26 @@ class AnimationPipeline:
         frame_ctx = None
         if do_cfg and spec.video_scale > 0:
             ucfg = self.config.unet
-            base = context[:, :context.shape[1] - ucfg.ip_num_tokens] \
-                if ucfg.use_ip_cross_attention else context
-            frame_ctx = UNetConditioning(
-                context=base.repeat(f, 1, 1)[:b * f])
+            base = whole_context[:, :whole_context.shape[1]
+                                 - ucfg.ip_num_tokens] \
+                if ucfg.use_ip_cross_attention else whole_context
+            frame_ctx = UNetConditioning(context=base.repeat(f, 1, 1)[
+                start * f:stop * f])
         stochastic = spec.eta > 0 or solver.needs_step_noise
         if stochastic and step_noise is not None and tuple(
-                step_noise.shape) != (solver.n_calls, b, f, h, w, 4):
+                step_noise.shape) != (solver.n_calls, total, f, h, w, 4):
             raise ValueError(f"step_noise {tuple(step_noise.shape)}, "
-                             f"expected {(solver.n_calls, b, f, h, w, 4)}")
+                             f"expected {(solver.n_calls, total, f, h, w, 4)}")
 
         def noise_at(i):
             if not stochastic:
                 return None
             if step_noise is not None:
-                return self._on(step_noise[i], torch.float32)
+                return self._on(step_noise[i, start:stop], torch.float32)
             gdev = generator.device if generator is not None else self.device
-            return self._on(torch.randn((b, f, h, w, 4), generator=generator,
-                                        device=gdev, dtype=torch.float32))
+            return self._on(torch.randn(
+                (total, f, h, w, 4), generator=generator, device=gdev,
+                dtype=torch.float32)[start:stop])
 
         extrap = spec.cfg_cache_extrapolate and spec.cfg_cache_interval > 1
         state = solver.init_state((b, f, h, w, 4), self.device)
@@ -581,15 +640,48 @@ class AnimationPipeline:
             context_t5 = None if context_t5 is None else context_t5[b:]
         if not self.config.unet.use_camera_motion_condition:
             camera_motion_type = None
+        rows = self.clip_rows(b)
+        if rows is not None:
+            def mine(x):
+                """The rank's rows of a per-clip input (one row for every
+                clip broadcasts)."""
+                if x is None or torch.as_tensor(x).shape[0] != b:
+                    return x
+                return torch.as_tensor(x)[rows[0]:rows[1]]
+
+            first_image_latents, mask, fps, motion_score, \
+                camera_motion_type, partial_mask = map(mine, (
+                    first_image_latents, mask, fps, motion_score,
+                    camera_motion_type, partial_mask))
+            b = rows[1] - rows[0]
         latents = self.prepare_latents(
             b, spec, generator=generator, noise=noise,
             init_latents=(first_image_latents
-                          if spec.use_first_image_as_init_latents else None))
+                          if spec.use_first_image_as_init_latents else None),
+            rows=rows)
         latents = self.denoise(latents, context, spec, first_image_latents,
                                mask, fps, motion_score, camera_motion_type,
                                partial_mask, generator, step_noise,
-                               context_t5)
-        return self.decode_latents(latents)
+                               context_t5, rows)
+        video = self.decode_latents(latents)
+        if rows is not None:
+            video = self._gather_clips(video, rows)
+        return video
+
+    def _gather_clips(self, video: torch.Tensor, rows: tuple
+                      ) -> torch.Tensor:
+        """Every data rank's clips, in request order (each rank's rows
+        padded to the first rank's count for the gather)."""
+        from followyourclick_tpu_torch.parallel.tensor_parallel import (
+            all_gather,
+        )
+
+        start, stop, total = rows
+        per = -(-total // self.mesh.data_size)
+        pad = video.new_zeros((per - (stop - start),) + video.shape[1:])
+        parts = all_gather(torch.cat([video, pad]).contiguous(),
+                           self.mesh.data_group)
+        return torch.cat(parts)[:total]
 
     @checked_precision()
     def __call__(self, prompt: Sequence[str] | str,

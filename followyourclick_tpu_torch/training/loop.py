@@ -19,13 +19,25 @@ takes the draws the uninterrupted run took at the same steps and, on the
 same device, reproduces its state. (The JAX loop restarts its key from
 ``rng`` on resume, so there a resumed run draws anew.)
 
-Over ranks (``group``): each rank's ``data_iter`` yields its rows of the
-global batch and ``step_fn`` takes the step over the group (e.g.
-``train_step_partitioned(..., group=group)``). Every rank seeds the frame
+Over ranks (``mesh=``, a ``parallel/mesh.create_mesh`` grid; a
+data-parallel run is ``create_mesh(world, 1, group)``): each rank's
+``data_iter`` yields its data rank's rows of the global batch and
+``step_fn`` takes the step over the mesh (e.g.
+``train_step_partitioned(..., mesh=mesh)``). Every rank seeds the frame
 crop and the step generators alike, so all crop the same frames and draw
 the global batch's draws. Rank 0 alone prints, logs, validates and writes
 the checkpoints, each write between two barriers; every rank restores
 from the same file.
+
+With model ranks (the state's split leaves are the model rank's
+slices, ``training/step.py``): every rank gathers the full tensors of
+the state over its model ranks (``parallel/sharding.gather_tensors``)
+and rank 0 writes them, between barriers over the whole grid; a restore
+keeps each rank's slice of the file's full tensors. So a checkpoint is
+the same file whatever the grid: one written over model ranks loads in
+one process, and the other way round. ``validation_fn`` gets the full
+tensors too, gathered by every rank, as JAX's loop passes the logical
+params.
 """
 
 from __future__ import annotations
@@ -112,13 +124,55 @@ def _state_payload(state) -> dict:
             "step": state.step}
 
 
+def _map_tensors(payload, fn):
+    """``payload`` with ``fn(tensors)`` applied to each dict of named
+    leaves (the parameter dicts and the moments)."""
+    out = {}
+    for key, value in payload.items():
+        if key == "opt_state":
+            value = {k: fn(v) if k in ("mu", "nu") else v
+                     for k, v in value.items()}
+        elif isinstance(value, dict):
+            value = fn(value)
+        out[key] = value
+    return out
+
+
+def _split(state, mesh) -> dict:
+    """Name → ``(dim, halves)`` of the state's split leaves ({} off a mesh
+    with model ranks)."""
+    if mesh is None or mesh.model_size == 1:
+        return {}
+    return state.tx.split
+
+
+def _full_params(state, mesh) -> dict:
+    """``state.params`` with each split leaf gathered over the model
+    ranks (every rank calls it)."""
+    from followyourclick_tpu_torch.parallel.sharding import gather_tensors
+
+    split = _split(state, mesh)
+    return gather_tensors(state.params, split, mesh) if split \
+        else state.params
+
+
 def save_checkpoint(manager: CheckpointManager, step: int, state,
-                    group=None) -> None:
-    """Write ``state`` at ``step``; over ``group``, rank 0 writes between
-    two barriers (the other ranks' states are equal to its own)."""
+                    mesh=None) -> None:
+    """Write ``state`` at ``step``; over a ``mesh``, rank 0 writes
+    between two barriers that span the grid (the other data ranks' states
+    are equal to its own), the full tensors every rank gathered over its
+    model ranks."""
+    from followyourclick_tpu_torch.parallel.sharding import gather_tensors
+
+    group = None if mesh is None else mesh.group
     barrier(group)
+    payload = _state_payload(state)
+    split = _split(state, mesh)
+    if split:
+        payload = _map_tensors(payload, lambda t: gather_tensors(
+            t, split, mesh))
     if group_rank_world(group)[0] == 0:
-        manager.save(step, _state_payload(state))
+        manager.save(step, payload)
     barrier(group)
 
 
@@ -136,13 +190,20 @@ def _copy_into(target, source):
     return source
 
 
-def restore_checkpoint(manager: CheckpointManager, state):
+def restore_checkpoint(manager: CheckpointManager, state, mesh=None):
     """Resume from the latest checkpoint if there is one (auto-resume);
-    returns ``(state, step)``."""
+    returns ``(state, step)``. On a ``mesh`` each split leaf takes this
+    model rank's slice of the file's full tensor."""
+    from followyourclick_tpu_torch.parallel.sharding import shard_tensors
+
     latest = manager.latest_step()
     if latest is None:
         return state, 0
     payload = manager.restore(latest)
+    split = _split(state, mesh)
+    if split:
+        payload = _map_tensors(payload, lambda t: shard_tensors(
+            t, split, mesh))
     with torch.no_grad():
         for key, value in _state_payload(state).items():
             setattr(state, key, _copy_into(value, payload[key]))
@@ -179,19 +240,21 @@ def _device(state) -> torch.device:
 def train_loop(state, data_iter: Iterator, step_fn: Callable,
                cfg: LoopConfig, seed: int = 0,
                on_log: Optional[Callable] = None,
-               validation_fn: Optional[Callable] = None, group=None):
+               validation_fn: Optional[Callable] = None, mesh=None):
     """Run the loop; returns the final state. ``step_fn(state, batch,
     generator)`` returns ``(state, metrics)``; ``validation_fn(step,
     params)`` runs at every ``cfg.validation_steps`` interval and at each
-    step of ``cfg.validation_steps_tuple``. Over ``group`` (see the module
-    docstring) ``on_log`` and ``validation_fn`` run on rank 0, and the
-    other ranks wait for the validation."""
+    step of ``cfg.validation_steps_tuple``. Over a ``mesh`` (see the
+    module docstring; ``data_iter`` yields the data rank's rows)
+    ``on_log`` and ``validation_fn`` run on rank 0, with the full params,
+    and the other ranks wait for the validation."""
+    group = None if mesh is None else mesh.group
     lead = group_rank_world(group)[0] == 0
     manager = make_checkpoint_manager(
         os.path.join(cfg.output_dir, "checkpoints"), cfg.keep_checkpoints)
     start_step = 0
     if cfg.need_resume:
-        state, start_step = restore_checkpoint(manager, state)
+        state, start_step = restore_checkpoint(manager, state, mesh)
         if start_step and lead:
             print(f"[train_loop] resumed from step {start_step}")
 
@@ -214,12 +277,13 @@ def train_loop(state, data_iter: Iterator, step_fn: Callable,
             if on_log is not None:
                 on_log(step + 1, metrics)
         if (step + 1) % cfg.checkpointing_steps == 0:
-            save_checkpoint(manager, step + 1, state, group)
+            save_checkpoint(manager, step + 1, state, mesh)
         if validation_fn is not None and (
                 (cfg.validation_steps
                  and (step + 1) % cfg.validation_steps == 0)
                 or (step + 1) in cfg.validation_steps_tuple):
+            params = _full_params(state, mesh)
             if lead:
-                validation_fn(step + 1, state.params)
+                validation_fn(step + 1, params)
             barrier(group)
     return state

@@ -35,7 +35,8 @@ given. Random draws come from an explicit ``torch.Generator`` (on the
 batch's device); ``draws=`` takes them from the caller instead (the tests
 feed the JAX draws).
 
-Over ranks (``group``, ``parallel/data_parallel.py``), the JAX step on a
+Over ranks (``mesh=``, a ``parallel/mesh.create_mesh`` grid; a
+data-parallel run is ``create_mesh(world, 1, group)``), the JAX step on a
 mesh with the batch on ``P("data")``: each rank holds its rows of the
 global batch; the draws are drawn at the global batch's shape from the
 step's generator (the same on every rank) and each rank takes its rows, so
@@ -43,6 +44,19 @@ step's generator (the same on every rank) and each rank takes its rows, so
 gradients and the loss are averaged over the ranks before the optimizer,
 so its global-norm clip, Adam and the decay see the global gradient and
 every rank takes the same update. The states start from rank 0's leaves.
+
+On a mesh with model ranks (the partitioned layout), the JAX step on a
+mesh whose UNet is sharded by ``parallel/sharding``: the UNet runs on
+this rank's slices (``shard_params`` before the state is made), the
+state holds the rank's slices of the split leaves (masters, moments)
+with its masks decided on the full names, the draws are made at the
+global batch's shape and sliced by the data rank (both model ranks of a
+data row draw alike), and the gradients and the loss are averaged over
+the data ranks only. The global norm of the clip and of ``grad_norm``
+sums the squares of the split leaves over the model ranks and counts the
+replicated leaves once, as JAX's norm over the full arrays. Checkpointed
+blocks recompute their collectives in the backward, in the same order on
+every rank.
 """
 
 from __future__ import annotations
@@ -109,6 +123,23 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(sum(t.float().square().sum() for t in tensors))
 
 
+def sharded_global_norm(grads: Mapping[str, torch.Tensor], split,
+                        mesh) -> torch.Tensor:
+    """:func:`global_norm` of the full gradients from this rank's: the
+    squares of the leaves named in ``split`` summed over the model ranks,
+    the replicated leaves counted once."""
+    from followyourclick_tpu_torch.parallel.tensor_parallel import (
+        reduce_from_model,
+    )
+
+    zero = torch.zeros((), device=next(iter(grads.values())).device)
+    mine = sum((t.float().square().sum() for n, t in grads.items()
+                if n in split), zero)
+    rest = sum((t.float().square().sum() for n, t in grads.items()
+                if n not in split), zero)
+    return torch.sqrt(reduce_from_model(mine, mesh) + rest)
+
+
 def adam_state(params: Mapping[str, torch.Tensor], names,
                mu_dtype: Optional[torch.dtype] = None) -> dict:
     """Zero moments of the leaves ``names`` of ``params`` (the first in
@@ -123,14 +154,16 @@ def adam_state(params: Mapping[str, torch.Tensor], names,
 def adam_update(grads: Mapping[str, torch.Tensor], opt_state: dict,
                 params: Mapping[str, torch.Tensor], lrs: Mapping[str, float],
                 betas: Tuple[float, float], eps: float, weight_decay: float,
-                max_norm: Optional[float], l2: bool = False) -> torch.Tensor:
+                max_norm: Optional[float], l2: bool = False,
+                norm: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One step of optax's ``chain(clip_by_global_norm(max_norm), adamw)``
     over the leaves of ``lrs``, each at its learning rate; with ``l2``,
     ``add_decayed_weights`` before ``scale_by_adam`` instead of the
     decoupled decay (torch Adam's L2). ``max_norm=None`` does not clip.
     Updates ``params`` and ``opt_state`` in place; returns the global norm
-    of every gradient in ``grads``."""
-    norm = global_norm(grads.values())
+    of every gradient in ``grads`` (``norm`` when the caller gives it)."""
+    if norm is None:
+        norm = global_norm(grads.values())
     opt_state["count"] += 1
     count = np.float32(opt_state["count"])
     b1, b2 = betas
@@ -158,12 +191,18 @@ def adam_update(grads: Mapping[str, torch.Tensor], opt_state: dict,
 class MaskedAdamW:
     """``optax.chain(clip_by_global_norm(max_norm), multi_transform(...))``
     over named fp32 leaves: ``lrs`` maps each leaf that trains to its
-    learning rate (a leaf not in it is ``set_to_zero``)."""
+    learning rate (a leaf not in it is ``set_to_zero``). With a ``mesh``
+    the leaves are a model rank's slices and ``split`` (name → ``(dim,
+    halves)``, ``parallel/sharding.split_specs``) names the split ones:
+    the norm is :func:`sharded_global_norm`."""
 
-    def __init__(self, cfg: TrainConfig, lrs: Mapping[str, float]):
+    def __init__(self, cfg: TrainConfig, lrs: Mapping[str, float],
+                 split: Optional[Mapping] = None, mesh=None):
         self.cfg = cfg
         self.lrs = dict(lrs)
         self.mu_dtype = _DTYPES[cfg.adam_mu_dtype]
+        self.split = dict(split or {})
+        self.mesh = mesh
 
     def init(self, params: Mapping[str, torch.Tensor]) -> dict:
         return adam_state(params, self.lrs, self.mu_dtype)
@@ -173,9 +212,12 @@ class MaskedAdamW:
         """Update ``params`` and ``opt_state`` in place from ``grads``;
         returns the global norm of ``grads``."""
         cfg = self.cfg
+        norm = None
+        if self.mesh is not None and self.mesh.model_size > 1:
+            norm = sharded_global_norm(grads, self.split, self.mesh)
         return adam_update(grads, opt_state, params, self.lrs,
                            (cfg.adam_beta1, cfg.adam_beta2), cfg.adam_eps,
-                           cfg.weight_decay, cfg.max_grad_norm)
+                           cfg.weight_decay, cfg.max_grad_norm, norm=norm)
 
 
 def _labels_lrs(module: nn.Module, names, cfg: TrainConfig) -> dict:
@@ -208,17 +250,42 @@ class TrainState:
     tx: MaskedAdamW
 
 
+def _data_group(mesh):
+    """The process group of ``mesh``'s data axis (None off a mesh)."""
+    return None if mesh is None else mesh.data_group
+
+
+def _tx(unet: nn.Module, cfg: TrainConfig, lrs, mesh) -> "MaskedAdamW":
+    """The optimizer; on a mesh with model ranks, told the split leaves
+    (``unet`` sharded by ``parallel/sharding.shard_params``)."""
+    if mesh is None or mesh.model_size == 1:
+        return MaskedAdamW(cfg, lrs)
+    from followyourclick_tpu_torch.parallel.sharding import (
+        param_sharding_rules,
+        split_specs,
+    )
+
+    if getattr(unet, "_tp_mesh", None) is not mesh:
+        raise ValueError("the UNet is not sharded on this mesh: call "
+                         "parallel.sharding.shard_params(unet, mesh) first")
+    return MaskedAdamW(cfg, lrs, split_specs(param_sharding_rules(unet)),
+                       mesh)
+
+
 def create_train_state(unet: nn.Module, cfg: TrainConfig,
                        params: Optional[Mapping] = None,
-                       group=None) -> TrainState:
+                       mesh=None) -> TrainState:
     """The full-tree state from ``params`` (the module's own by default);
-    trainable leaves are copied, frozen ones kept as they are. Over
-    ``group`` every leaf takes rank 0's values."""
+    trainable leaves are copied, frozen ones kept as they are. Over a
+    ``mesh``'s data ranks every leaf takes rank 0's values."""
+    if mesh is not None and mesh.model_size > 1:
+        raise ValueError("the full-tree state has no model ranks: use "
+                         "create_partitioned_train_state")
     params = _params(unet, params)
     lrs = _labels_lrs(unet, params, cfg)
     params = {n: t.to(torch.float32, copy=n in lrs) for n, t in
               params.items()}
-    broadcast_(params, 0, group)
+    broadcast_(params, 0, _data_group(mesh))
     tx = MaskedAdamW(cfg, lrs)
     return TrainState(0, params, tx.init(params), tx)
 
@@ -255,11 +322,14 @@ def create_partitioned_train_state(
         unet: nn.Module, cfg: TrainConfig,
         frozen_dtype: Optional[torch.dtype] = torch.bfloat16,
         params: Optional[Mapping] = None,
-        group=None) -> PartitionedTrainState:
+        mesh=None) -> PartitionedTrainState:
     """The memory-lean state: fp32 copies of the leaves that train, the
     rest cast to ``frozen_dtype`` (kept as they are when None or already
     that dtype). ``frozen_dtype=torch.float32`` gives :func:`train_step`'s
-    update. Over ``group`` every leaf takes rank 0's values."""
+    update. Over a ``mesh``'s data ranks every leaf takes rank 0's
+    values; with model ranks the leaves are the rank's slices of the
+    sharded ``unet``."""
+    group = _data_group(mesh)
     params = _params(unet, params)
     lrs = _labels_lrs(unet, params, cfg)
     trainable, frozen = partition_params(params, {n: n in lrs
@@ -271,7 +341,7 @@ def create_partitioned_train_state(
                   for n, t in frozen.items()}
     broadcast_(trainable, 0, group)
     broadcast_(frozen, 0, group)
-    tx = MaskedAdamW(cfg, lrs)
+    tx = _tx(unet, cfg, lrs, mesh)
     return PartitionedTrainState(0, trainable, frozen, tx.init(trainable),
                                  tx)
 
@@ -301,8 +371,9 @@ class StepDraws:
 def draw_step(latents: torch.Tensor, sched: DDIMSchedule, cfg: TrainConfig,
               generator: torch.Generator, group=None) -> StepDraws:
     """The step's draws from ``generator``, in the JAX step's order. Over
-    ``group``, ``latents`` are this rank's rows: the draws are made at the
-    global batch's shape and this rank's rows returned."""
+    ``group`` (a mesh's ``data_group``), ``latents`` are this rank's
+    rows: the draws are made at the global batch's shape and this rank's
+    rows returned."""
     rank, world = group_rank_world(group)
     b, f, h, w, c = latents.shape
     b *= world
@@ -321,7 +392,8 @@ def encode_batch(vae: nn.Module, video: torch.Tensor,
     """``(B, F, H, W, 3)`` in [-1, 1] → scaled latents ``(B, F, H/8, W/8,
     4)``: the VAE posterior's reparameterised sample × 0.18215, frames
     folded into the batch; ``noise`` (``(B·F, H/8, W/8, 4)``) in place of a
-    draw from ``generator``. Over ``group``, ``video`` is this rank's clips:
+    draw from ``generator``. Over ``group`` (a mesh's ``data_group``),
+    ``video`` is this rank's clips:
     the noise is drawn for the global batch and this rank's rows taken."""
     b, f, h, w, c = video.shape
     with torch.no_grad():
@@ -378,13 +450,15 @@ def _mse(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return torch.mean((pred.float() - target.float()) ** 2)
 
 
-def _step_draws(batch, generator, sched, cfg, draws, group):
+def _step_draws(batch, generator, sched, cfg, draws, mesh):
     return draws if draws is not None else draw_step(
-        batch.latents, sched, cfg, generator, group)
+        batch.latents, sched, cfg, generator, _data_group(mesh))
 
 
-def _global_mean(loss: torch.Tensor, grads: dict, group):
-    """The loss and ``grads`` averaged over ``group`` (in place)."""
+def _global_mean(loss: torch.Tensor, grads: dict, mesh):
+    """The loss and ``grads`` averaged over ``mesh``'s data ranks (in
+    place)."""
+    group = _data_group(mesh)
     loss = loss.detach()
     all_reduce_mean_(grads, group)
     if group is not None:
@@ -396,12 +470,12 @@ def train_step(state: TrainState, batch: TrainBatch,
                generator: Optional[torch.Generator], *, unet: nn.Module,
                text_encoder: nn.Module, sched: DDIMSchedule,
                cfg: TrainConfig, draws: Optional[StepDraws] = None,
-               group=None):
+               mesh=None):
     """One v-prediction step over the whole tree; ``(state, metrics)``.
-    Over ``group``, ``batch`` (and ``draws`` when given) are this rank's
-    rows; the metrics are the global batch's."""
+    Over a ``mesh``'s data ranks, ``batch`` (and ``draws`` when given) are
+    this rank's rows; the metrics are the global batch's."""
     model_in, timesteps, cond, target = _prepare_step_inputs(
-        batch, _step_draws(batch, generator, sched, cfg, draws, group),
+        batch, _step_draws(batch, generator, sched, cfg, draws, mesh),
         sched, cfg, text_encoder)
     leaves = {n: t.detach().requires_grad_() if t.is_floating_point()
               else t for n, t in state.params.items()}
@@ -411,7 +485,7 @@ def train_step(state: TrainState, batch: TrainBatch,
         names = [n for n, t in leaves.items() if t.requires_grad]
         grads = dict(zip(names, torch.autograd.grad(
             loss, [leaves[n] for n in names])))
-    loss, grads = _global_mean(loss, grads, group)
+    loss, grads = _global_mean(loss, grads, mesh)
     norm = state.tx.update(grads, state.opt_state, state.params)
     state.step += 1
     return state, {"loss": loss, "grad_norm": norm}
@@ -421,12 +495,12 @@ def partitioned_loss_and_grads(state: PartitionedTrainState,
                                batch: TrainBatch, draws: StepDraws, *,
                                unet: nn.Module, text_encoder: nn.Module,
                                sched: DDIMSchedule, cfg: TrainConfig,
-                               group=None):
+                               mesh=None):
     """The loss and the trainable leaves' gradients of one step, the state
     untouched: the trainable leaves cast to the frozen leaves' dtype for
-    the forward (fp32 masters keep the update's precision). Over
-    ``group``, ``batch`` and ``draws`` are this rank's rows and both
-    results are averaged over the ranks."""
+    the forward (fp32 masters keep the update's precision). On a
+    ``mesh``, ``batch`` and ``draws`` are this data rank's rows and both
+    results are averaged over the data ranks."""
     model_in, timesteps, cond, target = _prepare_step_inputs(
         batch, draws, sched, cfg, text_encoder)
     floating = [t.dtype for t in state.frozen.values()
@@ -442,20 +516,20 @@ def partitioned_loss_and_grads(state: PartitionedTrainState,
             target)
         grads = dict(zip(masters, torch.autograd.grad(
             loss, list(masters.values()))))
-    return _global_mean(loss, grads, group)
+    return _global_mean(loss, grads, mesh)
 
 
 def train_step_partitioned(state: PartitionedTrainState, batch: TrainBatch,
                            generator: Optional[torch.Generator], *,
                            unet: nn.Module, text_encoder: nn.Module,
                            sched: DDIMSchedule, cfg: TrainConfig,
-                           draws: Optional[StepDraws] = None, group=None):
+                           draws: Optional[StepDraws] = None, mesh=None):
     """:func:`train_step`'s math with gradients of the trainable leaves
     only (:func:`partitioned_loss_and_grads`); ``(state, metrics)``."""
     loss, grads = partitioned_loss_and_grads(
-        state, batch, _step_draws(batch, generator, sched, cfg, draws, group),
+        state, batch, _step_draws(batch, generator, sched, cfg, draws, mesh),
         unet=unet, text_encoder=text_encoder, sched=sched, cfg=cfg,
-        group=group)
+        mesh=mesh)
     norm = state.tx.update(grads, state.opt_state, state.trainable)
     state.step += 1
     return state, {"loss": loss, "grad_norm": norm}

@@ -22,7 +22,7 @@ from followyourclick_tpu_torch.config import NoiseScheduleConfig
 from followyourclick_tpu_torch.models.clip_text import CLIPTextModel
 from followyourclick_tpu_torch.models.unet3d import UNet3DConditionModel
 from followyourclick_tpu_torch.parallel.data_parallel import shard_rows
-from followyourclick_tpu_torch.parallel.mesh import rank_world
+from followyourclick_tpu_torch.parallel.mesh import create_mesh, rank_world
 from followyourclick_tpu_torch.schedulers.ddim import DDIMSchedule
 from followyourclick_tpu_torch.training import loop as tl
 from followyourclick_tpu_torch.training import step as ts
@@ -53,7 +53,7 @@ def train_steps(job_path: str) -> dict:
     broadcast is what makes them equal."""
     job = torch.load(job_path, weights_only=False)
     rank, world = rank_world()
-    group = dist.group.WORLD
+    mesh = create_mesh(world, 1, dist.group.WORLD)
     unet, text = _models(job)
     if rank:
         with torch.no_grad():
@@ -65,26 +65,26 @@ def train_steps(job_path: str) -> dict:
     if job["partitioned_steps"]:
         cfg = job["cfg"]
         state = ts.create_partitioned_train_state(
-            unet, cfg, frozen_dtype=torch.float32, group=group)
+            unet, cfg, frozen_dtype=torch.float32, mesh=mesh)
         out["start"] = _clone(state.params)
         metrics = []
         for draws in job["draws"][:job["partitioned_steps"]]:
             state, m = ts.train_step_partitioned(
                 state, batch, None, unet=unet, text_encoder=text,
                 sched=sched, cfg=cfg, draws=shard_rows(draws, rank, world),
-                group=group)
+                mesh=mesh)
             metrics.append({k: float(v) for k, v in m.items()})
         out.update(metrics=metrics, trainable=_clone(state.trainable),
                    frozen=_clone(state.frozen), lrs=dict(state.tx.lrs))
     if job["full_steps"]:
         cfg = job["full_cfg"]
-        state = ts.create_train_state(unet, cfg, group=group)
+        state = ts.create_train_state(unet, cfg, mesh=mesh)
         metrics = []
         for draws in job["draws"][:job["full_steps"]]:
             state, m = ts.train_step(
                 state, batch, None, unet=unet, text_encoder=text,
                 sched=sched, cfg=cfg, draws=shard_rows(draws, rank, world),
-                group=group)
+                mesh=mesh)
             metrics.append({k: float(v) for k, v in m.items()})
         out.update(full_metrics=metrics, full_params=_clone(state.params))
     out["jax_loaded"] = _jax_loaded()
@@ -100,7 +100,7 @@ def loop_runs(job_path: str) -> dict:
     what it printed and the validation steps it ran."""
     job = torch.load(job_path, weights_only=False)
     rank, world = rank_world()
-    group = dist.group.WORLD
+    mesh = create_mesh(world, 1, dist.group.WORLD)
     unet, text = _models(job)
     cfg = job["cfg"]
     sched = DDIMSchedule.create(NoiseScheduleConfig(), 25)
@@ -111,7 +111,7 @@ def loop_runs(job_path: str) -> dict:
         frames.append(batch.latents.shape[1])
         return ts.train_step_partitioned(state, batch, generator, unet=unet,
                                          text_encoder=text, sched=sched,
-                                         cfg=cfg, group=group)
+                                         cfg=cfg, mesh=mesh)
 
     save = tl.CheckpointManager.save
 
@@ -137,7 +137,7 @@ def loop_runs(job_path: str) -> dict:
             state = tl.train_loop(
                 state, itertools.repeat(batch), step_fn, loop_cfg, seed=3,
                 validation_fn=lambda step, params: validated.append(
-                    (run, step)), group=group)
+                    (run, step)), mesh=mesh)
         out[f"run{run}"] = {"step": state.step,
                             "count": state.opt_state["count"],
                             "trainable": _clone(state.trainable),

@@ -2,8 +2,9 @@
 ``PYTHONPATH`` starts with stand-ins for ``jax``, ``flax`` and the JAX
 package that raise on import (so the ranks ``launch`` starts, which take
 the same ``PYTHONPATH``, cannot import them either),
-``entry.dryrun_multichip(2, device="cpu")`` (two gloo ranks: one
-data-parallel step and one sampler request each), the clip loader on a PNG
+``entry.dryrun_multichip(2, device="cpu")`` (two gloo ranks on JAX's
+``{'data': 1, 'model': 2}`` grid: one tensor-parallel step and one sampler
+request), the clip loader on a PNG
 and an MJPG clip, and ``evaluate_sharded`` of a seeded RAFT run, and none of
 the banned modules is loaded after."""
 
@@ -66,5 +67,6 @@ def test_ranks_loader_and_sharded_eval_run_without_jax(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert run.returncode == 0 and run.stdout.strip().endswith("ok"), (
         run.stdout[-3000:] + run.stderr[-3000:])
-    assert "dryrun_multichip(2): ranks=2 backend=gloo loss=" in run.stdout
+    assert ("dryrun_multichip(2): mesh={'data': 1, 'model': 2} loss="
+            in run.stdout)
     assert "dryrun_multichip(2): sharded-serving checksum=" in run.stdout
