@@ -30,6 +30,8 @@ differentiate :func:`ln_geglu_fp32` / :func:`geglu_fp32` (the JAX
 
 Weights are in ``nn.Linear`` layout: ``w1 (2·inner, C)``, ``w2 (C, inner)``
 (the transposes of the JAX kernel's ``(C, 2·inner)`` and ``(inner, C)``).
+Each ``fused_ln_geglu`` call runs in the tracer's span
+``fyc.kernel.fused_ln_geglu:<R>x<C>`` (``utils/profiling``).
 
 Numerics (as the Pallas kernel): LN statistics in fp32, the LN output cast
 to the working dtype, products accumulated in fp32, bias adds in fp32, the
@@ -49,6 +51,7 @@ import torch.nn.functional as F
 
 from followyourclick_tpu_torch.ops import _build
 from followyourclick_tpu_torch.ops.autograd import Recompute, needs_grad
+from followyourclick_tpu_torch.utils.profiling import span
 
 
 def default_fast_gating(x: torch.Tensor) -> bool:
@@ -263,11 +266,12 @@ def fused_ln_geglu(x: torch.Tensor, ln_scale: torch.Tensor,
     args = (x, ln_scale, ln_bias, w1, b1, w2, b2)
     run = functools.partial(_ln_geglu, eps=eps, residual=residual,
                             fast=fast_gating)
-    if needs_grad(*args):
-        return LnGegluGrad.apply(
-            run, functools.partial(ln_geglu_fp32, eps=eps,
-                                   residual=residual), *args)
-    return run(*args)
+    with span("fyc.kernel.fused_ln_geglu", *x.shape):
+        if needs_grad(*args):
+            return LnGegluGrad.apply(
+                run, functools.partial(ln_geglu_fp32, eps=eps,
+                                       residual=residual), *args)
+        return run(*args)
 
 
 def _ln_geglu(x, ln_scale, ln_bias, w1, b1, w2, b2, *, eps, residual, fast):

@@ -38,6 +38,8 @@ wo0, bo0, l1s, l1b, wq1, wk1, wv1, wo1, bo1, lfs, lfb, w1, b1, w2, b2)``
 with every matrix in ``nn.Linear`` layout ``(out, in)``. ``qkv``, the two
 sublayers' ``[Wq; Wk; Wv]`` of shape ``(3C, C)`` (:func:`qkv_weights`), is
 built by the caller once per module; without it the wrapper builds it.
+Each call runs in the tracer's span
+``fyc.kernel.fused_motion_block:<P>x<F>x<C>x<heads>`` (``utils/profiling``).
 
 Numerics (as the Pallas kernel): LN output cast to the working dtype before
 ``+pe`` and the products; q, k, v cast after fp32 accumulation; softmax in
@@ -68,6 +70,7 @@ from followyourclick_tpu_torch.ops.temporal_attention import (
     MAX_FRAMES,
     temporal_attention_ref,
 )
+from followyourclick_tpu_torch.utils.profiling import span
 
 
 def ln_pe_stage(h: torch.Tensor, ls: torch.Tensor, lb: torch.Tensor,
@@ -270,11 +273,12 @@ def fused_motion_block(x: torch.Tensor, pe: torch.Tensor, params,
     params = tuple(params)
     run = functools.partial(_motion_block, scale=scale, heads=heads, eps=eps,
                             fast=fast_gating, qkv=qkv)
-    if needs_grad(x, pe, *params):
-        return MotionBlockGrad.apply(
-            run, functools.partial(motion_block_fp32, scale=scale,
-                                   heads=heads, eps=eps), x, pe, *params)
-    return run(x, pe, *params)
+    with span("fyc.kernel.fused_motion_block", *x.shape, heads):
+        if needs_grad(x, pe, *params):
+            return MotionBlockGrad.apply(
+                run, functools.partial(motion_block_fp32, scale=scale,
+                                       heads=heads, eps=eps), x, pe, *params)
+        return run(x, pe, *params)
 
 
 def _motion_block(x, pe, *params, scale, heads, eps, fast, qkv):

@@ -51,6 +51,11 @@ whole request's shape and keeps its rows, denoises and decodes its clips,
 and the videos are gathered over the data ranks, so every rank returns
 the whole request's video. The PAB and DeepCache sites cache what the
 sharded modules return, which is after their all-reduce.
+
+Under ``utils/profiling.tracing`` a request is the span ``fyc.request``
+holding ``fyc.encode_prompt``, one ``fyc.unet.full`` / ``fyc.unet.half`` /
+``fyc.unet.frame`` a UNet call of the denoise and ``fyc.decode``;
+``encode_image`` is ``fyc.encode_image``.
 """
 
 from __future__ import annotations
@@ -78,6 +83,7 @@ from followyourclick_tpu_torch.schedulers.dispatch import (
     make_solver,
 )
 from followyourclick_tpu_torch.utils.backend_flags import checked_precision
+from followyourclick_tpu_torch.utils.profiling import span, spanned
 
 VAE_SCALE = 0.18215
 
@@ -315,6 +321,7 @@ class AnimationPipeline:
             return None
         return torch.as_tensor(x).to(self.device, dtype)
 
+    @spanned("fyc.encode_prompt")
     def encode_prompt(self, input_ids: torch.Tensor,
                       neg_input_ids: torch.Tensor) -> torch.Tensor:
         """CFG context ``[uncond; cond]`` on the batch axis."""
@@ -347,6 +354,7 @@ class AnimationPipeline:
         cond, uncond = self.ip_adapter(self._on(pixel_values, self.dtype))
         return torch.cat([uncond, cond], dim=0)
 
+    @spanned("fyc.encode_image")
     def encode_image(self, image: torch.Tensor,
                      generator: Optional[torch.Generator] = None
                      ) -> torch.Tensor:
@@ -534,8 +542,9 @@ class AnimationPipeline:
             frame_x = x
             if do_cfg and full and (mode is not None or not share):
                 x = torch.cat([x, x], dim=0)
-            out = self.unet(x, t.expand(x.shape[0]),
-                            cond if full else cond_half, mode, cache)
+            with span("fyc.unet.full" if full else "fyc.unet.half"):
+                out = self.unet(x, t.expand(x.shape[0]),
+                                cond if full else cond_half, mode, cache)
             if not do_cfg:
                 noise_pred = out
             elif full:
@@ -544,10 +553,12 @@ class AnimationPipeline:
                 u1, i1 = uncond, i
                 noise_pred = uncond + spec.guidance_scale * (text - uncond)
                 if frame_ctx is not None:
-                    frame = self.unet(
-                        frame_x.reshape(b * f, 1, h, w, frame_x.shape[-1]),
-                        t.expand(b * f), frame_ctx, plain=True).reshape(
-                            b, f, h, w, 4)
+                    with span("fyc.unet.frame"):
+                        frame = self.unet(
+                            frame_x.reshape(b * f, 1, h, w,
+                                            frame_x.shape[-1]),
+                            t.expand(b * f), frame_ctx, plain=True).reshape(
+                                b, f, h, w, 4)
                     noise_pred = (frame + spec.video_scale * (uncond - frame)
                                   + spec.guidance_scale * (text - uncond))
             else:
@@ -561,6 +572,7 @@ class AnimationPipeline:
                                          eta=spec.eta, noise=noise_at(i))
         return latents
 
+    @spanned("fyc.decode")
     def decode_latents(self, latents: torch.Tensor,
                        frame_chunk: int = 0) -> torch.Tensor:
         """(B, F, h, w, 4) → video (B, F, H, W, 3) fp32 in [0, 1]. All B·F
@@ -586,6 +598,7 @@ class AnimationPipeline:
 
     @torch.inference_mode()
     @checked_precision()
+    @spanned("fyc.request")
     def sample(self, input_ids: torch.Tensor, neg_input_ids: torch.Tensor,
                first_image_latents: Optional[torch.Tensor],
                mask: Optional[torch.Tensor],

@@ -38,6 +38,9 @@ the same file whatever the grid: one written over model ranks loads in
 one process, and the other way round. ``validation_fn`` gets the full
 tensors too, gathered by every rank, as JAX's loop passes the logical
 params.
+
+Under ``utils/profiling.tracing`` each iteration, ``next(data_iter)``
+included, is a span ``fyc.train.step``.
 """
 
 from __future__ import annotations
@@ -56,6 +59,7 @@ from followyourclick_tpu_torch.parallel.data_parallel import (
     group_rank_world,
 )
 from followyourclick_tpu_torch.utils.backend_flags import checked_precision
+from followyourclick_tpu_torch.utils.profiling import span
 
 STATE_FILE = "state.pt"
 
@@ -262,28 +266,29 @@ def train_loop(state, data_iter: Iterator, step_fn: Callable,
     host_rng = np.random.RandomState(1234 + start_step)
     t0 = time.time()
     for step in range(start_step, cfg.max_train_steps):
-        batch = next(data_iter)
-        if cfg.temporal_multi_scale:
-            batch = _subsample_frames(batch, host_rng, cfg.min_frames)
-        state, metrics = step_fn(state, batch,
-                                 step_generator(seed, step, device))
+        with span("fyc.train.step"):
+            batch = next(data_iter)
+            if cfg.temporal_multi_scale:
+                batch = _subsample_frames(batch, host_rng, cfg.min_frames)
+            state, metrics = step_fn(state, batch,
+                                     step_generator(seed, step, device))
 
-        if (step + 1) % cfg.log_every == 0 and lead:
-            loss = float(metrics["loss"])
-            dt = (time.time() - t0) / cfg.log_every
-            t0 = time.time()
-            print(f"step {step + 1}/{cfg.max_train_steps} "
-                  f"loss={loss:.4f} {dt * 1e3:.0f} ms/step")
-            if on_log is not None:
-                on_log(step + 1, metrics)
-        if (step + 1) % cfg.checkpointing_steps == 0:
-            save_checkpoint(manager, step + 1, state, mesh)
-        if validation_fn is not None and (
-                (cfg.validation_steps
-                 and (step + 1) % cfg.validation_steps == 0)
-                or (step + 1) in cfg.validation_steps_tuple):
-            params = _full_params(state, mesh)
-            if lead:
-                validation_fn(step + 1, params)
-            barrier(group)
+            if (step + 1) % cfg.log_every == 0 and lead:
+                loss = float(metrics["loss"])
+                dt = (time.time() - t0) / cfg.log_every
+                t0 = time.time()
+                print(f"step {step + 1}/{cfg.max_train_steps} "
+                      f"loss={loss:.4f} {dt * 1e3:.0f} ms/step")
+                if on_log is not None:
+                    on_log(step + 1, metrics)
+            if (step + 1) % cfg.checkpointing_steps == 0:
+                save_checkpoint(manager, step + 1, state, mesh)
+            if validation_fn is not None and (
+                    (cfg.validation_steps
+                     and (step + 1) % cfg.validation_steps == 0)
+                    or (step + 1) in cfg.validation_steps_tuple):
+                params = _full_params(state, mesh)
+                if lead:
+                    validation_fn(step + 1, params)
+                barrier(group)
     return state

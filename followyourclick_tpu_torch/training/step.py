@@ -57,6 +57,12 @@ sums the squares of the split leaves over the model ranks and counts the
 replicated leaves once, as JAX's norm over the full arrays. Checkpointed
 blocks recompute their collectives in the backward, in the same order on
 every rank.
+
+Under ``utils/profiling.tracing``: :func:`encode_batch` is the span
+``fyc.train.encode``; a step's UNet forward with its loss is
+``fyc.train.forward``, its ``torch.autograd.grad`` (the checkpoint
+recompute inside it) ``fyc.train.backward``, and the optimizer's update
+``fyc.train.optimizer``.
 """
 
 from __future__ import annotations
@@ -83,6 +89,7 @@ from followyourclick_tpu_torch.schedulers.ddim import (
     get_velocity,
 )
 from followyourclick_tpu_torch.utils.convert import flax_paths
+from followyourclick_tpu_torch.utils.profiling import span, spanned
 
 _DTYPES = {None: None, "bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -385,6 +392,7 @@ def draw_step(latents: torch.Tensor, sched: DDIMSchedule, cfg: TrainConfig,
         torch.rand((b, h, w, 1), **kw)), rank, world)
 
 
+@spanned("fyc.train.encode")
 def encode_batch(vae: nn.Module, video: torch.Tensor,
                  generator: Optional[torch.Generator] = None,
                  noise: Optional[torch.Tensor] = None,
@@ -480,13 +488,16 @@ def train_step(state: TrainState, batch: TrainBatch,
     leaves = {n: t.detach().requires_grad_() if t.is_floating_point()
               else t for n, t in state.params.items()}
     with torch.enable_grad():
-        loss = _mse(_unet_apply(unet, cfg)(leaves, model_in, timesteps,
-                                           cond), target)
+        with span("fyc.train.forward"):
+            loss = _mse(_unet_apply(unet, cfg)(leaves, model_in, timesteps,
+                                               cond), target)
         names = [n for n, t in leaves.items() if t.requires_grad]
-        grads = dict(zip(names, torch.autograd.grad(
-            loss, [leaves[n] for n in names])))
+        with span("fyc.train.backward"):
+            grads = dict(zip(names, torch.autograd.grad(
+                loss, [leaves[n] for n in names])))
     loss, grads = _global_mean(loss, grads, mesh)
-    norm = state.tx.update(grads, state.opt_state, state.params)
+    with span("fyc.train.optimizer"):
+        norm = state.tx.update(grads, state.opt_state, state.params)
     state.step += 1
     return state, {"loss": loss, "grad_norm": norm}
 
@@ -509,13 +520,16 @@ def partitioned_loss_and_grads(state: PartitionedTrainState,
     masters = {n: t.detach().requires_grad_()
                for n, t in state.trainable.items()}
     with torch.enable_grad():
-        cast = {n: t.to(compute) if compute not in (None, torch.float32)
-                and t.is_floating_point() else t for n, t in masters.items()}
-        loss = _mse(_unet_apply(unet, cfg)(
-            merge_params(cast, state.frozen), model_in, timesteps, cond),
-            target)
-        grads = dict(zip(masters, torch.autograd.grad(
-            loss, list(masters.values()))))
+        with span("fyc.train.forward"):
+            cast = {n: t.to(compute) if compute not in (None, torch.float32)
+                    and t.is_floating_point() else t
+                    for n, t in masters.items()}
+            loss = _mse(_unet_apply(unet, cfg)(
+                merge_params(cast, state.frozen), model_in, timesteps, cond),
+                target)
+        with span("fyc.train.backward"):
+            grads = dict(zip(masters, torch.autograd.grad(
+                loss, list(masters.values()))))
     return _global_mean(loss, grads, mesh)
 
 
@@ -530,6 +544,7 @@ def train_step_partitioned(state: PartitionedTrainState, batch: TrainBatch,
         state, batch, _step_draws(batch, generator, sched, cfg, draws, mesh),
         unet=unet, text_encoder=text_encoder, sched=sched, cfg=cfg,
         mesh=mesh)
-    norm = state.tx.update(grads, state.opt_state, state.trainable)
+    with span("fyc.train.optimizer"):
+        norm = state.tx.update(grads, state.opt_state, state.trainable)
     state.step += 1
     return state, {"loss": loss, "grad_norm": norm}
