@@ -23,14 +23,16 @@ result line:
    attention, out-projection) with the host's time to enqueue a call; the
    frame attention also at the motion block's stage (c) shapes; the motion
    block also at one frame (F = 1), in bf16 and fp32, at the positions and
-   widths of the ``video_scale`` per-frame pass. The three
-   kernels no path routes (as in the JAX package) run at the shapes their
-   sites would give them: ``fused_geglu`` at the
-   LN-GEGLU rows, ``fused_group_norm`` at each of the 81 GroupNorm sites of
-   one exact evaluation (listed from the module tree by hooks on a UNet on
-   the meta device; each site's line names its path, one cluster launch
-   or two passes, and the times are summed per path with the host's
-   enqueue time), ``fused_ln_cross_attention`` at the four attn2 shapes
+   widths of the ``video_scale`` per-frame pass. The GroupNorm kernel
+   (every ``GroupNorm`` module's route on the card) runs at each of the 81
+   GroupNorm sites of one exact evaluation, the 30 of a 16-frame 512²
+   decode and the 22 of the training cell's 72-frame 256×448 encode
+   (listed from the module trees by hooks on a UNet and a VAE on the meta
+   device; each site's line names its path, one cluster launch or two
+   passes, and the times are summed per path and per call with the host's
+   enqueue time). The two kernels no path routes (as in the JAX package)
+   run at the shapes their sites would give them: ``fused_geglu`` at the
+   LN-GEGLU rows, ``fused_ln_cross_attention`` at the four attn2 shapes
    over 77 keys, launch by launch with the host's enqueue time and beside
    the stock composition of the attn2 path's own ops (a yardstick), plus a
    ragged row count and fp32;
@@ -243,9 +245,9 @@ Phase 2 is followed by the training kernels' checks
 (:func:`phase_train_kernels`): the motion block and LN-GEGLU at the
 training forward's shapes (``TRAIN_MOTION_SHAPES``, ``TRAIN_GEGLU_SHAPES``:
 row and position counts that are no powers of two) against their plain
-versions, and every autograd Function's backward (the unrouted
-GroupNorm's and LN-cross-attention's included) against autograd through
-the plain version.
+versions, and every autograd Function's backward (GroupNorm's and the
+unrouted LN-cross-attention's included) against autograd through the
+plain version.
 
 Phase 1 also prints which optional packages import (``OPTIONAL_PACKAGES``).
 
@@ -264,8 +266,9 @@ before each evaluation, request and step in each rank) and checks
 the
 request's counts against those its :func:`expected_launches` gives at its
 batch (from ``request_plan``: the solver's calls, CFG or not, the
-per-frame pass) and, where given, against the counts worked out by hand
-(the three unrouted kernels: 0), and prints time, video statistics per
+per-frame pass; GroupNorm's from the module tree, with each VAE encode
+and decode) and, where given, against the counts worked out by hand
+(the two unrouted kernels: 0), and prints time, video statistics per
 clip and peak memory. The second-to-last line is the JSON kernel table,
 the last line ``{"ok": true, "device": {...}}``. The script needs torch with CUDA, numpy
 and the CUDA toolkit; it imports no JAX.
@@ -389,14 +392,14 @@ KERNELS = {
         "followyourclick_tpu/ops/temporal_attention.py:161"),
     "flash_attention": ("followyourclick_tpu_torch/csrc/flash_attention.cu",
                         "followyourclick_tpu/ops/flash_attention.py:154"),
+    "fused_group_norm": ("followyourclick_tpu_torch/csrc/groupnorm.cu",
+                         "followyourclick_tpu/ops/groupnorm.py:149"),
 }
 # the kernels no path routes, as in the JAX package: each is held against
 # its plain version at the shapes its sites would give it
 UNROUTED = {
     "fused_geglu": ("followyourclick_tpu_torch/csrc/geglu.cu",
                     "followyourclick_tpu/ops/geglu.py:295"),
-    "fused_group_norm": ("followyourclick_tpu_torch/csrc/groupnorm.cu",
-                         "followyourclick_tpu/ops/groupnorm.py:149"),
     "fused_ln_cross_attention": (
         "followyourclick_tpu_torch/csrc/cross_attention.cu",
         "followyourclick_tpu/ops/cross_attention.py:194"),
@@ -443,10 +446,12 @@ SERVING_STEPS = 10
 # temporal sites run on the 3 full non-reusing steps (3 × 20 of each frame
 # kernel); LN-GEGLU 36 times on each of the 4 full steps and 10 times on
 # each of the 6 level-0 steps; the temporal sites keep every block off the
-# whole-block kernel; one clip never crosses the flash line
+# whole-block kernel; one clip never crosses the flash line; GroupNorm 81
+# times on each full step and 21 times on each level-0 step (down block 0,
+# the last up block, conv_norm_out)
 SERVING_LAUNCHES = {"fused_motion_block": 0, "fused_ln_geglu": 204,
                     "fused_temporal_block": 60, "temporal_attention": 60,
-                    "flash_attention": 0}
+                    "flash_attention": 0, "fused_group_norm": 450}
 # clips per batched request, and its flash launches worked out by hand:
 # on the exact sampler 4 per step (of the five level-0 self-attentions, the
 # first runs before the CFG duplication at 32 rows, 8 GiB of scores, and
@@ -463,13 +468,14 @@ BATCHED_SERVING_LAUNCHES = {**SERVING_LAUNCHES, "flash_attention": 20}
 # motion block on the modular path (20 FFs, 40 attentions on the
 # tiny-sequence kernel), 16 in-block temporal attentions, 16 spatial FFs, and
 # flash for the 4 level-0 cross-frame self-attentions after the CFG
-# duplication (8192 keys, 16 GiB of scores; the stem's 8 GiB stays plain)
+# duplication (8192 keys, 16 GiB of scores; the stem's 8 GiB stays plain),
+# and the 81 GroupNorms
 ROUTES_UNET = dict(unet_use_cross_frame_attention=True,
                    unet_use_temporal_attention=True)
 ROUTES_MOTION = dict(use_rope_position_encoding=True, add_temporal_lora=True)
 ROUTES_LAUNCHES = {"fused_motion_block": 0, "fused_ln_geglu": 36,
                    "fused_temporal_block": 0, "temporal_attention": 56,
-                   "flash_attention": 4}
+                   "flash_attention": 4, "fused_group_norm": 81}
 # the T5 encode in bf16 against the same encode in fp32 at full width,
 # relative L2. At T5's own init scales it reads about 1.7e-2 on an H100; the
 # control, the same encoder refilled N(0, 1/fan_in) (:func:`fan_in_init_`:
@@ -766,6 +772,7 @@ def kernel_wrappers():
     launches."""
     from followyourclick_tpu_torch.ops.flash_attention import flash_attention
     from followyourclick_tpu_torch.ops.geglu import fused_ln_geglu
+    from followyourclick_tpu_torch.ops.groupnorm import fused_group_norm
     from followyourclick_tpu_torch.ops.motion_block import fused_motion_block
     from followyourclick_tpu_torch.ops.temporal_attention import (
         fused_temporal_block,
@@ -773,7 +780,7 @@ def kernel_wrappers():
     )
 
     fns = (fused_motion_block, fused_ln_geglu, fused_temporal_block,
-           temporal_attention, flash_attention)
+           temporal_attention, flash_attention, fused_group_norm)
     return {fn.__name__: fn for fn in fns}
 
 
@@ -783,9 +790,8 @@ def unrouted_wrappers():
         fused_ln_cross_attention,
     )
     from followyourclick_tpu_torch.ops.geglu import fused_geglu
-    from followyourclick_tpu_torch.ops.groupnorm import fused_group_norm
 
-    fns = (fused_geglu, fused_group_norm, fused_ln_cross_attention)
+    fns = (fused_geglu, fused_ln_cross_attention)
     return {fn.__name__: fn for fn in fns}
 
 
@@ -799,6 +805,7 @@ def plain_versions():
         default_fast_gating,
         ln_geglu_ref,
     )
+    from followyourclick_tpu_torch.ops.groupnorm import group_norm_ref
     from followyourclick_tpu_torch.ops.motion_block import motion_block_ref
     from followyourclick_tpu_torch.ops.temporal_attention import (
         temporal_attention_ref,
@@ -824,7 +831,8 @@ def plain_versions():
     return {"fused_motion_block": motion_block, "fused_ln_geglu": ln_geglu,
             "fused_temporal_block": temporal_block,
             "temporal_attention": temporal_attention_ref,
-            "flash_attention": flash_attention_ref}
+            "flash_attention": flash_attention_ref,
+            "fused_group_norm": group_norm_ref}
 
 
 @contextlib.contextmanager
@@ -853,17 +861,12 @@ def wrappers_replaced(make):
             setattr(mod, attr, value)
 
 
-def group_norm_sites(unet_config, spec):
-    """Counter of the ``(B, N, C, groups, eps, act)`` that every GroupNorm
-    of one exact CFG evaluation at ``spec``'s clip shape hands its norm,
+def _norm_sites(model):
+    """A Counter that forward hooks on every GroupNorm of ``model`` fill
+    with the ``(B, N, C, groups, eps, act)`` each hands its norm,
     ``(B, N, C)`` being the module's input with the axes between the first
-    and the channels folded into N: read by forward hooks from a UNet built
-    and run on the meta device (no memory, no arithmetic)."""
+    and the channels folded into N."""
     from followyourclick_tpu_torch.models.layers import GroupNorm
-    from followyourclick_tpu_torch.models.unet3d import (
-        UNet3DConditionModel,
-        UNetConditioning,
-    )
 
     sites = collections.Counter()
 
@@ -875,17 +878,50 @@ def group_norm_sites(unet_config, spec):
         sites[(x.shape[0], n, x.shape[-1], module.num_groups, module.eps,
                module.act)] += 1
 
+    for m in model.modules():
+        if isinstance(m, GroupNorm):
+            m.register_forward_hook(hook)
+    return sites
+
+
+def group_norm_sites(unet_config, spec):
+    """Counter of the ``(B, N, C, groups, eps, act)`` (:func:`_norm_sites`)
+    of every GroupNorm of one exact CFG evaluation at ``spec``'s clip
+    shape: read by forward hooks from a UNet built and run on the meta
+    device (no memory, no arithmetic)."""
+    from followyourclick_tpu_torch.models.unet3d import (
+        UNet3DConditionModel,
+        UNetConditioning,
+    )
+
     with torch.device("meta"), torch.no_grad():
         unet = UNet3DConditionModel(unet_config)
-        for m in unet.modules():
-            if isinstance(m, GroupNorm):
-                m.register_forward_hook(hook)
+        sites = _norm_sites(unet)
         h, w = spec.height // 8, spec.width // 8
         unet(torch.empty(1, spec.video_length, h, w,
                          unet_config.conv_in_channels),
              torch.zeros(1), UNetConditioning(
                  torch.empty(2, TEXT_KEYS, unet_config.cross_attention_dim),
                  torch.empty(1), torch.empty(1)))
+    return sites
+
+
+def vae_group_norm_sites(vae_config, frames, height, width, decode):
+    """Counter of the ``(B, N, C, groups, eps, act)`` of every GroupNorm of
+    one VAE decode of ``frames`` latents of a ``height`` x ``width`` clip
+    (``decode``) or one encode of ``frames`` such images, read on the meta
+    device as :func:`group_norm_sites` reads the UNet's."""
+    from followyourclick_tpu_torch.models.vae import AutoencoderKL
+
+    with torch.device("meta"), torch.no_grad():
+        vae = AutoencoderKL(vae_config)
+        sites = _norm_sites(vae)
+        if decode:
+            vae.decode(torch.empty(frames, height // 8, width // 8,
+                                   vae_config.latent_channels))
+        else:
+            vae.encode(torch.empty(frames, height, width,
+                                   vae_config.in_channels))
     return sites
 
 
@@ -1171,6 +1207,7 @@ def phase_kernels(seed):
                 tp[key] += count * one[key]
             tp["bound_by"] = one["bound_by"]
         del q, kv
+    phase_group_norm_kernel(gen, check, stats, vec)
     phase_unrouted_kernels(gen, check, vec)
     for name, st in stats.items():
         st["bound_by"] = ("operations" if st["ops_ms"] >= st["bytes_ms"]
@@ -1189,24 +1226,13 @@ def phase_kernels(seed):
 
 
 def phase_unrouted_kernels(gen, check, vec):
-    """The three kernels no path routes, at the shapes their sites would
+    """The two kernels no path routes, at the shapes their sites would
     give them in one exact evaluation at 16 f / 512² with CFG."""
-    import torch.nn.functional as F
-
-    from followyourclick_tpu_torch.config import InferenceConfig
     from followyourclick_tpu_torch.ops.cross_attention import (
         fused_ln_cross_attention,
         ln_cross_attention_ref,
     )
     from followyourclick_tpu_torch.ops.geglu import fused_geglu, geglu_ref
-    from followyourclick_tpu_torch.ops import _build
-    from followyourclick_tpu_torch.ops.groupnorm import (
-        cluster_smem,
-        fused_group_norm,
-        group_norm_path,
-        group_norm_ref,
-    )
-    from followyourclick_tpu_torch.pipelines.animation import SampleSpec
 
     bf = torch.bfloat16
     yardstick = {}
@@ -1222,56 +1248,6 @@ def phase_unrouted_kernels(gen, check, vec):
                   lambda: fused_geglu(*args, fast_gating=fast),
                   lambda: geglu_ref(*args, fast_gating=fast),
                   count if fast == default else 0, 24 * rows * c * c, args)
-
-    sites = group_norm_sites(InferenceConfig().unet, SampleSpec())
-    log(f"[kernels] {sum(sites.values())} GroupNorm sites in one exact "
-        f"evaluation, {len(sites)} shapes")
-    lib = _build.load_library()
-    big = randn(gen, (32, 4096, 320), 1.0, bf)
-    copy = torch.empty_like(big)
-    copy_ms = graph_ms(lambda: copy.copy_(big))
-    log(f"[kernels] a PyTorch copy of {big.numel() * 2 / 1e6:.1f} MB of bf16 "
-        f"takes {copy_ms:.4f} ms on the device "
-        f"({2 * big.numel() * 2 / copy_ms / 1e9:.2f} TB/s read + write): the "
-        "streaming rate the GroupNorm sites' bound is read against")
-    del big, copy
-    paths = collections.defaultdict(lambda: dict(sites=0, ms=0.0, bound=0.0,
-                                                 device=0.0, host=[]))
-    for (b, n, c, groups, eps, act), count in sorted(
-            sites.items(), key=lambda kv: str(kv[0])):
-        x = randn(gen, (b, n, c), 1.0, bf) + 0.5
-        params = (vec(c, base=1.0), vec(c))
-        path, blocks, rows = group_norm_path(b, n, c, bf)
-        where = (f"cluster of {blocks} x {rows} rows, "
-                 f"{cluster_smem(rows, c, bf)} B a block, "
-                 f"{lib.fyc_group_norm_max_clusters(c, blocks, rows, 1)} "
-                 "clusters at once" if path == "cluster" else
-                 f"two passes, {blocks} chunks of {rows} rows")
-        ms, bound = check(
-            "fused_group_norm",
-            f"fused_group_norm B={b} N={n} C={c} G={groups} act={act} "
-            f"x{count} [{where}]",
-            lambda: fused_group_norm(x, *params, groups, eps, act),
-            lambda: group_norm_ref(x, *params, groups, eps, act), count,
-            10 * x.numel(), [x, *params],
-            run_library=(None if act else lambda: F.group_norm(
-                x.transpose(1, 2), groups, *params, eps)),
-            peak_ops=PEAK_FP32_OPS)
-        device = graph_ms(lambda: fused_group_norm(x, *params, groups, eps,
-                                                   act))
-        log(f"    device {device:.4f} ms a call (CUDA graph of 20 calls)")
-        st = paths[path]
-        st["sites"] += count
-        st["ms"] += count * ms
-        st["bound"] += count * bound
-        st["device"] += count * device
-        st["host"].append(host_ms(
-            lambda: fused_group_norm(x, *params, groups, eps, act)))
-    for path, st in sorted(paths.items()):
-        log(f"[kernels] fused_group_norm, {path}: {st['sites']} sites take "
-            f"{st['ms']:.3f} ms ({st['device']:.3f} ms on the device), bound "
-            f"{st['bound']:.3f} ms; the host takes {min(st['host']):.3f}-"
-            f"{max(st['host']):.3f} ms a call to enqueue")
 
     heads = 8
     for (b, sq, c), dtype, count in CROSS_SHAPES:
@@ -1313,6 +1289,101 @@ def phase_unrouted_kernels(gen, check, vec):
     for name, ms in yardstick.items():
         log(f"[kernels] {name}: the stock composition of one evaluation's "
             f"calls takes {ms:.2f} ms")
+
+
+# the VAE calls whose GroupNorm sites the smoke checks: the sampler's
+# 16-frame 512² decode and the training cell's 72-frame 256×448 encode
+VAE_GROUP_NORM_CALLS = (("vae_decode", 16, 512, 512, True),
+                        ("vae_encode", 72, 256, 448, False))
+
+
+def phase_group_norm_kernel(gen, check, stats, vec):
+    """The GroupNorm kernel, which the ``GroupNorm`` module routes to on the
+    card, at the sites of one exact evaluation at 16 f / 512² with CFG (the
+    kernel's per-evaluation sums) and at those of each VAE call of
+    ``VAE_GROUP_NORM_CALLS`` (summed into ``stats["fused_group_norm"]``
+    under the call's name), each against its plain version, by path."""
+    import torch.nn.functional as F
+
+    from followyourclick_tpu_torch.config import InferenceConfig
+    from followyourclick_tpu_torch.ops import _build
+    from followyourclick_tpu_torch.ops.groupnorm import (
+        cluster_smem,
+        fused_group_norm,
+        group_norm_path,
+        group_norm_ref,
+    )
+    from followyourclick_tpu_torch.pipelines.animation import SampleSpec
+
+    bf = torch.bfloat16
+    cfg = InferenceConfig()
+    calls = [("unet", group_norm_sites(cfg.unet, SampleSpec()))] + [
+        (what, vae_group_norm_sites(cfg.vae, frames, h, w, decode))
+        for what, frames, h, w, decode in VAE_GROUP_NORM_CALLS]
+    lib = _build.load_library()
+    big = randn(gen, (32, 4096, 320), 1.0, bf)
+    copy = torch.empty_like(big)
+    copy_ms = graph_ms(lambda: copy.copy_(big))
+    log(f"[kernels] a PyTorch copy of {big.numel() * 2 / 1e6:.1f} MB of bf16 "
+        f"takes {copy_ms:.4f} ms on the device "
+        f"({2 * big.numel() * 2 / copy_ms / 1e9:.2f} TB/s read + write): the "
+        "streaming rate the GroupNorm sites' bound is read against")
+    del big, copy
+    for what, sites in calls:
+        log(f"[kernels] {sum(sites.values())} GroupNorm sites in one "
+            f"{'exact evaluation' if what == 'unet' else what} call, "
+            f"{len(sites)} shapes")
+        total = None if what == "unet" else stats[
+            "fused_group_norm"].setdefault(what, dict(
+                max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                device_ms=0.0, library_ms=0.0))
+        paths = collections.defaultdict(lambda: dict(
+            sites=0, ms=0.0, bound=0.0, device=0.0, host=[]))
+        for (b, n, c, groups, eps, act), count in sorted(
+                sites.items(), key=lambda kv: str(kv[0])):
+            x = randn(gen, (b, n, c), 1.0, bf) + 0.5
+            params = (vec(c, base=1.0), vec(c))
+            path, blocks, rows = group_norm_path(b, n, c, bf)
+            where = (f"cluster of {blocks} x {rows} rows, "
+                     f"{cluster_smem(rows, c, bf)} B a block, "
+                     f"{lib.fyc_group_norm_max_clusters(c, blocks, rows, 1)} "
+                     "clusters at once" if path == "cluster" else
+                     f"two passes, {blocks} chunks of {rows} rows")
+            one = {}
+            ms, bound = check(
+                "fused_group_norm",
+                f"fused_group_norm {what} B={b} N={n} C={c} G={groups} "
+                f"act={act} x{count} [{where}]",
+                lambda: fused_group_norm(x, *params, groups, eps, act),
+                lambda: group_norm_ref(x, *params, groups, eps, act),
+                count if total is None else 0, 10 * x.numel(), [x, *params],
+                run_library=(None if act else lambda: F.group_norm(
+                    x.transpose(1, 2), groups, *params, eps)),
+                peak_ops=PEAK_FP32_OPS, into=one)
+            device = graph_ms(lambda: fused_group_norm(x, *params, groups,
+                                                       eps, act))
+            log(f"    device {device:.4f} ms a call (CUDA graph of 20 calls)")
+            if total is not None:
+                total["max_abs_err"] = max(total["max_abs_err"],
+                                           one["max_abs_err"])
+                total["device_ms"] += count * device
+                for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+                    total[key] += count * (one[key] or 0.0)
+            st = paths[path]
+            st["sites"] += count
+            st["ms"] += count * ms
+            st["bound"] += count * bound
+            st["device"] += count * device
+            st["host"].append(host_ms(
+                lambda: fused_group_norm(x, *params, groups, eps, act)))
+            del x
+        torch.cuda.empty_cache()
+        for path, st in sorted(paths.items()):
+            log(f"[kernels] fused_group_norm, {what}, {path}: {st['sites']} "
+                f"sites take {st['ms']:.3f} ms ({st['device']:.3f} ms on the "
+                f"device), bound {st['bound']:.3f} ms; the host takes "
+                f"{min(st['host']):.3f}-{max(st['host']):.3f} ms a call to "
+                "enqueue")
 
 
 def unzero_(module, gen, std=0.02):
@@ -1654,7 +1725,17 @@ def tiny_line(frames, heads):
     return frames <= 32 and frames * heads <= 256
 
 
-def expected_launches(unet, spec, dtype, batch=1, plan=None, tp=False):
+def group_norm_launches(module):
+    """GroupNorm launches of one call of ``module`` (a VAE encoder or
+    decoder): one a GroupNorm module, as every one goes to the kernel on
+    the card."""
+    from followyourclick_tpu_torch.models.layers import GroupNorm
+
+    return sum(isinstance(m, GroupNorm) for m in module.modules())
+
+
+def expected_launches(unet, spec, dtype, batch=1, plan=None, tp=False,
+                      vae=None, encodes=1, decodes=1):
     """Each kernel's launches in one request of ``batch`` clips that follows
     ``plan`` (default the request's :func:`request_plan`: ``step_plan`` on
     DDIM, the solver's ``n_calls`` full steps otherwise), from the plan, the
@@ -1682,7 +1763,13 @@ def expected_launches(unet, spec, dtype, batch=1, plan=None, tp=False):
     frame. A spatial self-attention of at most 32 tokens (and no
     cross-frame keys) that is not reused launches ``temporal_attention``
     where :func:`tiny_line` holds for its tokens, as the mid block's 7x4 at
-    phase 17's 448x256 (at 512² every level has 64 tokens or more).
+    phase 17's 448x256 (at 512² every level has 64 tokens or more). Every
+    GroupNorm module that a step runs launches ``fused_group_norm`` once:
+    all of them on a full-trunk evaluation, on a trunk-reuse step level 0's
+    and ``conv_norm_out``. ``vae``: the request's VAE, of which it runs the
+    encoder ``encodes`` times (its first frames) and the decoder
+    ``decodes`` times (its video), each call one launch a GroupNorm
+    module.
 
     ``tp``: the UNet sharded over model ranks (``parallel/sharding``), where
     the kernels that hold whole weights launch no time: no motion block, no
@@ -1694,6 +1781,7 @@ def expected_launches(unet, spec, dtype, batch=1, plan=None, tp=False):
     from followyourclick_tpu_torch.models.attention import (
         BasicTransformerBlock,
     )
+    from followyourclick_tpu_torch.models.layers import GroupNorm
     from followyourclick_tpu_torch.models.motion_module import (
         TemporalTransformerBlock,
     )
@@ -1725,6 +1813,10 @@ def expected_launches(unet, spec, dtype, batch=1, plan=None, tp=False):
                                                or mode.reuse_temporal)
         temporal_run = mode is None or not mode.reuse_temporal
         for name, m in unet.named_modules():
+            if isinstance(m, GroupNorm):  # conv_norm_out runs on every step
+                counts["fused_group_norm"] += (
+                    trunk or level0(name) or "." not in name)
+                continue
             if not (trunk or level0(name)):
                 continue
             if isinstance(m, BasicTransformerBlock):
@@ -1768,6 +1860,10 @@ def expected_launches(unet, spec, dtype, batch=1, plan=None, tp=False):
             spec.video_length)
         if spec.do_cfg and spec.video_scale > 0 and step.full:
             evaluation(None, False, rows, False, 1)
+    if vae is not None:
+        counts["fused_group_norm"] += (
+            encodes * group_norm_launches(vae.encoder)
+            + decodes * group_norm_launches(vae.decoder))
     return counts
 
 
@@ -1996,11 +2092,13 @@ def run_request(pipe, spec, label, seed, by_hand=None, batch=1,
     """One full-width request of ``batch`` clips (``make_request`` from
     ``seed``, then ``extra`` keyword arguments of ``sample``) with every
     launch count set to 0 before and read after: each routed kernel's must
-    equal what :func:`expected_launches` gives for the request, and that
-    must equal ``by_hand`` where it is given; the unrouted kernels' must be
-    0. With ``kernels=False`` every routed wrapper is replaced by its plain
-    version (:func:`wrappers_replaced`) and no kernel may launch. Every clip must be finite and non-constant, and the clips of a
-    request must differ. Logs time, launches, video statistics per clip
+    equal what :func:`expected_launches` gives for the request (its UNet
+    calls, its first frames' VAE encode and its decode), and the UNet's
+    part must equal ``by_hand`` where it is given; the unrouted kernels'
+    must be 0. With ``kernels=False`` every routed wrapper is replaced by
+    its plain version (:func:`wrappers_replaced`) and no kernel may launch.
+    Every clip must be finite and non-constant, and the clips of a request
+    must differ. Logs time, launches, video statistics per clip
     and peak memory. ``tp``: the pipeline's UNet is sharded over model
     ranks (:func:`expected_launches`). Returns the launches by kernel, the
     video and the seconds."""
@@ -2010,6 +2108,8 @@ def run_request(pipe, spec, label, seed, by_hand=None, batch=1,
     if by_hand is not None and want != by_hand:
         raise SystemExit(f"{label}: step_plan gives {want} launches, the "
                          f"hand count {by_hand}")
+    want = expected_launches(pipe.unet, spec, pipe.dtype, batch, tp=tp,
+                             vae=pipe.vae)
     plain = plain_versions()
     if not kernels:
         want = dict.fromkeys(want, 0)
@@ -2095,7 +2195,7 @@ def phase_sampler_options(pipe, seed):
     n = SOLVER_STEPS
     per_call = {"fused_motion_block": 20, "fused_ln_geglu": 16,
                 "fused_temporal_block": 0, "temporal_attention": 0,
-                "flash_attention": 0}
+                "flash_attention": 0, "fused_group_norm": 81}
     calls = {"pndm": n + 1, "pndm_prk": n + 9}
     h, w = base.height // 8, base.width // 8
     partial = (torch.rand(1, h, w, 1, generator=torch.Generator()
@@ -2358,7 +2458,7 @@ def t5_text_full(pipe, spec, seed, root, by_hand):
     a user's directories would hold (the tiny T5 ``tokenizer.json``, a CLIP
     ``merges.txt``), then :func:`text_request` on one exact request of
     :func:`make_request`'s first image, click and noise; its launches must
-    be ``by_hand``. Returns them."""
+    be ``by_hand`` and its decode's GroupNorms. Returns them."""
     from followyourclick_tpu_torch.utils.native_tokenizer import (
         NativeCLIPTokenizer,
     )
@@ -2374,8 +2474,11 @@ def t5_text_full(pipe, spec, seed, root, by_hand):
     with torch.inference_mode():
         req = make_request(pipe, spec, seed,
                            pipe.config.clip_text.vocab_size)
+    want = None if by_hand is None else {
+        **by_hand, "fused_group_norm": by_hand.get("fused_group_norm", 0)
+        + group_norm_launches(pipe.vae.decoder)}
     return text_request(pipe, spec, req["first_image_latents"], req["mask"],
-                        req["noise"], "t5 text, full width", by_hand)
+                        req["noise"], "t5 text, full width", want)
 
 
 def t5_drift(states, fp32):
@@ -2687,8 +2790,9 @@ CLI_PROMPTS = ("a red car drives along a coastal road",
                "a cat sleeps in a sunny garden")
 T2I_STEPS = 50
 # a T2I step's launches by hand: the 16 spatial transformer blocks' LN-GEGLU
-# (no motion module, no flash at one frame)
-T2I_LAUNCHES_PER_STEP = {"fused_ln_geglu": 16}
+# (no motion module, no flash at one frame) and the 61 GroupNorms of the
+# motion-free UNet (the 81 less the 20 motion modules')
+T2I_LAUNCHES_PER_STEP = {"fused_ln_geglu": 16, "fused_group_norm": 61}
 # a loaded tensor is sampled every CLI_SAMPLE_EVERY-th parameter
 CLI_SAMPLE_EVERY = 97
 # the T2I pipeline shares the video UNet's tensors: its construction may
@@ -3047,10 +3151,11 @@ def phase_cli(seed, steps, cfg=None, device="cuda", clip=(16, 512, 512),
     8, the motion-free UNet on the video UNet's tensors). Checks: a sample
     of loaded tensors equals what was written; the T2I construction adds
     no weights and shares ``conv_in``; each T2I request launches what
-    ``expected_launches`` gives for the motion-free UNet (LN-GEGLU only);
-    the run's launches equal the T2I's plus ``expected_launches`` of the
-    video requests; the videos are finite, in [0, 1], of the expected
-    shape; the GIFs exist (when PIL is installed). ``cfg``,
+    ``expected_launches`` gives for the motion-free UNet (LN-GEGLU and
+    GroupNorm) and its VAE decode; the run's launches equal the T2I's plus
+    ``expected_launches`` of the video requests (UNet, encode, decode); the
+    videos are finite, in [0, 1], of the expected shape; the GIFs exist
+    (when PIL is installed). ``cfg``,
     ``device`` and ``clip`` (frames, height, width) default to the
     full-width run on the card. The SD directory is written under
     ``root`` (a temporary directory when None), where phases 15 and 16
@@ -3062,6 +3167,7 @@ def phase_cli(seed, steps, cfg=None, device="cuda", clip=(16, 512, 512),
 
     from followyourclick_tpu_torch.config import InferenceConfig
     from followyourclick_tpu_torch.models.unet3d import UNet3DConditionModel
+    from followyourclick_tpu_torch.models.vae import AutoencoderKL
     from followyourclick_tpu_torch.pipelines.animation import SampleSpec
     from followyourclick_tpu_torch.pipelines.serving_schedules import (
         apply_schedule,
@@ -3084,6 +3190,7 @@ def phase_cli(seed, steps, cfg=None, device="cuda", clip=(16, 512, 512),
     frames, height, width = clip
     with torch.device("meta"):
         meta_unet = UNet3DConditionModel(cfg.unet)
+        meta_vae = AutoencoderKL(cfg.vae)
         t2i_unet = UNet3DConditionModel(dataclasses.replace(
             cfg.unet, use_motion_module=False,
             use_first_frame_mask_condition_concat=False,
@@ -3097,6 +3204,9 @@ def phase_cli(seed, steps, cfg=None, device="cuda", clip=(16, 512, 512),
     if t2i_want != t2i_by_hand:
         raise SystemExit(f"[cli] T2I: step_plan gives {t2i_want}, the hand "
                          f"count {t2i_by_hand}")
+    # a T2I request decodes its image; it encodes nothing
+    t2i_want = expected_launches(t2i_unet, t2i_spec, torch.bfloat16,
+                                 vae=meta_vae, encodes=0)
     repo = Path(__file__).resolve().parent
     paths = {}
     with (tempfile.TemporaryDirectory() if root is None
@@ -3147,7 +3257,7 @@ def phase_cli(seed, steps, cfg=None, device="cuda", clip=(16, 512, 512),
             out = os.path.join(root, "out_" + label.split()[0])
             requests = len(CLI_PROMPTS) // batch
             video_want = expected_launches(meta_unet, spec, torch.bfloat16,
-                                           batch)
+                                           batch, vae=meta_vae)
             want = {name: requests * video_want.get(name, 0)
                     + len(CLI_PROMPTS) * t2i_want.get(name, 0)
                     for name in {**KERNELS, **UNROUTED}}
@@ -3219,8 +3329,11 @@ FILL_STEPS = 25
 FILL_GUIDANCE = 7.5
 FILL_PROMPT = "a red car on the road"
 # a fill / replace step's launches by hand: the motion-free UNet's 16
-# spatial transformer blocks' LN-GEGLU on the CFG batch
-FILL_LAUNCHES_PER_STEP = {"fused_ln_geglu": 16}
+# spatial transformer blocks' LN-GEGLU on the CFG batch and its 61
+# GroupNorms; each candidate adds one VAE encode (22 GroupNorms) and one
+# decode (30)
+FILL_LAUNCHES_PER_STEP = {"fused_ln_geglu": 16, "fused_group_norm": 61}
+FILL_LAUNCHES_PER_CALL = {"fused_group_norm": 22 + 30}
 # tiny fp32 inpaint sample, card vs CPU, on the [0, 1] image
 FILL_TINY_ATOL = 2e-3
 
@@ -3307,6 +3420,7 @@ def phase_click(seed, root, steps, cfg=None, device="cuda",
     from followyourclick_tpu_torch.cli import click_mask
     from followyourclick_tpu_torch.config import InferenceConfig
     from followyourclick_tpu_torch.models.unet3d import UNet3DConditionModel
+    from followyourclick_tpu_torch.models.vae import AutoencoderKL
     from followyourclick_tpu_torch.pipelines.animation import SampleSpec
     from followyourclick_tpu_torch.sam import (
         SamAutomaticMaskGenerator,
@@ -3463,10 +3577,12 @@ def phase_click(seed, root, steps, cfg=None, device="cuda",
                                            cfg)
     with torch.device("meta"):
         meta_unet = UNet3DConditionModel(cfg.unet)
+        meta_vae = AutoencoderKL(cfg.vae)
     spec = SampleSpec(video_length=frames, height=vh, width=vw,
                       num_inference_steps=steps)
     want = {**dict.fromkeys({**KERNELS, **UNROUTED}, 0),
-            **expected_launches(meta_unet, spec, torch.bfloat16, 1)}
+            **expected_launches(meta_unet, spec, torch.bfloat16, 1,
+                                vae=meta_vae)}
     t2i_requests = [r for r in rows if r[0] == "sample"]
     if got != want or t2i_requests:
         raise SystemExit(f"[click row] launches {got}, want {want}; T2I "
@@ -3487,8 +3603,9 @@ def phase_fill(seed, root, cfg=None, device="cuda", sam_type="vit_h",
     directory under ``root`` and SAM ``sam_type`` (seeded), the image of
     phase 15, ``steps`` steps at CFG 7.5 on 512² crops: each candidate's
     pipeline call timed, the launches exactly ``FILL_LAUNCHES_PER_STEP`` a
-    step, outputs of the image's shape, a fill unchanged outside its mask;
-    then a tiny fp32 inpaint ``sample`` card vs CPU (``FILL_TINY_ATOL``).
+    step and ``FILL_LAUNCHES_PER_CALL`` a call, outputs of the image's
+    shape, a fill unchanged outside its mask; then a tiny fp32 inpaint
+    ``sample`` card vs CPU (``FILL_TINY_ATOL``).
     Returns the launches by path."""
     from PIL import Image
 
@@ -3536,6 +3653,7 @@ def phase_fill(seed, root, cfg=None, device="cuda", sam_type="vit_h",
         got = {name: fn.launches for name, fn in wrappers.items()}
         n = len(result["scores"])
         want = {name: n * steps * FILL_LAUNCHES_PER_STEP.get(name, 0)
+                + n * FILL_LAUNCHES_PER_CALL.get(name, 0)
                 for name in wrappers}
         log(f"[{command}] {dt:.2f} s in all (SAM and SD load included); "
             f"{n} candidates, pipeline calls "
@@ -3596,13 +3714,14 @@ TRAIN_SAVE_AT = 2
 # the cosine of each motion module's gradient (its leaves concatenated)
 TRAIN_LOSS_REL = 2e-2
 TRAIN_GRAD_COS = 0.99
-# launches a step by hand: 20 motion blocks, 16 LN-GEGLU and the mid
+# launches a step by hand: 20 motion blocks, 16 LN-GEGLU, the mid
 # block's spatial self-attention over its 7x4 = 28 tokens (sq = sk <= 32,
-# sq x 8 heads <= 256: the tiny-sequence route) a UNet forward, each block's
-# forward run again in the backward (remat_blocks)
+# sq x 8 heads <= 256: the tiny-sequence route) and 81 GroupNorms a UNet
+# forward, each block's forward run again in the backward (remat_blocks):
+# all but conv_norm_out, which is outside the blocks
 TRAIN_LAUNCHES = {"fused_motion_block": 40, "fused_ln_geglu": 32,
                   "fused_temporal_block": 0, "temporal_attention": 2,
-                  "flash_attention": 0}
+                  "flash_attention": 0, "fused_group_norm": 161}
 # the training forward's kernel shapes: motion blocks (P, F, C) and LN-GEGLU
 # rows (R, C) at latents 56x32, 16 frames (none a power of two)
 TRAIN_MOTION_SHAPES = [(1792, 16, 320), (448, 16, 640), (112, 16, 1280),
@@ -3739,7 +3858,7 @@ def phase_train_kernels(seed):
     grad_check("flash_attention (4, 1792, 8, 40)", flash_attention,
                temporal_attention_ref, q,
                randn(gen, (4, 1792, 8, 40), 1.0, bf), failures)
-    # the unrouted GroupNorm (+SiLU) and LN-cross-attention at a 320-wide
+    # GroupNorm (+SiLU) and the unrouted LN-cross-attention at a 320-wide
     # UNet site (77 text keys)
     c, n = 320, 4096
     ls = [leaf((2, n, c), 1.0, 2.0), leaf((c,), 0.05, 1.0),
@@ -5575,9 +5694,11 @@ def tp_rank(seed, steps, card):
                              width=width, guidance_scale=1.0,
                              num_inference_steps=1), torch.bfloat16, 1,
             one_step, tp=True)
-        # each block's forward runs again in the backward (remat_blocks)
+        # each block's forward runs again in the backward (remat_blocks);
+        # conv_norm_out, the one GroupNorm outside the blocks, does not
         want = {**dict.fromkeys(launches, 0),
                 **{k: 2 * v for k, v in forward.items()}}
+        want["fused_group_norm"] -= 1
         out["paths"]["tensor_parallel_train"] = launches
         update = gather_tensors({n: state.trainable[n] - before[n]
                                  for n in before}, state.tx.split, mesh)
@@ -5742,7 +5863,8 @@ def main(argv=None) -> int:
     exact_by_hand = {"fused_motion_block": 20 * args.steps,
                      "fused_ln_geglu": 16 * args.steps,
                      "fused_temporal_block": 0, "temporal_attention": 0,
-                     "flash_attention": 0}
+                     "flash_attention": 0,
+                     "fused_group_norm": 81 * args.steps}
     batched_by_hand = {**exact_by_hand, "flash_attention":
                        BATCHED_FLASH_PER_EXACT_STEP * args.steps}
     requests = timed(direct(phase_requests))
@@ -5835,10 +5957,12 @@ def main(argv=None) -> int:
         "fused_geglu": "unrouted, as in the JAX package; the 16 "
                        "feed-forward sites of one exact UNet evaluation "
                        "(the LN-GEGLU rows), without LN and residual",
-        "fused_group_norm": "unrouted, as in the JAX package; the 81 "
-                            "GroupNorm sites of one exact UNet evaluation "
-                            "(library_ms: F.group_norm at the 36 sites "
-                            "without SiLU only)",
+        "fused_group_norm": "the 81 GroupNorm sites of one exact UNet "
+                            "evaluation (library_ms: F.group_norm at the "
+                            "36 sites without SiLU only; vae_decode and "
+                            "vae_encode: the 30 sites of a 16-frame 512^2 "
+                            "decode and the 22 of a 72-frame 256x448 "
+                            "encode, F.group_norm at each)",
         "fused_ln_cross_attention": "unrouted, as in the JAX package; the "
                                     "16 text cross-attention sites of one "
                                     "exact UNet evaluation, 77 keys",
@@ -5854,8 +5978,9 @@ def main(argv=None) -> int:
                 "bound_by": stats[name]["bound_by"],
                 "library_ms": stats[name]["library_ms"],
                 "ms_covers": covers[name] + " at 16 f / 512^2 CFG, bf16",
-                **{key: stats[name][key] for key in ("cross_frame",
-                                                      "tensor_parallel")
+                **{key: stats[name][key] for key in (
+                    "cross_frame", "tensor_parallel",
+                    *(what for what, *_ in VAE_GROUP_NORM_CALLS))
                    if key in stats[name]}}
                for name, (src, rep) in {**KERNELS, **UNROUTED}.items()]
     log(f"[smoke] {time.perf_counter() - t_start:.1f} s in all ({CARD})")

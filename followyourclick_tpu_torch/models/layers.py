@@ -14,6 +14,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from followyourclick_tpu_torch.ops.groupnorm import fused_group_norm
+
 
 def sinusoidal_timestep_embedding(timesteps: torch.Tensor, dim: int,
                                   flip_sin_to_cos: bool = True,
@@ -75,6 +77,12 @@ class GroupNorm(nn.Module):
     per frame, as the reference's plain GroupNorm does; ``F.group_norm`` on
     frames folded into the batch would be per frame. ``act="silu"`` applies
     the SiLU that follows the norm at the call sites that fold it.
+
+    On a card the input goes to ``ops/groupnorm.fused_group_norm`` as
+    ``(B, N, C)`` rows, the axes between the batch and the channels folded
+    into N: the same statistics in one pass over x (the kernel's pilot is
+    the group's mean at row 0); what the kernel does not take raises. Off
+    the card the input takes :meth:`plain`.
     """
 
     def __init__(self, num_channels: int, num_groups: int = 32,
@@ -88,6 +96,15 @@ class GroupNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.device.type != "cuda":
+            return self.plain(x)
+        b, c = x.shape[0], x.shape[-1]
+        return fused_group_norm(
+            x.contiguous().view(b, -1, c), self.weight, self.bias,
+            self.num_groups, self.eps, self.act).view(x.shape)
+
+    def plain(self, x: torch.Tensor) -> torch.Tensor:
+        """The plain PyTorch path."""
         b, c = x.shape[0], x.shape[-1]
         g = self.num_groups
         cg = c // g

@@ -329,6 +329,9 @@ class MotionModule(nn.Module):
         for block in self.transformer_blocks:
             x = block(x, pab, cache)
         x = self.proj_out(x)
-        x = x.reshape(b, hh * ww, f, c).permute(0, 2, 1, 3).reshape(
-            b * f, hh, ww, c) + residual
+        # the residual first: at b = 1 the reshape below is a strided view,
+        # and a sum takes its first operand's layout, so the output stays
+        # contiguous and the next GroupNorm copies nothing
+        x = residual + x.reshape(b, hh * ww, f, c).permute(0, 2, 1, 3).reshape(
+            b * f, hh, ww, c)
         return x.reshape(b, f, hh, ww, c)

@@ -21,11 +21,18 @@ mean of each group's channels at row 0 (the module takes the group's first
 element), and summed in fp32; ``var = max(s2/n − (s1/n)², 0)``; the affine
 is folded into ``y = x·a + b`` in fp32; SiLU follows it; then the cast.
 
-Not routed, as in the JAX package (``models/layers.py:137-141``): the port's
-``GroupNorm`` module keeps its plain path. Under autograd the call goes
-through :class:`GroupNormGrad` (``ops/autograd.Recompute``): the kernel
-forward, and the gradients of :func:`group_norm_fp32`, as the JAX
-``_gn_bwd`` takes them.
+The port's ``GroupNorm`` module (``models/layers.py``) hands every input on
+a card to :func:`fused_group_norm`, folded to ``(B, N, C)``, and a launch
+the kernel refuses raises; a CPU input keeps the module's plain path. The
+JAX package leaves its Pallas kernel unrouted because on a TPU v5e XLA
+fuses the reduction and the apply into the neighbouring ops and the kernel
+loses; eager PyTorch fuses nothing, and the kernel reads x once where the
+plain path makes about nine fp32 passes. Under autograd the call goes through
+:class:`GroupNormGrad` (``ops/autograd.Recompute``): the kernel forward,
+and the gradients of :func:`group_norm_fp32`, as the JAX ``_gn_bwd`` takes
+them. Each kernel call runs in the tracer's span
+``fyc.kernel.fused_group_norm:<B>x<N>x<C>x<element bytes>``
+(``utils/profiling``).
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ import torch.nn.functional as F
 
 from followyourclick_tpu_torch.ops import _build
 from followyourclick_tpu_torch.ops.autograd import Recompute, needs_grad
+from followyourclick_tpu_torch.utils.profiling import span
 
 VEC = 8            # channels per vector of the kernel
 MAX_CHANNELS = 8192  # a block's scratch, (2·row_groups + 3)·C fp32 words
@@ -217,12 +225,14 @@ def _group_norm(x, scale, bias, *, groups, eps, act):
         raise ValueError(f"fused_group_norm: no kernel for {x.device}")
     _check(x, scale, bias, groups)
     path, count, rows = group_norm_path(*x.shape, x.dtype)
-    out = torch.empty_like(x)
-    with _build.on_device(x):
-        if path == "cluster":
-            launch_cluster(x, scale, bias, groups, eps, act, count, rows, out)
-        else:
-            launch_two_pass(x, scale, bias, groups, eps, act, rows, out)
+    with span("fyc.kernel.fused_group_norm", *x.shape, x.element_size()):
+        out = torch.empty_like(x)
+        with _build.on_device(x):
+            if path == "cluster":
+                launch_cluster(x, scale, bias, groups, eps, act, count, rows,
+                               out)
+            else:
+                launch_two_pass(x, scale, bias, groups, eps, act, rows, out)
     fused_group_norm.launches += 1
     return out
 

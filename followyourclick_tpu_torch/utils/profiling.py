@@ -36,8 +36,10 @@ The program's spans: ``fyc.request`` (``AnimationPipeline.sample``),
 ``fyc.unet.half`` / ``fyc.unet.frame`` (each UNet call of the denoise:
 the full batch, the cond half under the CFG cache, the per-frame
 ``video_scale`` pass), ``fyc.decode`` (``decode_latents``),
-``fyc.kernel.fused_motion_block:<P>x<F>x<C>x<heads>`` and
-``fyc.kernel.fused_ln_geglu:<R>x<C>`` (the two kernel wrappers),
+``fyc.kernel.fused_motion_block:<P>x<F>x<C>x<heads>``,
+``fyc.kernel.fused_ln_geglu:<R>x<C>`` and
+``fyc.kernel.fused_group_norm:<B>x<N>x<C>x<element bytes>`` (the kernel
+wrappers; GroupNorm's on the card only),
 ``fyc.train.step`` (one iteration of ``train_loop``), ``fyc.train.encode``
 (``encode_batch``), ``fyc.train.forward``, ``fyc.train.backward`` and
 ``fyc.train.optimizer`` (the phases of a training step).

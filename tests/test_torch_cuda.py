@@ -794,6 +794,105 @@ def test_group_norm_at_the_on_chip_limit(card, n, c, dtype, want):
                  FP32_REL if dtype == F32 else BF16_REL)
 
 
+# every GroupNorm site (B, N, C, groups, eps, act) of one exact CFG UNet
+# evaluation at 16 f / 512², of the 16-frame 512² VAE decode and of the
+# training cell's 72-frame 256×448 VAE encode, N the axes between the batch
+# and the channels; tests/test_torch_groupnorm_route.py pins them to the
+# module tree
+GROUP_NORM_SITES = {
+    "unet": [(2, 65536, 320, 32, 1e-5, "silu"), (1, 65536, 320, 32, 1e-5,
+                                                 "silu"),
+             (2, 65536, 640, 32, 1e-5, "silu"), (2, 65536, 960, 32, 1e-5,
+                                                 "silu"),
+             (2, 16384, 320, 32, 1e-5, "silu"), (2, 16384, 640, 32, 1e-5,
+                                                 "silu"),
+             (2, 16384, 960, 32, 1e-5, "silu"), (2, 16384, 1280, 32, 1e-5,
+                                                 "silu"),
+             (2, 16384, 1920, 32, 1e-5, "silu"), (2, 4096, 640, 32, 1e-5,
+                                                  "silu"),
+             (2, 4096, 1280, 32, 1e-5, "silu"), (2, 4096, 1920, 32, 1e-5,
+                                                 "silu"),
+             (2, 4096, 2560, 32, 1e-5, "silu"), (2, 1024, 1280, 32, 1e-5,
+                                                 "silu"),
+             (2, 1024, 2560, 32, 1e-5, "silu"), (16, 4096, 320, 32, 1e-6,
+                                                 None),
+             (32, 4096, 320, 32, 1e-6, None), (32, 1024, 640, 32, 1e-6,
+                                               None),
+             (32, 256, 1280, 32, 1e-6, None), (32, 64, 1280, 32, 1e-6,
+                                               None)],
+    "decode": [(16, 262144, 128, 32, 1e-6, None),
+               (16, 262144, 256, 32, 1e-6, None),
+               (16, 65536, 256, 32, 1e-6, None),
+               (16, 65536, 512, 32, 1e-6, None),
+               (16, 16384, 512, 32, 1e-6, None),
+               (16, 4096, 512, 32, 1e-6, None)],
+    "encode": [(72, 114688, 128, 32, 1e-6, None),
+               (72, 28672, 128, 32, 1e-6, None),
+               (72, 28672, 256, 32, 1e-6, None),
+               (72, 7168, 256, 32, 1e-6, None),
+               (72, 7168, 512, 32, 1e-6, None),
+               (72, 1792, 512, 32, 1e-6, None)],
+}
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("b,n,c,groups,eps,act", [
+    site for sites in GROUP_NORM_SITES.values() for site in sites])
+def test_routed_group_norm_module_matches_its_plain_path(card, dtype, b, n,
+                                                         c, groups, eps,
+                                                         act):
+    """The ``GroupNorm`` module on the card hands a 4-D x of each site's
+    shape to the kernel, one launch, and gives its own plain path's
+    result."""
+    from followyourclick_tpu_torch.models.layers import GroupNorm
+
+    gen = torch.Generator(device=card).manual_seed(b * n + c)
+    m = GroupNorm(c, groups, eps, act).to(card, dtype)
+    with torch.no_grad():
+        m.weight.copy_(1.0 + 0.05 * torch.randn(c, generator=gen,
+                                                device=card))
+        m.bias.copy_(0.05 * torch.randn(c, generator=gen, device=card))
+        x = (2.0 + torch.randn((b, n // 64, 64, c), generator=gen,
+                               device=card)).to(dtype)
+        before = fused_group_norm.launches
+        got = m(x)
+        assert fused_group_norm.launches == before + 1
+        assert got.shape == x.shape and got.dtype == dtype
+        assert_close(got, m.plain(x), FP32_REL if dtype == F32 else BF16_REL)
+
+
+@pytest.mark.parametrize("case", ["strided", "fp16", "c_off_8",
+                                  "weight_dtype"])
+def test_routed_group_norm_module_copies_or_raises(card, case):
+    """The module never falls back on the card: a strided x is made
+    contiguous and takes the kernel, one launch, with its plain path's
+    result; what the kernel does not take raises before any launch."""
+    from followyourclick_tpu_torch.models.layers import GroupNorm
+
+    c = 36 if case == "c_off_8" else 64
+    dtype = torch.float16 if case == "fp16" else BF16
+    m = GroupNorm(c, 4, 1e-6, "silu").to(card, dtype)
+    if case == "weight_dtype":
+        m = m.float()
+    gen = torch.Generator(device=card).manual_seed(c)
+    x = (1.0 + torch.randn((2, 8, 16, 3, c), generator=gen,
+                           device=card)).to(dtype)
+    if case == "strided":
+        x = x.transpose(1, 3)
+    before = fused_group_norm.launches
+    with torch.no_grad():
+        if case != "strided":
+            with pytest.raises((TypeError, ValueError),
+                               match="fused_group_norm"):
+                m(x)
+            assert fused_group_norm.launches == before
+            return
+        got = m(x)
+    assert fused_group_norm.launches == before + 1
+    assert got.shape == x.shape
+    assert_close(got, m.plain(x), BF16_REL)
+
+
 def test_unrouted_wrappers_reject_what_the_kernels_do_not_take(card):
     rs = np.random.RandomState(0)
     args = cross_args(rs, 1, 16, 1280, 77, F32)

@@ -6,9 +6,11 @@ it with ``--noconftest``, as
 whole-block kernel, under autograd: the gradients of its parameters through
 the kernels' autograd Functions are non-zero and match those through the
 plain versions (the wrappers swapped by ``chip_smoke.wrappers_replaced``)
-to a cosine of 0.99 each; the two unrouted kernels of the UNet's sites
-(GroupNorm, LN-cross-attention) give their plain versions' gradients under
-autograd, their forward launches counted as before.
+to a cosine of 0.99 each; the GroupNorm and LN-cross-attention kernels at
+a UNet site give their plain versions' gradients under autograd, their
+forward launches counted as before; the ``GroupNorm`` module, routed to
+its kernel at the training cell's sites with its fp32 masters cast to
+bf16, gives its plain path's gradients.
 """
 
 import pytest
@@ -103,3 +105,43 @@ def test_unrouted_kernels_backward(card):
           lambda *a: ln_cross_attention_ref(*a, heads=8), ca,
           (2, 4096, 320))
     assert fused_ln_cross_attention.launches == before + 1
+
+
+@pytest.mark.parametrize("shape,eps,act", [
+    ((1, 24, 32, 56, 320), 1e-5, "silu"), ((24, 32, 56, 320), 1e-6, None),
+    ((3, 8, 16, 28, 640), 1e-5, "silu")])
+def test_routed_group_norm_module_grads_under_the_training_cast(card, shape,
+                                                                eps, act):
+    """The ``GroupNorm`` module at training-cell sites, its fp32 masters cast
+    to bf16 for the forward as ``training/step.py`` does: one kernel
+    launch, and the gradients of x and of the masters (through the cast)
+    against autograd through the module's plain path in fp32, cosine 0.99
+    each."""
+    from followyourclick_tpu_torch.models.layers import GroupNorm
+    from followyourclick_tpu_torch.ops.groupnorm import fused_group_norm
+
+    bf = torch.bfloat16
+    c = shape[-1]
+    gen = torch.Generator(device=card).manual_seed(c)
+    m = GroupNorm(c, 32, eps, act).to(card)
+    with torch.no_grad():
+        m.weight.copy_(1.0 + 0.05 * torch.randn(c, generator=gen,
+                                                device=card))
+        m.bias.copy_(0.05 * torch.randn(c, generator=gen, device=card))
+    x = (2.0 + torch.randn(shape, generator=gen, device=card)).to(
+        bf).requires_grad_()
+    cot = torch.randn(shape, generator=gen, device=card).to(bf)
+    masters = (m.weight, m.bias)
+    before = fused_group_norm.launches
+    out = torch.func.functional_call(
+        m, {"weight": m.weight.to(bf), "bias": m.bias.to(bf)}, (x,))
+    assert fused_group_norm.launches == before + 1
+    assert out.grad_fn.name() == "ViewBackward0"
+    got = torch.autograd.grad(out, (x, *masters), cot)
+    ref = x.detach().float().requires_grad_()
+    want = torch.autograd.grad(m.plain(ref), (ref, *masters), cot.float())
+    for g, w, leaf in zip(got, want, (x, *masters)):
+        assert g.dtype == leaf.dtype
+        a, b = g.double().flatten(), w.double().flatten()
+        assert bool(a.any())
+        assert float(a @ b) / float(a.norm() * b.norm()) >= 0.99

@@ -14,7 +14,9 @@ step and 20 per 10-step ``pab488_deep4_cfg4_ex`` request; the
 solver's UNet calls, no CFG and the unshared prefix. The IP-Adapter
 Plus UNet (16 ip tokens) launches as the exact path does. The smoke's
 GroupNorm sites, read by hooks from a meta-device run, are the module
-tree's.
+tree's; every evaluation launches the GroupNorm kernel once at each of its
+81 norms (a trunk-reuse step at level 0's 20 and ``conv_norm_out``), each
+VAE encoder call 22 times and each decoder call 30 times.
 """
 
 import dataclasses
@@ -45,57 +47,59 @@ def meta_unet():
         return UNet3DConditionModel(InferenceConfig().unet)
 
 
-def _counts(motion, geglu, block, attn, flash=0):
+def _counts(motion, geglu, block, attn, flash=0, *, norms):
     return {"fused_motion_block": motion, "fused_ln_geglu": geglu,
             "fused_temporal_block": block, "temporal_attention": attn,
-            "flash_attention": flash}
+            "flash_attention": flash, "fused_group_norm": norms}
 
 
 @pytest.mark.parametrize("spec, dtype, batch, want", [
     (SERVING, torch.bfloat16, 1, chip_smoke.SERVING_LAUNCHES),
+    # every step runs the 81 GroupNorms
     (SampleSpec(num_inference_steps=4), torch.bfloat16, 1,
-     _counts(80, 64, 0, 0)),
+     _counts(80, 64, 0, 0, norms=324)),
     # fp32: the 5 blocks at C = 320 fit the whole-block kernel; the 15 at
     # 640 and 1280 take the modular path (their FFs join the 16 spatial)
     (SampleSpec(num_inference_steps=1), torch.float32, 1,
-     _counts(5, 31, 10, 20)),
+     _counts(5, 31, 10, 20, norms=81)),
     (SERVING, torch.bfloat16, chip_smoke.BATCH,
      chip_smoke.BATCHED_SERVING_LAUNCHES),
     (SampleSpec(num_inference_steps=4), torch.bfloat16, chip_smoke.BATCH,
-     _counts(80, 64, 0, 0, 4 * chip_smoke.BATCHED_FLASH_PER_EXACT_STEP)),
+     _counts(80, 64, 0, 0, 4 * chip_smoke.BATCHED_FLASH_PER_EXACT_STEP,
+             norms=324)),
     # cfg_cache3 at 6 steps: full steps 0, 3 and the 2 final exact ones run
     # 4 flash attentions each at two clips; the 2 cond-only steps none
     (apply_schedule(SampleSpec(num_inference_steps=6), "cfg_cache3"),
-     torch.bfloat16, 2, _counts(120, 96, 0, 0, 16)),
+     torch.bfloat16, 2, _counts(120, 96, 0, 0, 16, norms=486)),
     # three clips: the first level-0 attention (48 rows, exactly 12 GiB)
     # still stays below the line
     (SampleSpec(num_inference_steps=1), torch.bfloat16, 3,
-     _counts(20, 16, 0, 0, 4)),
+     _counts(20, 16, 0, 0, 4, norms=81)),
     # video_scale: each step adds the per-frame pass (F = 1), 20 more
     # whole-block motion calls and 16 more LN-GEGLU; its 32 rows at 2 clips
     # (8 GiB of scores) stay below the flash line
     (SampleSpec(num_inference_steps=4, video_scale=1.5), torch.bfloat16, 1,
-     _counts(160, 128, 0, 0)),
+     _counts(160, 128, 0, 0, norms=648)),
     (SampleSpec(num_inference_steps=1, video_scale=1.5), torch.bfloat16, 2,
-     _counts(40, 32, 0, 0, 4)),
+     _counts(40, 32, 0, 0, 4, norms=162)),
     # the solvers' calls: PNDM's PLMS grid S+1, its PRK grid S+9, the
     # others S
     (SampleSpec(num_inference_steps=4, scheduler="pndm"), torch.bfloat16, 1,
-     _counts(100, 80, 0, 0)),
+     _counts(100, 80, 0, 0, norms=405)),
     (SampleSpec(num_inference_steps=4, scheduler="pndm_prk"),
-     torch.bfloat16, 1, _counts(260, 208, 0, 0)),
+     torch.bfloat16, 1, _counts(260, 208, 0, 0, norms=1053)),
     (SampleSpec(num_inference_steps=4, scheduler="euler_a"),
-     torch.bfloat16, 1, _counts(80, 64, 0, 0)),
+     torch.bfloat16, 1, _counts(80, 64, 0, 0, norms=324)),
     # no CFG: the 32 rows of 2 clips are never doubled, no flash; the
     # unshared prefix doubles before the first block: 5 flash a step
     (SampleSpec(num_inference_steps=1, guidance_scale=1.0), torch.bfloat16,
-     2, _counts(20, 16, 0, 0, 0)),
+     2, _counts(20, 16, 0, 0, 0, norms=81)),
     (SampleSpec(num_inference_steps=1, share_cfg_prefix=False),
-     torch.bfloat16, 2, _counts(20, 16, 0, 0, 5)),
+     torch.bfloat16, 2, _counts(20, 16, 0, 0, 5, norms=81)),
     # the CFG cache is off under video_scale and without CFG, as in JAX
     (apply_schedule(SampleSpec(num_inference_steps=6, video_scale=1.5),
                     "cfg_cache3"), torch.bfloat16, 1,
-     _counts(240, 192, 0, 0)),
+     _counts(240, 192, 0, 0, norms=972)),
 ], ids=["serving", "exact-bf16", "exact-fp32", "serving-2clips",
         "exact-2clips", "cfg_cache3-2clips", "exact-3clips", "video_scale",
         "video_scale-2clips", "pndm", "pndm_prk", "euler_a", "no_cfg-2clips",
@@ -131,7 +135,7 @@ def test_ip_plus_unet_launches_as_the_exact_path(meta_unet):
     spec = SampleSpec(num_inference_steps=4)
     assert chip_smoke.expected_launches(ip_unet, spec, torch.bfloat16) == \
         chip_smoke.expected_launches(meta_unet, spec, torch.bfloat16) == \
-        _counts(80, 64, 0, 0)
+        _counts(80, 64, 0, 0, norms=324)
 
 
 def test_group_norm_sites_are_the_module_tree(meta_unet):
@@ -240,4 +244,38 @@ def test_modular_evaluation_launches(meta_unet):
     plan = [PlanStep(0, 0, True, PabMode(record_temporal=True))]
     assert chip_smoke.expected_launches(
         meta_unet, SampleSpec(num_inference_steps=1), torch.bfloat16,
-        plan=plan) == _counts(0, 36, 20, 20)
+        plan=plan) == _counts(0, 36, 20, 20, norms=81)
+
+
+@pytest.mark.parametrize("encodes,decodes,norms", [(1, 1, 22 + 30),
+                                                   (0, 1, 30), (2, 3, 134)])
+def test_a_request_adds_its_vae_calls(meta_unet, encodes, decodes, norms):
+    """Each VAE encoder call launches its 22 GroupNorms, each decoder call
+    its 30; no other kernel moves."""
+    from followyourclick_tpu_torch.models.vae import AutoencoderKL
+
+    with torch.device("meta"):
+        vae = AutoencoderKL(InferenceConfig().vae)
+    spec = SampleSpec(num_inference_steps=2)
+    base = chip_smoke.expected_launches(meta_unet, spec, torch.bfloat16)
+    got = chip_smoke.expected_launches(meta_unet, spec, torch.bfloat16,
+                                       vae=vae, encodes=encodes,
+                                       decodes=decodes)
+    assert got == {**base, "fused_group_norm": 162 + norms}
+
+
+@pytest.mark.parametrize("part,norms", [("encoder", 22), ("decoder", 30)])
+def test_each_vae_part_launches_its_group_norms(part, norms):
+    """One launch a GroupNorm module of the part, and its smoke sites (one
+    call at the smoke's VAE shapes) count the same norms."""
+    from followyourclick_tpu_torch.models.vae import AutoencoderKL
+
+    cfg = InferenceConfig()
+    with torch.device("meta"):
+        vae = AutoencoderKL(cfg.vae)
+    assert chip_smoke.group_norm_launches(getattr(vae, part)) == norms
+    (_, frames, h, w, decode), = [
+        call for call in chip_smoke.VAE_GROUP_NORM_CALLS
+        if call[4] == (part == "decoder")]
+    assert sum(chip_smoke.vae_group_norm_sites(
+        cfg.vae, frames, h, w, decode).values()) == norms

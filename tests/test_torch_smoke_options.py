@@ -47,7 +47,7 @@ def meta_unet(cfg=None, **overrides):
 
 
 @pytest.mark.parametrize("spec,want", [
-    (SampleSpec(num_inference_steps=4), _counts(80, 64, 0, 0)),
+    (SampleSpec(num_inference_steps=4), _counts(80, 64, 0, 0, norms=324)),
     (SERVING, chip_smoke.SERVING_LAUNCHES)], ids=["exact", "serving"])
 def test_t5_unet_launches_as_the_default(spec, want):
     unet = meta_unet(use_text_encoder_2=True)
@@ -58,20 +58,21 @@ def test_routes_unet_launches():
     unet = meta_unet(chip_smoke.routes_unet(InferenceConfig().unet))
     spec = SampleSpec(num_inference_steps=1)
     assert chip_smoke.expected_launches(unet, spec, BF16, plan=ONE_EVAL) \
-        == _counts(0, 36, 0, 56, 4) == chip_smoke.ROUTES_LAUNCHES
+        == _counts(0, 36, 0, 56, 4, norms=81) == chip_smoke.ROUTES_LAUNCHES
     # a serving step that records temporal sites runs the same kernels on
     # its pre-duplicated input: all 5 level-0 attentions above the line
     step = [PlanStep(0, 0, True, PabMode(record_temporal=True))]
     assert chip_smoke.expected_launches(unet, spec, BF16, plan=step) == \
-        _counts(0, 36, 0, 56, 5)
+        _counts(0, 36, 0, 56, 5, norms=81)
 
 
 @pytest.mark.parametrize("mm,want", [
     (dict(attention_block_types=("Temporal_Self", "Temporal_Cross")),
-     _counts(0, 36, 20, 20)),
-    (dict(temporal_attention_dim_div=2), _counts(0, 36, 0, 40)),
-    (dict(use_rope_position_encoding=True), _counts(0, 36, 0, 40)),
-    (dict(add_temporal_lora=True), _counts(0, 36, 0, 40))],
+     _counts(0, 36, 20, 20, norms=81)),
+    (dict(temporal_attention_dim_div=2), _counts(0, 36, 0, 40, norms=81)),
+    (dict(use_rope_position_encoding=True),
+     _counts(0, 36, 0, 40, norms=81)),
+    (dict(add_temporal_lora=True), _counts(0, 36, 0, 40, norms=81))],
     ids=["cross", "dim_div2", "rope", "lora"])
 def test_motion_option_launches(mm, want):
     unet = meta_unet(motion_module=MotionModuleConfig(**mm))
